@@ -5,23 +5,36 @@
 
 Phases; any failure exits non-zero (nothing is caught and continued):
   1. environment: torch / CUDA / nvcc versions, the card and its power limit
-  2. build: the four CUDA kernels (nvcc, in parallel, -Xptxas -v) and the
-     native host runtime (g++); then the synthetic production-size index
-     (danbing_tk_tpu_torch/tools/scale_index.py) on the card
-  3. every kernel against its plain torch version on the same inputs at
-     the main path's shapes (P = 4096 pairs, L = 160, k = 21, E = 512,
-     prefilter dispatch 4P), on the production-size index; exact equality
+  2. build: the five CUDA kernels (nvcc, in parallel, -Xptxas -v) and the
+     native host runtime and threading engine (g++); then the synthetic
+     production-size index (danbing_tk_tpu_torch/tools/scale_index.py)
+  3. every kernel of the counting step against its plain torch version on
+     the same inputs at the main path's shapes (P = 4096 pairs, L = 160,
+     k = 21, E = 512, prefilter dispatch 4P), on the production-size
+     index: KA, KB (dbi, member, trfl), KC and KD; exact equality
      required; median CUDA-event times of kernel and plain version
-  4. golden end to end: the CLI's ``align --device --native-io --prefilter
-     -ka`` on tests/golden on cuda, .trkmc.ar byte-equal to the golden file,
-     every kernel launched
-  5. the production-size funnel: >= 1M read pairs (5% from the TR pool,
-     95% random background, 150 bp in L = 160 rows) through the
+  4. golden end to end on cuda through the CLI: ``align --device
+     --native-io --prefilter -ka`` (.trkmc.ar byte-equal) and the
+     threading run ``-s 2 -gc 50 3 -a -on`` (.aln and .tr.kmers
+     byte-equal, no .tr.summary.txt); every kernel launched
+  5. the production-size counting funnel: >= 1M read pairs (5% from the
+     TR pool, 95% random background, 150 bp in L = 160 rows) through the
      host-sampled prefilter, survivor repack and the full step; flagged
-     pairs are counted, not resolved; the launch counts of this run are
-     the ``launches`` of the kernels line
-  6. the kernels line (JSON)
-  7. the last line: {"ok": true, "device": {...}}
+     pairs are counted, not resolved
+  6. the production-size threading funnel (-gc 85 3): the index's graph
+     table (the fa2kmers -g rule over the loci's sequences), built and
+     uploaded only now, so the counting phases never hold it; the
+     threading step's KB (graph), KD (threading mode) and KE against their
+     plain versions as in phase 3, on TR pairs with 0.5% substitutions;
+     then >= 1M pairs, 5% from the TR pool with 0.5% substitutions, through
+     prefilter, full step and KE; pairs whose walk is not clean go to the
+     batched native engine through a host view of the loci's graphs (test
+     data, built for the pool fragments' loci before the timed run);
+     referee'd pairs are counted, not resolved
+  7. the kernels line (JSON): each kernel's ``launches`` is the sum over
+     the two funnel runs (per path in ``launches_by_path``), the counts
+     set to 0 just before each run and read just after it
+  8. the last line: {"ok": true, "device": {...}}
 
 Needs a CUDA card; exits 1 without one, or without the package beside it.
 """
@@ -38,6 +51,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM HBM3, published peak
+COUNTING = ("KA", "KB", "KC", "KD")     # the counting path's kernels
 
 
 def log(msg: str) -> None:
@@ -126,6 +140,7 @@ def main() -> int:
     t0 = time.time()
     secs = build.build_kernels()
     build.native_lib()
+    build.thread_lib()
     log(f"[2] kernels built in {time.time() - t0:.2f}s "
         f"(per source {secs})")
     for name, out in build.build_logs.items():
@@ -139,7 +154,9 @@ def main() -> int:
     from danbing_tk_tpu_torch.index import device_table as dt
     from danbing_tk_tpu_torch.io.native_reader import sample_queries
     from danbing_tk_tpu_torch.ops import kmers as km
-    from danbing_tk_tpu_torch.tools.scale_index import (build_scale_rpgg,
+    from danbing_tk_tpu_torch.tools.scale_index import (ScaleThreadView,
+                                                         build_scale_graph,
+                                                         build_scale_rpgg,
                                                          sample_read_batch)
 
     t0 = time.time()
@@ -159,6 +176,7 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions ----
     P, L, E, k, RL = 4096, 160, 512, 21, 150
+    SUB = 0.005           # per-base substitutions of the threading reads
     Pp = 4 * P
     NKW = L - k + 1
     cfg = AlignConfig(ksize=k, cth=20, n_filter=4, nm_filter=1, okam=False)
@@ -184,7 +202,7 @@ def main() -> int:
     qlo, qhi, qvalid, qnon = sample_queries(pbatch, prlen, k, 4)
     q_mem = torch.from_numpy(da.query_int64(qlo, qhi)).to(dev)
 
-    def compare(name, kern, plain, bound_bytes, extra=""):
+    def compare(name, kern, plain, bound_bytes, extra="", phase=3):
         """Holds kern() against plain() (exact), then times both."""
         err = max_abs_err(kern(), plain())
         torch.cuda.synchronize()
@@ -193,25 +211,66 @@ def main() -> int:
                  f"{err})")
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
         bound = bound_bytes / HBM_BYTES_PER_MS
-        log(f"[3] {name} match=True max_abs_err={err} ms={ms:.4f} "
+        log(f"[{phase}] {name} match=True max_abs_err={err} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} {extra}")
         return dict(match=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by="bytes", library_ms=None)
 
     def kb_bytes(tab, q, loc=None):
-        """Bytes this data makes KB move: every query reads its level-0
-        row, a query that missed levels < l reads its level-l row; plus
-        8 B per query (16 with a locus) in and 17 B out."""
-        rows = 0
-        found = torch.zeros(q.numel(), dtype=torch.bool, device=q.device)
-        for lv in range(len(tab.levels)):
-            rows += int((~found).sum())
-            sub = dt.DevTable(tab.levels[lv:lv + 1], tab.salts[lv:lv + 1],
-                              tab.composite, tab.nval)
-            found |= dt.lookup_bucket_plain(sub, q.reshape(-1), None if loc
-                                            is None else loc.reshape(-1))[0]
+        """Bytes this data makes KB move: each distinct row it reads (its
+        level-0 row for every query, its level-l row for a query that
+        missed levels < l), read once; plus 8 B per query (16 with a
+        locus) in and 17 B out.  Returns (bytes, distinct rows, row
+        reads)."""
+        qf = q.reshape(-1)
+        lf = None if loc is None else loc.reshape(-1).long() & 0xFFFFFFFF
+        lo, hi = qf & 0xFFFFFFFF, (qf >> 32) & 0xFFFFFFFF
+        rows = reads = 0
+        found = torch.zeros(qf.numel(), dtype=torch.bool, device=q.device)
+        for lv, (t, salt) in enumerate(zip(tab.levels, tab.salts)):
+            m = ~found
+            b = dt.bucket_index(lo[m], hi[m], None if lf is None else lf[m],
+                                salt, t.shape[0])
+            rows += int(torch.unique(b).numel())
+            reads += int(m.sum())
+            sub = dt.DevTable([t], [salt], tab.composite, tab.nval)
+            found |= dt.lookup_bucket_plain(sub, qf, lf)[0]
         return (rows * 8 * tab.W * 4
-                + q.numel() * (8 + 8 * (loc is not None) + 17)), rows
+                + q.numel() * (8 + 8 * (loc is not None) + 17)), rows, reads
+
+    def touched(counts):
+        """Distinct count slots a run wrote (the trash slot aside): each
+        is read and written once, 8 B."""
+        return int((counts[:-1] != 0).sum())
+
+    def ke_bytes(nc, gfound, gmask, kvalid, nk, dev_pair, tr_member, slot,
+                 clean_pair, n_slots):
+        """Bytes this data makes KE move.  A mate of a device-resolved
+        pair is walked up to its first failure and the position after it
+        (its nc for the edge check), or over all its in-read positions
+        when clean: 18 B each (nc, gfound, gmask, kvalid); other mates
+        need none (dev_pair alone decides them).  A pair that walks clean
+        reads tr_member (1 B) at each in-read position and the slot (8 B)
+        at each TR member.  Plus nk and dev_pair in, clean and clean_pair
+        out, and 8 B per distinct slot written, trash slot included.
+        Returns (bytes, walked positions, counted positions)."""
+        R, NKW = nc.shape
+        nin = nk.long().clamp(max=NKW)
+        inr = torch.arange(NKW, device=nc.device) < nin[:, None]
+        bad = ~kvalid | ~gfound
+        bad[:, 1:] |= nc[:, 1:] == nc[:, :-1]
+        bad[:, :-1] |= (((gmask[:, :-1] >> (nc[:, 1:] & 3)) & 1) == 0) \
+            & inr[:, 1:]
+        bad &= inr
+        upto = torch.minimum(torch.where(bad.any(1), bad.int().argmax(1) + 2,
+                                         nin), nin)
+        walked = int(torch.where(dev_pair.repeat_interleave(2), upto,
+                                 0).sum())
+        thr_r = (dev_pair & clean_pair).repeat_interleave(2)
+        members = int(torch.where(thr_r, nin, 0).sum())
+        counted = int(((tr_member != 0) & inr & thr_r[:, None]).sum())
+        return (18 * walked + members + 8 * counted + R * (4 + 1)
+                + R // 2 * 2 + 8 * (n_slots + 1)), walked, counted
 
     B = 2 * P
     ka_c, ka_r, _ = cap["KA"]
@@ -225,12 +284,13 @@ def main() -> int:
     for tname, (tab, q, loc) in (
             ("dbi", cap["KB_dbi"] + (None,)), ("member", (mtab, q_mem, None)),
             ("trfl", cap["KB_trfl"])):
-        nbytes, rows = kb_bytes(tab, q, loc)
+        nbytes, rows, reads = kb_bytes(tab, q, loc)
         kb[tname] = compare(
             f"KB bucket_lookup[{tname}]",
             lambda tab=tab, q=q, loc=loc: dt.lookup_bucket(tab, q, loc),
             lambda tab=tab, q=q, loc=loc: dt.lookup_bucket_plain(tab, q, loc),
-            nbytes, f"queries={q.numel()} rows={rows} launches/step="
+            nbytes, f"queries={q.numel()} distinct_rows={rows} "
+            f"row_reads={reads} launches/step="
             f"{'1 per prefilter dispatch' if tname == 'member' else 1}")
     kc_args = cap["KC"]
     kc = compare("KC pair_vote", lambda: da.pair_vote(*kc_args),
@@ -247,10 +307,12 @@ def main() -> int:
         if not torch.equal(st_k[key], st_p[key]):
             fail(f"KD state {key} disagrees with the plain version")
     n_counted = int((st_k["counts"][:-1].long() & 0xFFFFFFFF).sum())
+    n_slots = touched(st_k["counts"])
     kd = compare("KD assign_count", lambda: da.assign_count(st_k, *kd_args),
                  lambda: da.assign_count_plain(st_p, *kd_args),
-                 B * NKW * 27 + B * (9 * 4 + 8) + P * 9 + n_counted * 8,
-                 f"reads={B} counted_kmers={n_counted} launches/step=1")
+                 B * NKW * 27 + B * (9 * 4 + 8) + P * 9 + n_slots * 8,
+                 f"reads={B} counted_kmers={n_counted} slots={n_slots} "
+                 f"launches/step=1")
     results = {
         "KA": dict(ka, source="danbing_tk_tpu_torch/csrc/kmers.cu",
                    replaces="danbing_tk_tpu/ops/kmers_jax.py:63"),
@@ -291,10 +353,33 @@ def main() -> int:
         want = f.read()
     if got != want:
         fail("golden .trkmc.ar differs from tests/golden/out.trkmc.ar")
-    if min(golden_counts.values()) <= 0:
+    if min(golden_counts[t] for t in COUNTING) <= 0:
         fail(f"golden run skipped a kernel: {golden_counts}")
     log(f"[4] golden CLI on cuda: .trkmc.ar byte-equal, "
         f"{time.time() - t0:.1f}s, launches {golden_counts}")
+    da.reset_launch_counts()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="dtk_smoke_") as out_dir:
+        out = os.path.join(out_dir, "OUT")
+        cli.main(["align", "--device", "--native-io", "--prefilter", "-cth",
+                  "20", "-kf", "4", "1", "-s", "2", "-gc", "50", "3", "-a",
+                  "-qs", os.path.join(gold, "pan"), "-fa",
+                  os.path.join(gold, "reads.sim.fa"), "-on", out])
+        torch.cuda.synchronize()
+        golden_thr_counts = da.launch_counts()
+        for ext, name in ((".aln", "out.thread.aln"),
+                          (".tr.kmers", "out.thread.tr.kmers")):
+            with open(out + ext, "rb") as f, \
+                    open(os.path.join(gold, name), "rb") as g:
+                if f.read() != g.read():
+                    fail(f"golden threading {ext} differs from "
+                         f"tests/golden/{name}")
+        if os.path.exists(out + ".tr.summary.txt"):
+            fail("threading mode wrote a .tr.summary.txt")
+    if min(golden_thr_counts.values()) <= 0:
+        fail(f"golden threading run skipped a kernel: {golden_thr_counts}")
+    log(f"[4] golden threading CLI on cuda: .aln and .tr.kmers byte-equal, "
+        f"{time.time() - t0:.1f}s, launches {golden_thr_counts}")
 
     # ---- 5. production-size funnel ----
     runner = DeviceAlignRunner(None, cfg, batch_pairs=P, max_read_len=L,
@@ -314,7 +399,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = da.launch_counts()
-    if min(launches.values()) <= 0:
+    if min(launches[t] for t in COUNTING) <= 0:
         fail(f"the funnel skipped a kernel: {launches}")
     stats = runner.state["stats"].cpu().tolist()
     nmap = da.state_u32(runner.state["nmapread"])[:-1].astype(np.int64)
@@ -333,12 +418,141 @@ def main() -> int:
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
         f"stats={stats} launches={launches}")
 
-    # ---- 6. kernels line ----
+    # ---- 6. production-size threading funnel ----
+    t0 = time.time()
+    drp.graph_tab, n_graph = build_scale_graph(seqs, verbose=False)
+    t_graph = time.time() - t0
+    t0 = time.time()
+    drp.tables(dev, graph=True)
+    torch.cuda.synchronize()
+    log(f"[6] graph table: entries={n_graph} bytes={drp.graph_tab.nbytes} "
+        f"levels={len(drp.graph_tab.levels)} build={t_graph:.1f}s "
+        f"upload={time.time() - t0:.1f}s")
+    # the threading step (-gc 85 3, the reference README's setting) on TR
+    # pairs with substitutions, so both clean and corrected walks occur
+    tcfg = AlignConfig(ksize=k, cth=20, n_filter=4, nm_filter=1, okam=False,
+                       threading=True, thread_cth=85, maxncorrection=3)
+    trng = np.random.default_rng([args.seed, 2])
+    tcodes, trlen = sample_read_batch(seqs, P, L, trng, frac_tr=1.0,
+                                      read_len=RL, sub_rate=SUB)
+    tcap: dict = {}
+    tstep = da.make_step(drp, tcfg, P, L, expand_cap=E, device=dev,
+                         capture=tcap)
+    tscratch = da.init_state(drp, dev)
+    tcodes_d = torch.from_numpy(tcodes).to(dev)
+    trlen_d = torch.from_numpy(trlen).to(dev)
+    _, tout = tstep(tscratch, tcodes_d, trlen_d, live_d)
+    torch.cuda.synchronize()
+    n_vote = int(tout["vote_pass"].sum())
+    n_clean = int(tout["clean_pair"].sum())
+    tab, q, loc = tcap["KB_graph"]
+    nbytes, rows, reads = kb_bytes(tab, q, loc)
+    kb["graph"] = compare(
+        "KB bucket_lookup[graph]", lambda: dt.lookup_bucket(tab, q, loc),
+        lambda: dt.lookup_bucket_plain(tab, q, loc), nbytes,
+        f"queries={q.numel()} distinct_rows={rows} row_reads={reads} "
+        f"launches/step=1 (threading)", phase=6)
+    kdt_args = tcap["KD"]
+    st_k, st_p = da.init_state(drp, dev), da.init_state(drp, dev)
+    compare("KD assign_count[threading]",
+            lambda: da.assign_count(st_k, *kdt_args),
+            lambda: da.assign_count_plain(st_p, *kdt_args),
+            B * NKW * 36 + B * (9 * 4 + 8) + P * 9,
+            f"reads={B} writes tr_member + slot planes, no counts", phase=6)
+    for key in ("counts", "nmapread", "kmc"):
+        if st_k[key].any() or st_p[key].any():
+            fail(f"KD in threading mode touched state {key}")
+    ke_args = tcap["KE"]
+    st_k, st_p = da.init_state(drp, dev), da.init_state(drp, dev)
+    _, ke_pair = da.thread_walk(st_k, *ke_args)
+    da.thread_walk_plain(st_p, *ke_args)
+    torch.cuda.synchronize()
+    if not torch.equal(st_k["counts"], st_p["counts"]):
+        fail("KE counts disagree with the plain version")
+    n_thr_counted = int((st_k["counts"][:-1].long() & 0xFFFFFFFF).sum())
+    n_thr_slots = touched(st_k["counts"])
+    ke_b, ke_walked, ke_counted = ke_bytes(*ke_args, ke_pair, n_thr_slots)
+    ke = compare("KE thread_walk", lambda: da.thread_walk(st_k, *ke_args),
+                 lambda: da.thread_walk_plain(st_p, *ke_args), ke_b,
+                 f"pairs={P} vote_pass={n_vote} clean_pairs={n_clean} "
+                 f"walked_positions={ke_walked} counted_kmers={n_thr_counted} "
+                 f"counted_positions={ke_counted} slots={n_thr_slots} "
+                 f"launches/step=1", phase=6)
+    results["KE"] = dict(
+        ke, source="danbing_tk_tpu_torch/csrc/thread_walk.cu",
+        replaces="danbing_tk_tpu/engine/device_align.py:1145")
+    tstep_ms = cuda_ms(lambda: tstep(tscratch, tcodes_d, trlen_d, live_d))
+    log(f"[6] threading step (P={P}, sub_rate={SUB}) ms={tstep_ms:.4f} "
+        f"clean_pair_share={n_clean / max(n_vote, 1):.4f}")
+    del tscratch, st_k, st_p, tcap, kdt_args, ke_args
+
+    view = ScaleThreadView(seqs, k)
+    trunner = DeviceAlignRunner(None, tcfg, batch_pairs=P, max_read_len=L,
+                                expand_cap=E, drp=drp, device=dev,
+                                thread_view=view)
+    trng = np.random.default_rng([args.seed, 3])
+    t0 = time.time()
+    tbatches, src_loci = [], []
+    for _ in range(nbat):
+        c, r, li = sample_read_batch(seqs, Pd, L, trng, frac_tr=0.05,
+                                     read_len=RL, sub_rate=SUB,
+                                     with_loci=True)
+        tbatches.append((c, r, Pd))
+        src_loci.append(li)
+    t_tdata = time.time() - t0
+    # the host view stands in for an index's graphs, which a real run
+    # loads before it aligns: build the pool fragments' loci up front
+    view.build(np.concatenate(src_loci))
+    t_view, n_view = view.build_s, len(view.graphs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launch_counts()
+    t0 = time.time()
+    trunner.run_batches(tbatches, prefilter=True)
+    torch.cuda.synchronize()
+    twall = time.time() - t0
+    tlaunches = da.launch_counts()
+    if min(tlaunches.values()) <= 0:
+        fail(f"the threading funnel skipped a kernel: {tlaunches}")
+    n_surv = trunner.n_step_pairs
+    n_dev, n_host = trunner.n_device_thread, trunner.n_host_thread
+    n_ref = trunner.n_referee
+    host_counted = sum(sum(d.values()) for d in view.tr_counts.values())
+    dev_counted = int((trunner.state["counts"][:-1].long()
+                       & 0xFFFFFFFF).sum())
+    if trunner.n_prefiltered + n_surv != npairs or \
+            n_dev + n_host + n_ref > n_surv or min(n_dev, n_host) <= 0 \
+            or host_counted <= 0 or dev_counted <= 0:
+        fail(f"threading funnel bookkeeping: survivors {n_surv}, device "
+             f"{n_dev}, host {n_host}, referee {n_ref}, counted "
+             f"{dev_counted} + {host_counted}")
+    log(f"[6] threading funnel (-gc 85 3): pairs={npairs} (data made in "
+        f"{t_tdata:.1f}s; host view of {n_view} source loci built before "
+        f"in {t_view:.1f}s) wall={twall:.3f}s "
+        f"reads/s={2 * npairs / twall:.0f} "
+        f"survivors={n_surv} device_clean={n_dev} host_thread={n_host} "
+        f"referee={n_ref} shares(device/host/referee of survivors)="
+        f"{n_dev / n_surv:.4f}/{n_host / n_surv:.4f}/{n_ref / n_surv:.4f} "
+        f"host_view_loci_built_in_run={len(view.graphs) - n_view} "
+        f"host_view_build_s_in_run={view.build_s - t_view:.3f} "
+        f"counted_kmers(device/host)={dev_counted}/{host_counted} "
+        f"steps={trunner.n_steps} graph_table_bytes={drp.graph_tab.nbytes} "
+        f"graph_build_s={t_graph:.1f} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+        f"stats={trunner.state['stats'].cpu().tolist()} "
+        f"launches={tlaunches}")
+
+    # ---- 7. kernels line ----
     names = {"KA": "KA extract_kmers", "KB": "KB bucket_lookup",
-             "KC": "KC pair_vote", "KD": "KD assign_count"}
-    kern = [dict(name=names[t], route="cuda", launches=launches[t],
-                 **results[t]) for t in ("KA", "KB", "KC", "KD")]
-    log(f"[6] golden launches {golden_counts}; card {smi}; "
+             "KC": "KC pair_vote", "KD": "KD assign_count",
+             "KE": "KE thread_walk"}
+    kern = [dict(name=names[t], route="cuda",
+                 launches=launches[t] + tlaunches[t],
+                 launches_by_path={"counting": launches[t],
+                                   "threading": tlaunches[t]},
+                 **results[t]) for t in ("KA", "KB", "KC", "KD", "KE")]
+    log(f"[7] golden launches {golden_counts} / threading "
+        f"{golden_thr_counts}; card {smi}; "
         f"smoke wall {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kern}), flush=True)
     print(json.dumps({"ok": True, "device": {

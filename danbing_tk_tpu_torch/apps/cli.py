@@ -3,9 +3,12 @@
 The ``align`` subcommand takes the JAX CLI's flags
 (danbing_tk_tpu/apps/cli.py) plus ``--torch-device`` (default ``cuda``;
 without a card the run raises unless ``--torch-device cpu`` is given).
-This slice ports the production counting funnel,
+The port runs the production counting funnel and the graph-threading
+funnel,
 
     align --device --native-io [--prefilter] -ka -qs PAN -fa READS -o OUT
+    align --device --native-io [--prefilter] -gc T C [-a|-ae] [-s 2] \
+        -qs PAN -fa READS -on OUT
 
 and raises NotImplementedError, naming the ROADMAP item, for any mode it
 does not run yet.
@@ -50,17 +53,28 @@ def _cmd_align(args):
     rpgg = RPGG(args.qs, bait=args.b, qc_file=args.qc, trim=args.t)
     al = DeviceAlignRunner(rpgg, cfg, expand_cap=args.expand_cap,
                            retry_expand=args.retry_expand, device=device)
+    pref = args.o or args.on
+    if cfg.aln:
+        # .aln rows stream to the file in append (pair) order
+        from ..io.rowsink import RowSink
+
+        al.aln_rows = RowSink(pref + ".aln")
     al.run_file_native(args.fa or args.fq, checkpoint=args.checkpoint,
                        checkpoint_every=args.checkpoint_every,
                        prefilter=args.prefilter)
-    pref = args.o or args.on
     if args.on:
         al.write_tr_kmers(pref + ".tr.kmers")
     else:
         al.write_trkmc_ar(pref + ".trkmc.ar")
-        al.write_summary(pref + ".tr.summary.txt")
+        if not cfg.threading:
+            al.write_summary(pref + ".tr.summary.txt")
+    if cfg.aln:
+        al.write_aln(pref + ".aln")
     print(f"referee pairs (host-oracle fallback): {al.n_referee}",
           file=sys.stderr)
+    if cfg.threading:
+        print(f"threading pairs: {al.n_device_thread} device-clean, "
+              f"{al.n_host_thread} host engine", file=sys.stderr)
     print(f"align done -> {pref}", file=sys.stderr)
 
 

@@ -21,6 +21,12 @@
 //      per thread into one atomic.  The even thread adds nmate and the
 //      segment length into nmapread / kmc at dst0.
 //
+// Threading mode (the graph-threading step, device_align.py:1143-1191)
+// stops after step 2: it writes the tr_member plane (u8, ((ann == 2) |
+// in_tr) & kvalid with in_tr = afound & ((aval >> 2) & 1)) and the slot
+// plane, and leaves counts / nmapread / kmc to KE (csrc/thread_walk.cu),
+// which counts only the pairs whose walk is clean.
+//
 // Bound on the H100: bytes.  Each position reads ~35 B of planes twice
 // (found, val, annv, kvalid, afound, aval); the count atomics scatter into
 // a table of up to 0.5 GB and cost one 32 B sector each.  Neighbouring
@@ -39,18 +45,23 @@ struct KdIn {
     const int64_t* aval_t;
 };
 
-// Annotation of one position: returns ann, writes the slot rank.
+// Annotation of one position: returns ann, writes the slot rank and
+// whether the k-mer is in the locus's TR set (the in_tr bit).
 __device__ __forceinline__ int kd_ann(const KdIn& in, int64_t o,
                                       uint32_t dst, bool dev,
-                                      uint32_t* rank) {
+                                      uint32_t* rank, bool* in_tr) {
     uint32_t v = (uint32_t)in.val[o];
     bool ev_hit = in.found[o] && !(v & 1u) && (v >> 1) == dst;
     bool af = (in.afound_t[o] || ev_hit) && in.kvalid[o] && dev;
     uint32_t av = ev_hit ? (uint32_t)in.annv[o] : (uint32_t)in.aval_t[o];
     *rank = av >> 3;
+    *in_tr = af && ((av >> 2) & 1u);
     return af ? (int)(av & 3u) : 0;
 }
 
+// kThreading is a template parameter so the counting instantiation
+// carries none of the threading mode's plane writes.
+template <bool kThreading>
 __global__ void assign_count_kernel(int64_t P, int NKW, KdIn in,
                                     const int64_t* __restrict__ dst0,
                                     const uint8_t* __restrict__ dev_pair,
@@ -62,7 +73,9 @@ __global__ void assign_count_kernel(int64_t P, int NKW, KdIn in,
                                     unsigned int* __restrict__ counts,
                                     unsigned int* __restrict__ nmapread,
                                     unsigned int* __restrict__ kmc,
-                                    int32_t* __restrict__ out) {
+                                    int32_t* __restrict__ out,
+                                    uint8_t* __restrict__ tr_member,
+                                    int64_t* __restrict__ slot_out) {
     __shared__ int s_rm[KD_THREADS];
     __shared__ int s_seg[KD_THREADS];
     const int64_t R = 2 * P;
@@ -85,7 +98,12 @@ __global__ void assign_count_kernel(int64_t P, int NKW, KdIn in,
         int prev1 = 0, p1 = 0, prev2 = 0, p2 = 0;
         for (int i = 0; i < NKW; ++i) {
             uint32_t rank;
-            int a = kd_ann(in, row + i, dst, dev, &rank);
+            bool in_tr;
+            int a = kd_ann(in, row + i, dst, dev, &rank, &in_tr);
+            if constexpr (kThreading) {
+                tr_member[row + i] = (a == 2 || in_tr) && in.kvalid[row + i];
+                slot_out[row + i] = base + (int64_t)rank;
+            }
             bool known = a > 0;
             if (known && lk > 0 && a != lk) {
                 ++nt;
@@ -138,6 +156,7 @@ __global__ void assign_count_kernel(int64_t P, int NKW, KdIn in,
         out[8 * R + r] = ei_;
         seglen = ei - si > 0 ? ei - si : 0;
     }
+    if constexpr (kThreading) return;
     s_rm[threadIdx.x] = rm;
     s_seg[threadIdx.x] = seglen;
     __syncthreads();
@@ -151,7 +170,8 @@ __global__ void assign_count_kernel(int64_t P, int NKW, KdIn in,
         const int64_t row = r * NKW;
         for (int i = 0; i < NKW; ++i) {
             uint32_t rank;
-            int a = kd_ann(in, row + i, dst, dev, &rank);
+            bool in_tr;
+            int a = kd_ann(in, row + i, dst, dev, &rank, &in_tr);
             int64_t slot = base + (int64_t)rank;
             if (a == 2) {
                 if (slot >= 0 && slot <= nslots) atomicAdd(counts + slot, 1u);
@@ -177,17 +197,21 @@ DTK_EXPORT int dtk_assign_count(int64_t P, int64_t NKW, const void* found,
                                 const void* dev_pair, const void* kf,
                                 const void* nk, const void* loff,
                                 int64_t nloci, int64_t nslots, int64_t nm_tr,
-                                void* counts, void* nmapread, void* kmc,
-                                void* out, void* stream) {
+                                int64_t threading, void* counts,
+                                void* nmapread, void* kmc, void* out,
+                                void* tr_member, void* slot, void* stream) {
     KdIn in{(const uint8_t*)found, (const int64_t*)val,
             (const int64_t*)annv, (const uint8_t*)kvalid,
             (const uint8_t*)afound_t, (const int64_t*)aval_t};
-    if (P > 0)
-        assign_count_kernel<<<dtk_grid(2 * P, KD_THREADS), KD_THREADS, 0,
-                              (cudaStream_t)stream>>>(
-            P, (int)NKW, in, (const int64_t*)dst0, (const uint8_t*)dev_pair,
-            (const int32_t*)kf, (const int32_t*)nk, (const int64_t*)loff,
-            nloci, nslots, (int)nm_tr, (unsigned int*)counts,
-            (unsigned int*)nmapread, (unsigned int*)kmc, (int32_t*)out);
+    if (P <= 0) return (int)cudaGetLastError();
+    auto kernel = threading ? assign_count_kernel<true>
+                            : assign_count_kernel<false>;
+    kernel<<<dtk_grid(2 * P, KD_THREADS), KD_THREADS, 0,
+             (cudaStream_t)stream>>>(
+        P, (int)NKW, in, (const int64_t*)dst0, (const uint8_t*)dev_pair,
+        (const int32_t*)kf, (const int32_t*)nk, (const int64_t*)loff, nloci,
+        nslots, (int)nm_tr, (unsigned int*)counts, (unsigned int*)nmapread,
+        (unsigned int*)kmc, (int32_t*)out, (uint8_t*)tr_member,
+        (int64_t*)slot);
     return (int)cudaGetLastError();
 }

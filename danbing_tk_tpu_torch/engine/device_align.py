@@ -15,11 +15,19 @@ Pipeline per batch of P read pairs (2P reads, L columns):
    -> KD  assign_count: annotation, the assignTRkmc scan, count atomics
                                                      (csrc/assign_count.cu)
 
+In graph-threading mode (cfg.threading) KD stops at the tr_member and slot
+planes, and two launches follow:
+
+   -> KB  lookup_bucket on the (nc kmer, dst0) graph table
+   -> KE  thread_walk: the clean-walk DFA per mate and the TR-member count
+          atomics of pairs whose both mates walk clean (csrc/thread_walk.cu)
+
 Decision equivalence with the reference is the JAX module's: ties,
 test2-only passes and expansion overflows are flagged for the host referee
-(engine/host_align.process_pair) and masked out of every device count.
-Only counting mode is ported (no .kam annotation plane, bait, QC, bubbles
-or threading); make_step raises NotImplementedError for those.
+(engine/host_align.process_pair) and masked out of every device count;
+threading pairs whose walk is not clean go to the host threading engine.
+Counting and threading modes are ported (no .kam annotation plane, bait,
+QC or bubbles); make_step raises NotImplementedError for those.
 
 K-mers are int64 with EMPTY = -1; u32 values (dbi vals, loci, counts) ride
 as int64 values or int32 bit patterns.  The state (counts, nmapread, kmc:
@@ -73,19 +81,42 @@ class DeviceRPGG:
     # 2-plane rows for the prefilter, which never reads vals — the
     # narrower row gathers measurably faster than the 4-plane dbi rows
 
-    def tables(self, device) -> dict:
+    def tables(self, device, graph: bool = False) -> dict:
         """The device tables on ``device``, uploaded once and shared by
         every step made from it (the uploads reach ~7 GB at production
-        scale)."""
+        scale).  With ``graph`` (threading steps) the dict also holds the
+        graph table, uploaded on the first such call (~9 GB at production
+        scale), so counting steps never hold it."""
         cache = self.__dict__.setdefault("_dev_cache", {})
-        key = str(device)
+        key = (str(device), graph)
         if key not in cache:
-            tabs = {"dbi": self.dbi_tab, "trfl": self.trfl_tab}
-            if self.member_tab is not None:
-                tabs["member"] = self.member_tab
-            cache[key] = upload_tables(tabs, self.vv, self.locus_offsets,
-                                       device)
+            if graph:
+                if self.graph_tab is None:
+                    raise ValueError("no graph table: call "
+                                     "drp.add_graph(rpgg) first")
+                cache[key] = dict(self.tables(device), graph=dt.DevTable.
+                                  upload(self.graph_tab, device))
+            else:
+                tabs = {"dbi": self.dbi_tab, "trfl": self.trfl_tab}
+                if self.member_tab is not None:
+                    tabs["member"] = self.member_tab
+                cache[key] = upload_tables(tabs, self.vv,
+                                           self.locus_offsets, device)
         return cache[key]
+
+    def add_graph(self, rpgg: RPGG):
+        """Builds the dBG transition table for the threading DFA walk
+        (GraphType node -> 4-bit out-edge mask, per locus)."""
+        graphs = rpgg.load_graphs()
+        gk, gl, gv = [], [], []
+        for li, g in enumerate(graphs):
+            for km, mask in g.items():
+                gk.append(km)
+                gl.append(li)
+                gv.append(mask)
+        self.graph_tab = dt.build_bucket_table(
+            np.array(gk, np.uint64), np.array(gv, np.uint32),
+            np.array(gl, np.uint32))
 
     @classmethod
     def build(cls, rpgg: RPGG, with_tre: bool = True) -> "DeviceRPGG":
@@ -473,13 +504,16 @@ def _add_u32(acc: torch.Tensor, idx: torch.Tensor, inc: torch.Tensor):
 
 
 def assign_count_plain(state, found, val, annv, kvalid, afound_t, aval_t,
-                       dst0, dev_pair, kf, nk, loff, nloci: int, nm_tr: int):
+                       dst0, dev_pair, kf, nk, loff, nloci: int, nm_tr: int,
+                       threading: bool = False):
     """Plain torch version of KD.  found/kvalid/afound_t (2P, NKW) bool
     (found already masked by kvalid); val/annv/aval_t (2P, NKW) int64 u32
     values from the dbi and trfl probes; dst0 (P,) int64; dev_pair (P,)
     bool; kf/nk (2P,) int32.  Adds the pairs' TR k-mer counts, nmapread
     and kmc into ``state`` in place and returns the per-read assignTRkmc
-    fields (ASSIGN_KEYS, each (2P,) int32)."""
+    fields (ASSIGN_KEYS, each (2P,) int32).  With ``threading`` the state
+    is left alone and the result also holds the (2P, NKW) planes
+    "tr_member" (uint8) and "slot" (int64), KE's inputs."""
     dev = found.device
     R, NKW = found.shape
     P = R // 2
@@ -547,6 +581,11 @@ def assign_count_plain(state, found, val, annv, kvalid, afound_t, aval_t,
                ti=torch.where(rmd, -1, torch.where(nt_total >= 1, ti1, -1)),
                si=si, ei=ei, si_=si_, ei_=ei_)
     out = {k: v.int() for k, v in out.items()}
+    if threading:
+        in_tr = afound & (((aval >> 2) & 1) == 1)
+        out["tr_member"] = (((ann == 2) | in_tr) & kvalid).to(torch.uint8)
+        out["slot"] = slot
+        return out
 
     # ---- accumulation ----
     rm_p = rm.view(P, 2)
@@ -563,13 +602,14 @@ def assign_count_plain(state, found, val, annv, kvalid, afound_t, aval_t,
 
 
 def assign_count(state, found, val, annv, kvalid, afound_t, aval_t,
-                 dst0, dev_pair, kf, nk, loff, nloci: int, nm_tr: int):
+                 dst0, dev_pair, kf, nk, loff, nloci: int, nm_tr: int,
+                 threading: bool = False):
     """KD: annotation, the sequential assignTRkmc scan per read and the
     count scatter (u32 atomics).  Same contract as assign_count_plain."""
     if found.device.type == "cpu":
         return assign_count_plain(state, found, val, annv, kvalid,
                                   afound_t, aval_t, dst0, dev_pair, kf, nk,
-                                  loff, nloci, nm_tr)
+                                  loff, nloci, nm_tr, threading)
     R, NKW = found.shape
     P = R // 2
     for t in (found, kvalid, afound_t):
@@ -588,28 +628,114 @@ def assign_count(state, found, val, annv, kvalid, afound_t, aval_t,
     loff = loff.contiguous()
     out = torch.empty((len(ASSIGN_KEYS), R), dtype=torch.int32,
                       device=found.device)
+    tr_member = slot = None
+    if threading:
+        tr_member = torch.empty((R, NKW), dtype=torch.uint8,
+                                device=found.device)
+        slot = torch.empty((R, NKW), dtype=torch.int64, device=found.device)
     fn = bind(kernel_lib("assign_count"), "dtk_assign_count",
-              "ii" + "p" * 11 + "iii" + "p" * 5)
+              "ii" + "p" * 11 + "iiii" + "p" * 7)
     check(fn(P, NKW, *[ptr(a) for a in args], ptr(kf), ptr(nk), ptr(loff),
-             nloci, state["counts"].shape[0] - 1, nm_tr,
+             nloci, state["counts"].shape[0] - 1, nm_tr, int(threading),
              ptr(state["counts"]), ptr(state["nmapread"]),
-             ptr(state["kmc"]), ptr(out), stream_of(found)),
+             ptr(state["kmc"]), ptr(out),
+             None if tr_member is None else ptr(tr_member),
+             None if slot is None else ptr(slot), stream_of(found)),
           "assign_count")
     assign_count.launches += 1
-    return dict(zip(ASSIGN_KEYS, out.unbind(0)))
+    res = dict(zip(ASSIGN_KEYS, out.unbind(0)))
+    if threading:
+        res.update(tr_member=tr_member, slot=slot)
+    return res
 
 
 assign_count.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# KE thread_walk
+# ---------------------------------------------------------------------------
+
+def thread_walk_plain(state, nc, gfound, gmask, kvalid, nk, dev_pair,
+                      tr_member, slot):
+    """Plain torch version of KE.  nc (2P, NKW) int64 forward k-mers
+    (EMPTY-masked, KA's "nc"); gfound bool / gmask int64 (2P, NKW): KB on
+    the graph table at (nc, dst0); kvalid (2P, NKW) bool; nk (2P,) int32;
+    dev_pair (P,) bool; tr_member (2P, NKW) uint8 and slot (2P, NKW)
+    int64 from KD's threading mode.  Adds the TR-member counts of pairs
+    whose both mates walk clean into state["counts"] in place (every other
+    position into the trash slot) and returns (clean (2P,) bool,
+    clean_pair (P,) bool)."""
+    R, NKW = nc.shape
+    P = R // 2
+    nslots = state["counts"].shape[0] - 1
+    pos = torch.arange(NKW, device=nc.device)
+    in_read = pos < nk.long()[:, None]
+    no_n = (kvalid | ~in_read).all(1)
+    same_prev = (nc[:, 1:] == nc[:, :-1]) & in_read[:, 1:]
+    no_homo = ~same_prev.any(1)
+    nb = nc & 3
+    trans_ok = (gfound[:, :-1] & (((gmask[:, :-1] >> nb[:, 1:]) & 1) == 1)
+                ) | ~in_read[:, 1:]
+    node_ok = gfound | ~in_read
+    clean = (no_n & no_homo & trans_ok.all(1) & node_ok.all(1) & (nk > 0)
+             & dev_pair.repeat_interleave(2))
+    clean_pair = clean.view(P, 2).all(1)
+    thr_dev = dev_pair & clean_pair
+    do_count = (tr_member != 0) & in_read \
+        & thr_dev.repeat_interleave(2)[:, None]
+    cslot = torch.where(do_count, slot, nslots).reshape(-1)
+    _add_u32(state["counts"], cslot, torch.ones_like(cslot))
+    return clean, clean_pair
+
+
+def thread_walk(state, nc, gfound, gmask, kvalid, nk, dev_pair, tr_member,
+                slot):
+    """KE: the threading DFA walk and its count scatter (u32 atomics), one
+    block per pair.  Same contract as thread_walk_plain."""
+    if nc.device.type == "cpu":
+        return thread_walk_plain(state, nc, gfound, gmask, kvalid, nk,
+                                 dev_pair, tr_member, slot)
+    R, NKW = nc.shape
+    P = R // 2
+    for t, dtype in ((nc, torch.int64), (gfound, torch.bool),
+                     (gmask, torch.int64), (kvalid, torch.bool),
+                     (tr_member, torch.uint8), (slot, torch.int64)):
+        if t.dtype != dtype or t.shape != (R, NKW):
+            raise ValueError(f"thread_walk: planes must be (2P, NKW), "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if dev_pair.shape != (P,) or nk.shape != (R,):
+        raise ValueError("thread_walk: dev_pair (P,) and nk (2P,)")
+    if state["counts"].dtype != torch.int32:
+        raise ValueError("state['counts'] must be int32")
+    args = [x.contiguous() for x in (nc, gfound, gmask, kvalid)]
+    nk = nk.to(torch.int32).contiguous()
+    rest = [x.contiguous() for x in (dev_pair, tr_member, slot)]
+    clean = torch.empty(R, dtype=torch.bool, device=nc.device)
+    clean_pair = torch.empty(P, dtype=torch.bool, device=nc.device)
+    fn = bind(kernel_lib("thread_walk"), "dtk_thread_walk",
+              "ii" + "p" * 8 + "i" + "p" * 4)
+    check(fn(P, NKW, *[ptr(a) for a in args], ptr(nk),
+             *[ptr(a) for a in rest], state["counts"].shape[0] - 1,
+             ptr(state["counts"]), ptr(clean), ptr(clean_pair),
+             stream_of(nc)), "thread_walk")
+    thread_walk.launches += 1
+    return clean, clean_pair
+
+
+thread_walk.launches = 0
+
+
 def launch_counts() -> dict:
-    """{kernel: launches} of the four wrappers."""
+    """{kernel: launches} of the five wrappers."""
     return {"KA": extract_kmers.launches, "KB": dt.lookup_bucket.launches,
-            "KC": pair_vote.launches, "KD": assign_count.launches}
+            "KC": pair_vote.launches, "KD": assign_count.launches,
+            "KE": thread_walk.launches}
 
 
 def reset_launch_counts() -> None:
-    for fn in (extract_kmers, dt.lookup_bucket, pair_vote, assign_count):
+    for fn in (extract_kmers, dt.lookup_bucket, pair_vote, assign_count,
+               thread_walk):
         fn.launches = 0
 
 
@@ -617,19 +743,23 @@ def reset_launch_counts() -> None:
 # step constructors
 # ---------------------------------------------------------------------------
 
-def check_counting_config(cfg: AlignConfig) -> None:
-    """Raises NotImplementedError for every mode this slice does not port
-    (ROADMAP.md, port queue)."""
+def check_ported_config(cfg: AlignConfig) -> None:
+    """Raises NotImplementedError for every mode the port does not run yet
+    (ROADMAP.md, port queue).  Threading mode admits -a/-ae and simmode,
+    and ignores okam: threading never writes .kam."""
+    thr = cfg.threading
     unported = [
-        (cfg.okam, "okam / .kam output (run with -ka)", "okam/simmode"),
-        (cfg.simmode, "simmode (-s)", "okam/simmode"),
+        (cfg.okam and not thr, "okam / .kam output (run with -ka)",
+         "okam/simmode"),
+        (cfg.simmode and not thr, "simmode (-s) outside threading",
+         "okam/simmode"),
         (cfg.bait, "bait filter (-b)", "bait/QC/fastq, K9"),
         (cfg.qc, "QC mask (-qc)", "bait/QC/fastq, K10"),
         (cfg.is_fastq, "fastq input (-fq)", "bait/QC/fastq"),
         (cfg.output_bubbles, "bubbles (-bu)", "bubbles, K11"),
-        (cfg.threading, "threading (-g/-gc)", "threading, K12"),
         (cfg.extract, "extract mode (-e)", "okam/simmode"),
-        (cfg.aln, "alignment output (-a/-ae)", "threading, K12"),
+        (cfg.aln and not thr, "alignment output (-a/-ae) without -g/-gc",
+         "okam/simmode"),
         (cfg.track_bait, "bait tracking (-tb)", "bait/QC/fastq"),
     ]
     for on, what, item in unported:
@@ -680,17 +810,20 @@ def make_prefilter_step_q(drp: DeviceRPGG, cfg: AlignConfig, P: int,
 def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
               expand_cap: int = 512, device=None,
               capture: dict | None = None):
-    """Builds the per-batch counting step.
+    """Builds the per-batch step: counting mode, or graph-threading mode
+    when ``cfg.threading`` (the JAX make_step(threading=True)).
 
     Returns step(state, codes (2P, L) u8, rlen (2P,) i32, live (P,) bool)
       -> (state, outputs dict); state (init_state) is updated in place.
     Inputs may be numpy arrays or tensors; outputs are device tensors with
-    the JAX step's keys (counting mode: no "ann" plane).  With ``capture``
-    (a dict) each call stores every kernel's arguments under its name, so
-    a check can replay one kernel on the step's real inputs."""
-    check_counting_config(cfg)
+    the JAX step's keys (no "ann" plane; threading mode adds "clean",
+    "clean_pair" and "tr_member").  With ``capture`` (a dict) each call
+    stores every kernel's arguments under its name, so a check can replay
+    one kernel on the step's real inputs."""
+    check_ported_config(cfg)
+    threading = bool(cfg.threading)
     dev = resolve_device(device)
-    tabs = drp.tables(dev)
+    tabs = drp.tables(dev, graph=threading)
     k, cth = cfg.ksize, int(cfg.cth)
     NKW = L - k + 1
     E = int(expand_cap)
@@ -739,7 +872,8 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
 
         # ---- assignTRkmc + accumulation (K7, K8) ----
         kd_args = (found, val, annv, kvalid, afound_t, aval_t, dst0,
-                   dev_pair, kf, nk, tabs["loff"], nloci, cfg.nm_tr)
+                   dev_pair, kf, nk, tabs["loff"], nloci, cfg.nm_tr,
+                   threading)
         if capture is not None:
             capture.update(
                 KA=(codes, rlen, k), KB_dbi=(tabs["dbi"], kmer),
@@ -749,6 +883,25 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
         rm_p = a["rm"].view(P, 2)
         counted = dev_pair & ~(rm_p == 1).all(1)
         nmate = torch.where(counted, 2 - rm_p.sum(1), 0)
+        thr_out = {}
+        if threading:
+            # ---- DFA walk (K12): graph probe at (nc, dst0), then KE;
+            # device-threaded pairs replace the assign-mode "counted"
+            # after nmate was taken from it, as in the JAX step ----
+            g_loc = dst0.repeat_interleave(2)[:, None].expand(-1, NKW)
+            gfound, gmask, _ = dt.lookup_bucket(tabs["graph"], ex["nc"],
+                                                g_loc)
+            tr_member = a.pop("tr_member")
+            ke_args = (ex["nc"], gfound, gmask, kvalid, nk, dev_pair,
+                       tr_member, a.pop("slot"))
+            if capture is not None:
+                capture.update(KB_graph=(tabs["graph"], ex["nc"], g_loc),
+                               KE=ke_args)
+            clean, clean_pair = thread_walk(state, *ke_args)
+            counted = dev_pair & clean_pair
+            nmate = torch.where(counted, nmate, 0)
+            thr_out = dict(clean=clean, clean_pair=clean_pair,
+                           tr_member=tr_member)
         dest = torch.where(counted, dst0, nloci)
         kf_p = kf.view(P, 2)
         state["stats"] += torch.stack([
@@ -771,7 +924,7 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
             bf=torch.zeros(2 * P, dtype=torch.int32, device=dev),
             kf=kf, hf=hf, nk=nk,
             sub_drop=pair_nonshort & ~pair_sub, nonshort=pair_nonshort,
-            **a)
+            **a, **thr_out)
         return state, out
 
     return step

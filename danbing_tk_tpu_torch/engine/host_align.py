@@ -674,9 +674,15 @@ class HostAligner:
             nQCFiltered=0, nThreadingReads=0, nFeasibleReads=0, nAsgnReads=0,
         )
         if cfg.threading:
-            raise NotImplementedError(
-                "threading mode (-g/-gc) is not ported yet "
-                "(ROADMAP: port queue, threading / K12)")
+            rpgg.load_graphs()
+        # native (C++) threading engine: same algorithm at C++ speed; a
+        # failed build raises (thread_check needs the Python Cigar
+        # objects, so -gcc keeps the Python engine, as the JAX package)
+        self._nthr = None
+        if cfg.threading and not cfg.tc:
+            from . import native_thread as nthr
+
+            self._nthr = nthr.NativeThreader()
 
     def run_file(self, path: str):
         cfg = self.cfg
@@ -835,10 +841,81 @@ class HostAligner:
         else:
             self.extract_rows.append(f"{t}\n{seq2}\n{t}\n{seq1}\n")
 
-    def _thread_pair(self, title, seq1, seq2, src, dest, results=None):
-        raise NotImplementedError(
-            "threading mode (-g/-gc) is not ported yet "
-            "(ROADMAP: port queue, threading / K12)")
+    def _thread_pair(self, title, seq1, seq2, src, dest):
+        """Threading-mode branch (re-enabled v1.3.1 behavior; counting =
+        aln mode over the corrected kmer streams of aligned mates)."""
+        from . import threading as thr
+
+        cfg, g = self.cfg, self.g
+        k = cfg.ksize
+        trc = g.tr_counts[dest]
+        if self._nthr is not None:
+            gf = g.graphs[dest]
+            self._nthr.prepare(dest, gf, trc)
+            alned0, es1, tr1, ak0 = self._nthr.thread_read(
+                dest, seq1, cfg.thread_cth, cfg.correction, k,
+                cfg.maxncorrection)
+            alned1, es2, tr2, ak1 = self._nthr.thread_read(
+                dest, seq2, cfg.thread_cth, cfg.correction, k,
+                cfg.maxncorrection)
+        else:
+            gf = g.graphs[dest]
+            cg1 = thr.Cigar(seq1, k)
+            alned0, _, ak0 = thr.is_thread_feasible(
+                gf, seq1, cfg.thread_cth, cfg.correction, cg1, trc, k,
+                cfg.maxncorrection)
+            cg2 = thr.Cigar(seq2, k)
+            alned1, _, ak1 = thr.is_thread_feasible(
+                gf, seq2, cfg.thread_cth, cfg.correction, cg2, trc, k,
+                cfg.maxncorrection)
+            if cfg.tc:
+                if alned0:
+                    thr.thread_check(gf, seq1, ak0, cg1, k)
+                if alned1:
+                    thr.thread_check(gf, seq2, ak1, cg2, k)
+            es1, tr1 = cg1.es, cg1.tr
+            es2, tr2 = cg2.es, cg2.tr
+        if cfg.extract:
+            if alned0 or alned1:
+                self._record_extract(title, seq1, seq2, dest)
+            return
+        if alned0 or alned1:
+            # canonicalize the whole corrected k-mer stream in ONE
+            # vectorized pass (per-kmer to_ca built a numpy array per
+            # call and dominated the fallback at 33 pairs/s; trc updates
+            # are commutative adds, so batch order is free)
+            kml = []
+            if alned0:
+                kml.extend(km for km in ak0 if km != thr.NAN64)
+            if alned1:
+                kml.extend(km for km in ak1 if km != thr.NAN64)
+            cak: dict[int, int] = {}
+            if kml:
+                arr = np.array(kml, dtype=np.uint64)
+                ca_arr = np.minimum(arr, K.revcomp_kmers(arr, k))
+                for ca in ca_arr.tolist():
+                    cak[ca] = cak.get(ca, 0) + 1
+            for km, c in cak.items():
+                if km in trc:
+                    trc[km] += c
+            self.stats["nFeasibleReads"] += int(bool(alned0)) + int(
+                bool(alned1))
+        else:
+            dest = g.nloci
+
+        if cfg.aln:
+            if cfg.simmode:
+                keep = (not cfg.aln_minimal) or (src != g.nloci
+                                                 or dest != g.nloci)
+            else:
+                keep = (not cfg.aln_minimal) or dest != g.nloci
+            if keep:
+                src_s = "." if src == -1 else str(src)
+                self.aln_rows.append(
+                    f"{src_s}\t{dest}\t{title}\t{seq2}\t{seq1}\t"
+                    f"{thr.write_cigar(es2)}\t{thr.write_annot(tr2)}\t"
+                    f"{thr.write_cigar(es1)}\t{thr.write_annot(tr1)}\n"
+                )
 
     # ---- outputs ----
 

@@ -6,7 +6,10 @@
   seconds).  ``build_kernels()`` starts one nvcc per source, all at once.
 * ``native/dtk_native.cpp`` (the repo's shared host runtime: the streaming
   pair reader, the subfilter query sampler and the libstdc++ sort-order
-  helper) -> ``build/torch_native/libdtk_native.so`` with ``g++``.
+  helper) -> ``build/torch_native/libdtk_native.so`` and
+  ``native/dtk_thread.cpp`` (the graph-threading engine with error
+  correction) -> ``build/torch_native/libdtk_thread.so``, both with
+  ``g++``; a failed build raises.
 
 Every library name carries a hash of its source and flags, so a stale or
 foreign build is never loaded; each build writes to a temporary file and
@@ -31,9 +34,11 @@ ROOT = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
 KERNEL_DIR = os.path.join(ROOT, "build", "torch_kernels")
 NATIVE_DIR = os.path.join(ROOT, "build", "torch_native")
-NATIVE_SRC = os.path.join(ROOT, "native", "dtk_native.cpp")
+NATIVE_SRCS = {"native": os.path.join(ROOT, "native", "dtk_native.cpp"),
+               "thread": os.path.join(ROOT, "native", "dtk_thread.cpp")}
 
-KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count")
+KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
+           "thread_walk")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -116,23 +121,32 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def native_lib() -> ctypes.CDLL:
-    """The host runtime ``native/dtk_native.cpp``, built with g++."""
+def _host_lib(name: str) -> ctypes.CDLL:
+    """``native/dtk_<name>.cpp`` built with g++ (once per source hash)."""
     with _lock:
-        lib = _libs.get("native")
+        lib = _libs.get(name)
         if lib is not None:
             return lib
+        src = NATIVE_SRCS[name]
         out = os.path.join(
-            NATIVE_DIR,
-            f"libdtk_native-{_digest([NATIVE_SRC], GXX_FLAGS)}.so")
+            NATIVE_DIR, f"libdtk_{name}-{_digest([src], GXX_FLAGS)}.so")
         if not os.path.exists(out):
             os.makedirs(NATIVE_DIR, exist_ok=True)
             tmp = f"{out}.tmp.{os.getpid()}"
-            subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, NATIVE_SRC],
-                           check=True)
+            subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, src], check=True)
             os.replace(tmp, out)
-        lib = _libs["native"] = ctypes.CDLL(out)
+        lib = _libs[name] = ctypes.CDLL(out)
         return lib
+
+
+def native_lib() -> ctypes.CDLL:
+    """The host runtime ``native/dtk_native.cpp``."""
+    return _host_lib("native")
+
+
+def thread_lib() -> ctypes.CDLL:
+    """The graph-threading engine ``native/dtk_thread.cpp``."""
+    return _host_lib("thread")
 
 
 def bind(lib: ctypes.CDLL, name: str, sig: str):

@@ -1,14 +1,18 @@
-"""Where the time goes in the production-size counting funnel on a card.
+"""Where the time goes in the production-size funnel on a card.
 
     python -m danbing_tk_tpu_torch.tools.profile_funnel [--nloci N]
-        [--pairs N] [--out DIR]
+        [--pairs N] [--out DIR] [--threading]
 
 Builds the synthetic scale index (tools/scale_index.py), runs the funnel
-of chip_smoke.py phase 5 once to warm up, then once more under
-torch.profiler (CPU + CUDA activities).  Prints the host wall, the summed
-device time per kernel name, the device busy time (union of kernel and
-copy intervals) and the idle share (1 - busy / wall), and writes the
-chrome trace and the key_averages table under --out.
+of chip_smoke.py phase 5 (counting) or, with --threading, phase 6 (-gc 85
+3 on reads with 0.5% substitutions, the graph table built too) once to
+warm up, then once more under torch.profiler (CPU + CUDA activities).
+Prints the host wall, the summed device time per kernel name, the device
+busy time (union of kernel and copy intervals) and the idle share (1 -
+busy / wall), and writes the chrome trace and the key_averages table under
+--out.  In threading mode the host view's locus builds are done in the
+warm-up pass (the profiled pass reuses them), and the host seconds spent
+waiting on the batched native engine are printed beside the wall.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import torch
 
 from ..engine.align_runner import DeviceAlignRunner
 from ..engine.host_align import AlignConfig
-from .scale_index import build_scale_rpgg, sample_read_batch
+from .scale_index import (ScaleThreadView, build_scale_graph,
+                          build_scale_rpgg, sample_read_batch)
 
 
 def _busy_ms(events) -> float:
@@ -43,12 +48,34 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
+def _time_engine_calls(runner):
+    """Wraps the runner's batched threading engine so the seconds its
+    calls take (on the one-worker pool) are summed into the returned
+    one-element list."""
+    acc = [0.0]
+    nthr = runner.nthr
+    if nthr is None:
+        return acc
+    call = nthr.thread_pairs
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return call(*a, **k)
+        finally:
+            acc[0] += time.perf_counter() - t0
+
+    nthr.thread_pairs = timed
+    return acc
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--nloci", type=int, default=80_000)
     ap.add_argument("--pairs", type=int, default=1 << 20)
     ap.add_argument("--seed", type=int, default=9)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--threading", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_funnel needs a CUDA card")
@@ -61,18 +88,27 @@ def main(argv=None):
     t0 = time.time()
     drp, seqs = build_scale_rpgg(args.nloci, 1500, seed=args.seed,
                                  verbose=False)
-    print(f"index nloci={args.nloci} built in {time.time() - t0:.1f}s",
-          flush=True)
+    view = sub_rate = None
     cfg = AlignConfig(ksize=21, cth=20, n_filter=4, nm_filter=1, okam=False)
+    if args.threading:
+        drp.graph_tab, _ = build_scale_graph(seqs, verbose=False)
+        cfg = AlignConfig(ksize=21, cth=20, n_filter=4, nm_filter=1,
+                          okam=False, threading=True, thread_cth=85,
+                          maxncorrection=3)
+        view, sub_rate = ScaleThreadView(seqs), 0.005
+    print(f"index nloci={args.nloci} built in {time.time() - t0:.1f}s "
+          f"threading={args.threading}", flush=True)
     P, L = 4096, 160
-    rng = np.random.default_rng([args.seed, 1])
+    rng = np.random.default_rng([args.seed, 3 if args.threading else 1])
     runner = DeviceAlignRunner(None, cfg, batch_pairs=P, max_read_len=L,
-                               drp=drp, device=dev)
+                               drp=drp, device=dev, thread_view=view)
     Pd = runner.dispatch_pairs(True)
     nbat = -(-args.pairs // Pd)
     batches = [sample_read_batch(seqs, Pd, L, rng, frac_tr=0.05,
-                                 read_len=150) + (Pd,) for _ in range(nbat)]
+                                 read_len=150, sub_rate=sub_rate or 0.0)
+               + (Pd,) for _ in range(nbat)]
     runner.run_batches(batches, prefilter=True)         # warm-up
+    engine_wait = _time_engine_calls(runner)
     torch.cuda.synchronize()
     steps0 = runner.n_steps
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -98,7 +134,8 @@ def main(argv=None):
         f.write(table)
     print(f"funnel pairs={nbat * Pd} wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy:.3f} idle_share={1 - busy / wall_ms:.4f} "
-          f"steps={runner.n_steps - steps0} dispatches={nbat}", flush=True)
+          f"steps={runner.n_steps - steps0} dispatches={nbat} "
+          f"engine_call_ms={engine_wait[0] * 1e3:.3f}", flush=True)
     for name, ms in sorted(per.items(), key=lambda kv: -kv[1])[:20]:
         print(f"  {ms:10.3f} ms  {name}", flush=True)
 

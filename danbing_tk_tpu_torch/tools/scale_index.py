@@ -13,9 +13,15 @@ straight from numpy with the same table shapes and hit statistics:
   * kmerDBi (keys/vals/vv) and the composite trfl slot table assembled
     with sorts/uniques only -- no per-key Python
 
-Read batches are sampled from the same sequence pool (PE fragments) plus
-random background, so probes hit and the full vote/annotate/count path
-runs realistically.  Used by chip_smoke.py's production-size phase.
+Read batches are sampled from the same sequence pool (PE fragments, with
+an optional per-base substitution rate) plus random background, so probes
+hit and the full vote/annotate/count path runs realistically.
+
+For graph threading, ``build_scale_graph`` makes the (node, locus) ->
+out-edge-mask table from the loci's own sequences by the ``fa2kmers -g``
+rule, and ``ScaleThreadView`` gives the host threading fallback
+``graphs[d]`` / ``tr_counts[d]`` of a locus on first use.  Used by
+chip_smoke.py's production-size phases.
 """
 
 from __future__ import annotations
@@ -157,6 +163,117 @@ def build_scale_rpgg(nloci: int = 80_000, kmers_per_locus: int = 1500,
     return drp, seqs
 
 
+def _fwd_kmers(codes: np.ndarray, k: int) -> np.ndarray:
+    """Forward k-mers of every row of (n, Lt) u8 codes (all ACGT)."""
+    nk = codes.shape[1] - k + 1
+    c = codes.astype(np.uint64)
+    out = np.zeros((codes.shape[0], nk), dtype=np.uint64)
+    for j in range(k):
+        out |= c[:, j:j + nk] << np.uint64(2 * (k - 1 - j))
+    return out
+
+
+def locus_graphs(codes: np.ndarray, k: int):
+    """The dBG of each row of ``codes`` ((n, Lt) u8, no N) by the
+    ``fa2kmers -g`` rule (apps/fa2kmers.py:_graph_into, ops/kmers_np.py:
+    build_kmer_graph): the whole sequence, forward and reverse-complement
+    strands, an edge to the next k-mer unless it is a self-loop, the last
+    k-mer a node with no edge.  Returns (node u64, mask u8, row u32) flat
+    arrays, nodes ascending within each row."""
+    n = codes.shape[0]
+    ent = []
+    for strand in (codes, (3 - codes)[:, ::-1]):
+        km = _fwd_kmers(strand, k)
+        nxt = km[:, 1:]
+        bit = np.where(km[:, :-1] != nxt, np.uint64(1) << (nxt & np.uint64(3)),
+                       np.uint64(0))
+        bits = np.concatenate([bit, np.zeros((n, 1), np.uint64)], axis=1)
+        ent.append((km << np.uint64(4)) | bits)
+    key = np.concatenate(ent, axis=1)
+    key.sort(axis=1)
+    node = key >> np.uint64(4)
+    first = np.ones(node.shape, dtype=bool)
+    first[:, 1:] = node[:, 1:] != node[:, :-1]
+    starts = np.flatnonzero(first)
+    mask = np.bitwise_or.reduceat(
+        (key & np.uint64(15)).astype(np.uint8).ravel(), starts)
+    rows = np.repeat(np.arange(n, dtype=np.uint32), first.sum(axis=1))
+    return node.ravel()[starts], mask, rows
+
+
+def build_scale_graph(seqs: np.ndarray, k: int = 21, chunk: int = 4096,
+                      verbose: bool = True):
+    """The composite graph table (non-canonical k-mer, locus) -> 4-bit
+    out-edge mask of every locus of ``seqs``, the table
+    DeviceRPGG.add_graph builds from pan.graph.kmers.  Returns
+    (BucketTable, entries)."""
+    t0 = time.time()
+    parts = [locus_graphs(seqs[s:s + chunk], k)
+             for s in range(0, len(seqs), chunk)]
+    nodes = np.concatenate([p[0] for p in parts])
+    masks = np.concatenate([p[1] for p in parts]).astype(np.uint32)
+    loci = np.concatenate([p[2] + np.uint32(s) for s, p in
+                           zip(range(0, len(seqs), chunk), parts)])
+    del parts
+    if verbose:
+        print(f"[scale-index] graph {len(nodes)/1e6:.1f}M nodes in "
+              f"{time.time()-t0:.1f}s", file=sys.stderr)
+    tab = dt.build_bucket_table(nodes, masks, loci)
+    return tab, len(nodes)
+
+
+class ScaleThreadView:
+    """Host view of the synthetic index for the batched threading fallback
+    (align_runner's ``thread_view``): ``graphs[d]`` (a (nodes, masks)
+    array pair) and ``tr_counts[d]`` (the locus's canonical k-mers ->
+    count) of a locus, built from ``seqs[d]`` on first use, so the
+    fallback resolves pairs at 80k loci without building every locus's
+    dicts.  Test data for the smoke run, not an aligner feature."""
+
+    def __init__(self, seqs: np.ndarray, k: int = 21):
+        self.seqs, self.k = seqs, k
+        self.graphs = _OnFirstUse(self._locus)
+        self.tr_counts = _OnFirstUse(self._locus)
+        self.build_s = 0.0          # host seconds spent building loci
+
+    def _locus(self, d: int):
+        self.build([d])
+
+    def build(self, loci, chunk: int = 2048):
+        """Builds the entries of ``loci`` not built yet, vectorised over
+        chunks of loci (a caller that knows its loci builds them up
+        front, outside the time it measures)."""
+        t0 = time.perf_counter()
+        loci = np.unique(np.asarray(loci, dtype=np.int64))
+        loci = [d for d in loci.tolist()
+                if d >= 0 and d not in self.graphs]
+        for s in range(0, len(loci), chunk):
+            ls = loci[s:s + chunk]
+            node, mask, rows = locus_graphs(self.seqs[ls], self.k)
+            # the graph's nodes are both strands' k-mers: their canonical
+            # forms are the locus's TR k-mers
+            ca = np.minimum(node, K.revcomp_kmers(node, self.k))
+            ends = np.searchsorted(rows, np.arange(len(ls) + 1))
+            for i, d in enumerate(ls):
+                a, b = ends[i], ends[i + 1]
+                self.graphs[d] = (node[a:b], mask[a:b])
+                self.tr_counts[d] = dict.fromkeys(
+                    np.unique(ca[a:b]).tolist(), 0)
+        self.build_s += time.perf_counter() - t0
+
+
+class _OnFirstUse(dict):
+    """A dict whose missing locus d is filled by make(d) on first use."""
+
+    def __init__(self, make):
+        super().__init__()
+        self._make = make
+
+    def __missing__(self, d):
+        self._make(d)
+        return dict.__getitem__(self, d)
+
+
 def _tab_to_arrs(prefix: str, tab, arrs: dict):
     arrs[f"{prefix}_nlev"] = np.int64(len(tab.levels))
     arrs[f"{prefix}_composite"] = np.int64(tab.composite)
@@ -211,11 +328,14 @@ def build_scale_rpgg_cached(nloci, kmers_per_locus, with_trfl=True,
 
 
 def sample_read_batch(seqs, P: int, L: int, rng, frac_tr: float = 1.0,
-                      flen: int = 400, read_len: int | None = None):
+                      flen: int = 400, read_len: int | None = None,
+                      sub_rate: float = 0.0, with_loci: bool = False):
     """P read pairs in (2P, L) code rows: a frac_tr share are PE fragments
     of length ``flen`` from the locus pool (mate 2 reverse-complemented),
-    the rest uniform random background.  Reads are ``read_len`` bases
-    (default L) in rows padded to L with 255."""
+    each base substituted with probability ``sub_rate``; the rest uniform
+    random background.  Reads are ``read_len`` bases (default L) in rows
+    padded to L with 255.  Returns (codes, rlen), and with ``with_loci``
+    also each pair's source locus ((P,) int64, -1 for background)."""
     nloci, Ltr = seqs.shape
     rl = L if read_len is None else read_len
     assert rl <= L and rl <= flen <= Ltr, (rl, L, flen, Ltr)
@@ -226,9 +346,17 @@ def sample_read_batch(seqs, P: int, L: int, rng, frac_tr: float = 1.0,
     li = rng.integers(0, nloci, len(t))
     beg = rng.integers(0, Ltr - flen + 1, len(t))
     frag = seqs[li[:, None], beg[:, None] + np.arange(flen)]
+    if sub_rate > 0:
+        sub = rng.random(frag.shape) < sub_rate
+        shift = rng.integers(1, 4, frag.shape, dtype=np.uint8)
+        frag = np.where(sub, (frag + shift) & 3, frag).astype(np.uint8)
     codes[2 * t, :rl] = frag[:, :rl]
     codes[2 * t + 1, :rl] = (3 - frag[:, flen - rl:])[:, ::-1]
     b = np.flatnonzero(~is_tr)
     codes[2 * b, :rl] = rng.integers(0, 4, (len(b), rl), dtype=np.uint8)
     codes[2 * b + 1, :rl] = rng.integers(0, 4, (len(b), rl), dtype=np.uint8)
+    if with_loci:
+        loci = np.full(P, -1, dtype=np.int64)
+        loci[t] = li
+        return codes, rlen, loci
     return codes, rlen

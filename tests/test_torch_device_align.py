@@ -165,7 +165,8 @@ def test_step_matches_jax(models, batches, E):
 def test_unported_modes_raise(models):
     _, td = models
     for kw in (dict(okam=True), dict(bait=True), dict(output_bubbles=True),
-               dict(threading=True), dict(qc=True), dict(simmode=2)):
+               dict(aln=True), dict(qc=True), dict(simmode=2),
+               dict(threading=True, bait=True)):
         cfg = AlignConfig(**{**KW, **kw})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tda.make_step(td, cfg, P, L, device="cpu")

@@ -1,5 +1,6 @@
 """Each hand-written kernel against its plain torch version on a card, and
-the golden counting funnel end to end on cuda.  Every comparison is exact.
+the golden counting and threading funnels end to end on cuda.  Every
+comparison is exact.
 
 These tests import only the port (the card's machine has no JAX) and skip
 without a card.  On the card:
@@ -108,4 +109,64 @@ def test_golden_funnel_on_cuda(cuda, tmp_path):
     run.write_trkmc_ar(tmp_path / "out.trkmc.ar")
     with open(os.path.join(GOLDEN, "out.trkmc.ar"), "rb") as f:
         assert (tmp_path / "out.trkmc.ar").read_bytes() == f.read()
+    counts = da.launch_counts()
+    assert min(counts[t] for t in ("KA", "KB", "KC", "KD")) > 0
+    assert counts["KE"] == 0           # the walk runs only when threading
+
+
+THR = dict(ksize=21, cth=20, n_filter=4, nm_filter=1, simmode=2,
+           threading=True, thread_cth=50, maxncorrection=3, aln=True)
+
+
+@pytest.fixture(scope="module")
+def drp_graph():
+    rp = RPGG(os.path.join(GOLDEN, "pan"))
+    d = da.DeviceRPGG.build(rp, with_tre=False)
+    d.add_graph(rp)
+    return d
+
+
+def test_kb_graph_kd_ke_match_plain_on_step_inputs(cuda, drp_graph):
+    from danbing_tk_tpu_torch.io.native_reader import NativeBatchReader
+
+    P, L = 1024, 192
+    rd = NativeBatchReader(os.path.join(GOLDEN, "reads.sim.fa"), P, L,
+                           min_read_size=40, with_titles=False)
+    codes, rlen, n, _ = next(iter(rd))
+    rd.close()
+    cap = {}
+    step = da.make_step(drp_graph, AlignConfig(**THR), P, L, device=cuda,
+                        capture=cap)
+    step(da.init_state(drp_graph, cuda), codes, rlen, np.arange(P) < n)
+    for g, w in zip(dt.lookup_bucket(*cap["KB_graph"]),
+                    dt.lookup_bucket_plain(*cap["KB_graph"])):
+        assert torch.equal(g, w)
+    sk, sp = da.init_state(drp_graph, cuda), da.init_state(drp_graph, cuda)
+    got = da.assign_count(sk, *cap["KD"])
+    want = da.assign_count_plain(sp, *cap["KD"])
+    assert set(got) == set(want) >= {"tr_member", "slot"}
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    n0 = da.thread_walk.launches
+    got = da.thread_walk(sk, *cap["KE"])
+    want = da.thread_walk_plain(sp, *cap["KE"])
+    assert da.thread_walk.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[1].any()) and not bool(got[1].all())
+    for key in ("counts", "nmapread", "kmc"):
+        assert torch.equal(sk[key], sp[key]), key
+
+
+def test_golden_threading_on_cuda(cuda, tmp_path):
+    da.reset_launch_counts()
+    run = DeviceAlignRunner(RPGG(os.path.join(GOLDEN, "pan")),
+                            AlignConfig(**THR), device=cuda)
+    run.run_file_native(os.path.join(GOLDEN, "reads.sim.fa"), prefilter=True)
+    run.write_aln(tmp_path / "out.aln")
+    run.write_tr_kmers(tmp_path / "out.tr.kmers")
+    for name, gold in (("out.aln", "out.thread.aln"),
+                       ("out.tr.kmers", "out.thread.tr.kmers")):
+        with open(os.path.join(GOLDEN, gold), "rb") as f:
+            assert (tmp_path / name).read_bytes() == f.read(), name
     assert min(da.launch_counts().values()) > 0

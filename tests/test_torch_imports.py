@@ -20,6 +20,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         continue
     importlib.import_module(m.name)
 import chip_smoke
+for m in ("engine.threading", "engine.native_thread", "tools.scale_index"):
+    assert pkg.__name__ + "." + m in sys.modules, m
 bad = sorted(n for n in sys.modules if n == "jax" or n.startswith("jax.")
              or n == "danbing_tk_tpu" or n.startswith("danbing_tk_tpu."))
 print("BAD", bad)
@@ -66,7 +68,7 @@ def test_kernels_have_counters_and_notes():
     from danbing_tk_tpu_torch.kernels import build
 
     counts = da.launch_counts()
-    assert set(counts) == {"KA", "KB", "KC", "KD"}
+    assert set(counts) == {"KA", "KB", "KC", "KD", "KE"}
     assert all(isinstance(v, int) for v in counts.values())
     for name in build.KERNELS:
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:

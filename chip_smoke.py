@@ -12,7 +12,8 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      the same inputs at the main path's shapes (P = 4096 pairs, L = 160,
      k = 21, E = 512, prefilter dispatch 4P), on the production-size
      index: KA, KB (dbi, member, trfl), KC and KD; exact equality
-     required; median CUDA-event times of kernel and plain version
+     required; CUDA-event times of kernel and plain version (median of
+     10 windows of 10 back-to-back calls)
   4. golden end to end on cuda through the CLI: ``align --device
      --native-io --prefilter -ka`` (.trkmc.ar byte-equal) and the
      threading run ``-s 2 -gc 50 3 -a -on`` (.aln and .tr.kmers
@@ -31,10 +32,21 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      batched native engine through a host view of the loci's graphs (test
      data, built for the pool fragments' loci before the timed run);
      referee'd pairs are counted, not resolved
-  7. the kernels line (JSON): each kernel's ``launches`` is the sum over
-     the two funnel runs (per path in ``launches_by_path``), the counts
+  7. okam, bait, QC and bubbles: (a) the golden CLI on cuda with .kam
+     output (the default) and -bu, with -fq -b -s 2 and with -qc -s 2, all
+     outputs byte-equal, KF and KG launched; (b) after the graph table's
+     device copy is dropped, the index's tre table (the fa2kmers tre
+     rule), a bait table of 64 of each locus's own k-mers and a QC mask
+     failing 5% of the loci; KF, KG and KD with the ann plane against
+     their plain versions as in phase 3, on TR pairs with 0.5%
+     substitutions; (c) >= 1M pairs through the okam funnel (-s 2 -b -qc
+     -bu, simmode-2 titles, 5% TR pool with 0.5% substitutions): .kam
+     rows, bubble maps at the reference's flush cadence; referee'd pairs
+     are counted, not resolved
+  8. the kernels line (JSON): each kernel's ``launches`` is the sum over
+     the three funnel runs (per path in ``launches_by_path``), the counts
      set to 0 just before each run and read just after it
-  8. the last line: {"ok": true, "device": {...}}
+  9. the last line: {"ok": true, "device": {...}}
 
 Needs a CUDA card; exits 1 without one, or without the package beside it.
 """
@@ -52,6 +64,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM HBM3, published peak
 COUNTING = ("KA", "KB", "KC", "KD")     # the counting path's kernels
+THREADING = COUNTING + ("KE",)
+OKAM = COUNTING + ("KF", "KG")          # -b -qc -bu adds KF and KG
 
 
 def log(msg: str) -> None:
@@ -63,8 +77,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, n: int = 20, warm: int = 3) -> float:
-    """Median of n CUDA-event timings of fn() after warm-up."""
+def cuda_ms(fn, n: int = 10, reps: int = 10, warm: int = 3) -> float:
+    """Milliseconds per fn() call: the median over n CUDA-event windows of
+    reps back-to-back calls after warm-up.  A window of one call would
+    also time the wrapper's host work before its launch, which is longer
+    than a short kernel."""
     import torch
 
     for _ in range(warm):
@@ -75,10 +92,11 @@ def cuda_ms(fn, n: int = 20, warm: int = 3) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(reps):
+            fn()
         e1.record()
         e1.synchronize()
-        ts.append(e0.elapsed_time(e1))
+        ts.append(e0.elapsed_time(e1) / reps)
     ts.sort()
     return ts[len(ts) // 2]
 
@@ -154,10 +172,9 @@ def main() -> int:
     from danbing_tk_tpu_torch.index import device_table as dt
     from danbing_tk_tpu_torch.io.native_reader import sample_queries
     from danbing_tk_tpu_torch.ops import kmers as km
-    from danbing_tk_tpu_torch.tools.scale_index import (ScaleThreadView,
-                                                         build_scale_graph,
-                                                         build_scale_rpgg,
-                                                         sample_read_batch)
+    from danbing_tk_tpu_torch.tools.scale_index import (
+        ScaleThreadView, build_scale_bait, build_scale_graph, build_scale_qc,
+        build_scale_rpgg, build_scale_tre, sample_read_batch, sim_titles)
 
     t0 = time.time()
     drp, seqs = build_scale_rpgg(args.nloci, 1500, seed=args.seed,
@@ -376,7 +393,7 @@ def main() -> int:
                          f"tests/golden/{name}")
         if os.path.exists(out + ".tr.summary.txt"):
             fail("threading mode wrote a .tr.summary.txt")
-    if min(golden_thr_counts.values()) <= 0:
+    if min(golden_thr_counts[t] for t in THREADING) <= 0:
         fail(f"golden threading run skipped a kernel: {golden_thr_counts}")
     log(f"[4] golden threading CLI on cuda: .aln and .tr.kmers byte-equal, "
         f"{time.time() - t0:.1f}s, launches {golden_thr_counts}")
@@ -512,7 +529,7 @@ def main() -> int:
     torch.cuda.synchronize()
     twall = time.time() - t0
     tlaunches = da.launch_counts()
-    if min(tlaunches.values()) <= 0:
+    if min(tlaunches[t] for t in THREADING) <= 0:
         fail(f"the threading funnel skipped a kernel: {tlaunches}")
     n_surv = trunner.n_step_pairs
     n_dev, n_host = trunner.n_device_thread, trunner.n_host_thread
@@ -542,17 +559,204 @@ def main() -> int:
         f"stats={trunner.state['stats'].cpu().tolist()} "
         f"launches={tlaunches}")
 
-    # ---- 7. kernels line ----
+    # ---- 7. okam, bait, QC and bubbles ----
+    # (a) the golden CLI on cuda
+    da.reset_launch_counts()
+    t0 = time.time()
+    okam_golden = (
+        (["-bu", "-fa", "reads.fa"], "out",
+         ("kam", "trkmc.ar", "tr.summary.txt", "bub.kmdb")),
+        (["-fq", "reads.sim.fq", "-b", "-s", "2"], "out.fq",
+         ("kam", "trkmc.ar", "tr.summary.txt")),
+        (["-qc", "qc.txt", "-s", "2", "-fa", "reads.sim.fa"], "out.qc",
+         ("kam", "trkmc.ar", "tr.summary.txt")),
+    )
+    with tempfile.TemporaryDirectory(prefix="dtk_smoke_") as out_dir:
+        for flags, gname, exts in okam_golden:
+            out = os.path.join(out_dir, gname)
+            cli.main(["align", "--device", "--native-io", "--prefilter",
+                      "-cth", "20", "-kf", "4", "1", "-qs",
+                      os.path.join(gold, "pan"), "-o", out]
+                     + [os.path.join(gold, a) if "." in a else a
+                        for a in flags])
+            for ext in exts:
+                with open(f"{out}.{ext}", "rb") as f, \
+                        open(os.path.join(gold, f"{gname}.{ext}"), "rb") as g:
+                    if f.read() != g.read():
+                        fail(f"golden {' '.join(flags)}: .{ext} differs "
+                             f"from tests/golden/{gname}.{ext}")
+        torch.cuda.synchronize()
+    golden_okam_counts = da.launch_counts()
+    if min(golden_okam_counts[t] for t in OKAM) <= 0:
+        fail(f"golden okam runs skipped a kernel: {golden_okam_counts}")
+    log(f"[7] golden CLI on cuda: default .kam + -bu, -fq -b -s 2, -qc -s 2 "
+        f"byte-equal, {time.time() - t0:.1f}s, launches "
+        f"{golden_okam_counts}")
+
+    # (b) the okam step's kernels at scale; the graph table's device copy
+    # goes first, so the peak is never graph + tre
+    del tstep, trunner, view, tbatches, tab, q, loc, tout
+    drp.release(dev, "graph")
+    drp.graph_tab = None
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    drp.tre_tab, n_tre = build_scale_tre(seqs, verbose=False)
+    t_tre = time.time() - t0
+    t0 = time.time()
+    drp.bait_tab, n_bait = build_scale_bait(seqs, seed=args.seed)
+    drp.qc = build_scale_qc(args.nloci, seed=args.seed)
+    t_bait = time.time() - t0
+    t0 = time.time()
+    drp.tables(dev, bait=True, qc=True, tre=True)
+    torch.cuda.synchronize()
+    log(f"[7] tre table: entries={n_tre} bytes={drp.tre_tab.nbytes} "
+        f"levels={len(drp.tre_tab.levels)} build={t_tre:.1f}s; bait table: "
+        f"entries={n_bait} bytes={drp.bait_tab.nbytes} build+qc="
+        f"{t_bait:.1f}s; qc fails {int((drp.qc == 0).sum())} loci; upload="
+        f"{time.time() - t0:.1f}s")
+    ocfg = AlignConfig(ksize=k, cth=20, n_filter=4, nm_filter=1, okam=True,
+                       simmode=2, bait=True, qc=True, output_bubbles=True)
+    orng = np.random.default_rng([args.seed, 4])
+    ocodes, orlen = sample_read_batch(seqs, P, L, orng, frac_tr=1.0,
+                                      read_len=RL, sub_rate=SUB)
+    ocap: dict = {}
+    ostep = da.make_step(drp, ocfg, P, L, expand_cap=E, with_annot=True,
+                         with_bubbles=True, device=dev, capture=ocap)
+    oscratch = da.init_state(drp, dev)
+    ocodes_d = torch.from_numpy(ocodes).to(dev)
+    orlen_d = torch.from_numpy(orlen).to(dev)
+    _, oout = ostep(oscratch, ocodes_d, orlen_d, live_d)
+    torch.cuda.synchronize()
+
+    kf_args = ocap["KF"]
+    kmer_, qm_, dst0_, _, _, _, bait_, _ = kf_args
+    dp, qd, _, bfp = da.read_filter_plain(*kf_args)
+    devr = dp.repeat_interleave(2)
+    # the run starts KF probes: each dev_pair read's distinct k-mers
+    srt = torch.sort(torch.where(kmer_[devr] == km.EMPTY, (1 << 63) - 1,
+                                 kmer_[devr]), dim=1).values
+    new = srt != (1 << 63) - 1
+    new[:, 1:] &= srt[:, 1:] != srt[:, :-1]
+    bq = srt[new]
+    bloc = dst0_.repeat_interleave(2)[devr][:, None].expand_as(srt)[new]
+    _, brows, _ = kb_bytes(bait_, bq, bloc)
+    n_dev_reads = int(devr.sum())
+    kf = compare("KF read_filter", lambda: da.read_filter(*kf_args),
+                 lambda: da.read_filter_plain(*kf_args),
+                 n_dev_reads * NKW * 8 + brows * 8 * bait_.W * 4
+                 + P * (10 + 1 + 11),
+                 f"pairs={P} dev_pairs={int(dp.sum())} bait_filtered="
+                 f"{int(bfp.sum())} qc_dropped={int(qd.sum())} run_starts="
+                 f"{bq.numel()} distinct_bait_rows={brows} launches/step=1",
+                 phase=7)
+    kg_args = ocap["KG"]
+    edge_, evalid_, si__, ei__, rm_, counted_, dst0g, tre_ = kg_args
+    NE = edge_.shape[1]
+    pos = torch.arange(NE, device=dev)
+    need = (evalid_ & (pos >= si__[:, None]) & (pos < (ei__ - 1)[:, None])
+            & ((rm_ == 0) & counted_.repeat_interleave(2))[:, None])
+    tq = edge_[need]
+    tloc = dst0g.repeat_interleave(2)[:, None].expand_as(edge_)[need]
+    _, trows, _ = kb_bytes(tre_, tq, tloc)
+    n_novel = int(da.unpack_bits(da.novel_edges_plain(*kg_args), NE).sum())
+    kg = compare("KG novel_edges", lambda: da.novel_edges(*kg_args),
+                 lambda: da.novel_edges_plain(*kg_args),
+                 tq.numel() * 9 + trows * 8 * tre_.W * 4 + B * 12 + P * 9
+                 + B * ((NE + 7) // 8),
+                 f"reads={B} probed_positions={tq.numel()} novel_edges="
+                 f"{n_novel} distinct_tre_rows={trows} launches/step=1",
+                 phase=7)
+    kda_args = ocap["KD"]
+    st_k, st_p = da.init_state(drp, dev), da.init_state(drp, dev)
+    da.assign_count(st_k, *kda_args)
+    da.assign_count_plain(st_p, *kda_args)
+    torch.cuda.synchronize()
+    for key in ("counts", "nmapread", "kmc"):
+        if not torch.equal(st_k[key], st_p[key]):
+            fail(f"KD[annot] state {key} disagrees with the plain version")
+    n_slots_a = touched(st_k["counts"])
+    kda = compare("KD assign_count[annot]",
+                  lambda: da.assign_count(st_k, *kda_args),
+                  lambda: da.assign_count_plain(st_p, *kda_args),
+                  B * NKW * 28 + B * (9 * 4 + 8) + P * 10 + n_slots_a * 8,
+                  f"reads={B} writes the ann plane, bf_pair in, slots="
+                  f"{n_slots_a} launches/step=1", phase=7)
+    results["KF"] = dict(
+        kf, source="danbing_tk_tpu_torch/csrc/read_filter.cu",
+        replaces="danbing_tk_tpu/engine/device_align.py:990")
+    results["KG"] = dict(
+        kg, source="danbing_tk_tpu_torch/csrc/novel_edges.cu",
+        replaces="danbing_tk_tpu/engine/device_align.py:1238")
+    ostep_ms = cuda_ms(lambda: ostep(oscratch, ocodes_d, orlen_d, live_d))
+    log(f"[7] okam step (P={P}, sub_rate={SUB}, -s 2 -b -qc -bu) "
+        f"ms={ostep_ms:.4f} vote_pass={int(oout['vote_pass'].sum())} "
+        f"counted={int(oout['counted'].sum())} KD[annot] ms={kda['ms']:.4f}")
+    del oscratch, st_k, st_p, ocap, kf_args, kg_args, kda_args, ostep, oout
+
+    # (c) the 1M-pair okam funnel
+    orunner = DeviceAlignRunner(None, ocfg, batch_pairs=P, max_read_len=L,
+                                expand_cap=E, drp=drp, device=dev)
+    orng = np.random.default_rng([args.seed, 5])
+    t0 = time.time()
+    obatches = []
+    for _ in range(nbat):
+        c, r, li = sample_read_batch(seqs, Pd, L, orng, frac_tr=0.05,
+                                     read_len=RL, sub_rate=SUB,
+                                     with_loci=True)
+        obatches.append((c, r, Pd, sim_titles(li)))
+    t_odata = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launch_counts()
+    t0 = time.time()
+    orunner.run_batches(obatches, prefilter=True)
+    torch.cuda.synchronize()
+    owall = time.time() - t0
+    olaunches = da.launch_counts()
+    if min(olaunches[t] for t in OKAM) <= 0:
+        fail(f"the okam funnel skipped a kernel: {olaunches}")
+    ost = orunner.state["stats"].cpu().tolist()
+    onmap = da.state_u32(orunner.state["nmapread"])[:-1].astype(np.int64)
+    rows = orunner.kam_rows
+    n_same = sum(1 for row in rows
+                 if row.split("\t", 2)[0] == row.split("\t", 2)[1])
+    bub = orunner.bubbles
+    n_novel_f = sum(sum(c.values()) for c in bub.bub_counts.values())
+    n_osurv = orunner.n_step_pairs
+    if (int(onmap.sum()) != ost[6]
+            or orunner.n_prefiltered + n_osurv != npairs
+            or not rows or ost[7] <= 0 or ost[8] <= 0 or n_novel_f <= 0
+            or n_same <= len(rows) // 2):
+        fail(f"okam funnel bookkeeping: nmapread {int(onmap.sum())}, stats "
+             f"{ost}, survivors {n_osurv}, rows {len(rows)} (src == dest "
+             f"{n_same}), novel edges {n_novel_f}")
+    log(f"[7] okam funnel (-s 2 -b -qc -bu): pairs={npairs} (data made in "
+        f"{t_odata:.1f}s) wall={owall:.3f}s "
+        f"reads/s={2 * npairs / owall:.0f} survivors={n_osurv} "
+        f"kam_rows={len(rows)} src_eq_dest_share={n_same / len(rows):.4f} "
+        f"bait_filtered_reads={ost[8]} share_of_dev_reads="
+        f"{ost[8] / max(ost[5], 1):.4f} qc_dropped_reads={ost[7]} "
+        f"share={ost[7] / max(ost[5] + ost[7], 1):.4f} "
+        f"novel_edges={n_novel_f} bubble_kmers="
+        f"{sum(len(c) for c in bub.bub_counts.values())} "
+        f"referee={orunner.n_referee} referee_share="
+        f"{orunner.n_referee / max(n_osurv, 1):.5f} steps={orunner.n_steps} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+        f"stats={ost} launches={olaunches}")
+
+    # ---- 8. kernels line ----
     names = {"KA": "KA extract_kmers", "KB": "KB bucket_lookup",
              "KC": "KC pair_vote", "KD": "KD assign_count",
-             "KE": "KE thread_walk"}
+             "KE": "KE thread_walk", "KF": "KF read_filter",
+             "KG": "KG novel_edges"}
     kern = [dict(name=names[t], route="cuda",
-                 launches=launches[t] + tlaunches[t],
+                 launches=launches[t] + tlaunches[t] + olaunches[t],
                  launches_by_path={"counting": launches[t],
-                                   "threading": tlaunches[t]},
-                 **results[t]) for t in ("KA", "KB", "KC", "KD", "KE")]
-    log(f"[7] golden launches {golden_counts} / threading "
-        f"{golden_thr_counts}; card {smi}; "
+                                   "threading": tlaunches[t],
+                                   "okam": olaunches[t]},
+                 **results[t]) for t in names]
+    log(f"[8] golden launches {golden_counts} / threading "
+        f"{golden_thr_counts} / okam {golden_okam_counts}; card {smi}; "
         f"smoke wall {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kern}), flush=True)
     print(json.dumps({"ok": True, "device": {

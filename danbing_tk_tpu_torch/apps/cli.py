@@ -3,15 +3,17 @@
 The ``align`` subcommand takes the JAX CLI's flags
 (danbing_tk_tpu/apps/cli.py) plus ``--torch-device`` (default ``cuda``;
 without a card the run raises unless ``--torch-device cpu`` is given).
-The port runs the production counting funnel and the graph-threading
-funnel,
+The port runs the counting funnel, by default with .kam rows (-ka turns
+them off), with simmode, bait, QC, fastq input and bubbles, and the
+graph-threading funnel,
 
-    align --device --native-io [--prefilter] -ka -qs PAN -fa READS -o OUT
+    align --device --native-io [--prefilter] [-ka] [-s 1|2] [-b] \
+        [-qc QC] [-bu] -qs PAN (-fa READS | -fq READS) -o OUT
     align --device --native-io [--prefilter] -gc T C [-a|-ae] [-s 2] \
         -qs PAN -fa READS -on OUT
 
 and raises NotImplementedError, naming the ROADMAP item, for any mode it
-does not run yet.
+does not run yet (-e, -tb, -t, checkpoints, the retry ladder).
 """
 
 from __future__ import annotations
@@ -54,10 +56,12 @@ def _cmd_align(args):
     al = DeviceAlignRunner(rpgg, cfg, expand_cap=args.expand_cap,
                            retry_expand=args.retry_expand, device=device)
     pref = args.o or args.on
-    if cfg.aln:
-        # .aln rows stream to the file in append (pair) order
-        from ..io.rowsink import RowSink
+    # .kam and .aln rows stream to their files in append (pair) order
+    from ..io.rowsink import RowSink
 
+    if al.okam:
+        al.kam_rows = RowSink(pref + ".kam")
+    if cfg.aln:
         al.aln_rows = RowSink(pref + ".aln")
     al.run_file_native(args.fa or args.fq, checkpoint=args.checkpoint,
                        checkpoint_every=args.checkpoint_every,
@@ -68,8 +72,12 @@ def _cmd_align(args):
         al.write_trkmc_ar(pref + ".trkmc.ar")
         if not cfg.threading:
             al.write_summary(pref + ".tr.summary.txt")
+    if al.okam:
+        al.write_kam(pref + ".kam")
     if cfg.aln:
         al.write_aln(pref + ".aln")
+    if cfg.output_bubbles:
+        al.write_bubbles(pref + ".bub.kmdb")
     print(f"referee pairs (host-oracle fallback): {al.n_referee}",
           file=sys.stderr)
     if cfg.threading:

@@ -21,6 +21,11 @@
 //      per thread into one atomic.  The even thread adds nmate and the
 //      segment length into nmapread / kmc at dst0.
 //
+// A bait-filtered pair (KF's bf_pair, null without bait) enters as
+// rm_entry = (kf == 1) | bf_pair (device_align.py:1088): both mates are
+// removed, so the pair is not counted.  With kAnnot (okam steps) the first
+// pass also writes the ann plane ((2P, NKW) u8, :1236-1237) for .kam rows.
+//
 // Threading mode (the graph-threading step, device_align.py:1143-1191)
 // stops after step 2: it writes the tr_member plane (u8, ((ann == 2) |
 // in_tr) & kvalid with in_tr = afound & ((aval >> 2) & 1)) and the slot
@@ -59,12 +64,13 @@ __device__ __forceinline__ int kd_ann(const KdIn& in, int64_t o,
     return af ? (int)(av & 3u) : 0;
 }
 
-// kThreading is a template parameter so the counting instantiation
-// carries none of the threading mode's plane writes.
-template <bool kThreading>
+// kThreading and kAnnot are template parameters so the counting
+// instantiation carries none of the other modes' plane writes.
+template <bool kThreading, bool kAnnot>
 __global__ void assign_count_kernel(int64_t P, int NKW, KdIn in,
                                     const int64_t* __restrict__ dst0,
                                     const uint8_t* __restrict__ dev_pair,
+                                    const uint8_t* __restrict__ bf_pair,
                                     const int32_t* __restrict__ kf,
                                     const int32_t* __restrict__ nk,
                                     const int64_t* __restrict__ loff,
@@ -75,7 +81,8 @@ __global__ void assign_count_kernel(int64_t P, int NKW, KdIn in,
                                     unsigned int* __restrict__ kmc,
                                     int32_t* __restrict__ out,
                                     uint8_t* __restrict__ tr_member,
-                                    int64_t* __restrict__ slot_out) {
+                                    int64_t* __restrict__ slot_out,
+                                    uint8_t* __restrict__ ann_out) {
     __shared__ int s_rm[KD_THREADS];
     __shared__ int s_seg[KD_THREADS];
     const int64_t R = 2 * P;
@@ -89,7 +96,7 @@ __global__ void assign_count_kernel(int64_t P, int NKW, KdIn in,
     if (active) {
         dst = (uint32_t)dst0[p];
         dev = dev_pair[p] != 0;
-        rm_entry = kf[r] == 1;
+        rm_entry = kf[r] == 1 || (bf_pair != nullptr && bf_pair[p]);
         base = loff[dst < (uint64_t)nloci ? dst : (uint32_t)nloci];
         const int64_t row = r * NKW;
         int lk = 0, lki = -1, prev = 0;
@@ -104,6 +111,7 @@ __global__ void assign_count_kernel(int64_t P, int NKW, KdIn in,
                 tr_member[row + i] = (a == 2 || in_tr) && in.kvalid[row + i];
                 slot_out[row + i] = base + (int64_t)rank;
             }
+            if constexpr (kAnnot) ann_out[row + i] = (uint8_t)a;
             bool known = a > 0;
             if (known && lk > 0 && a != lk) {
                 ++nt;
@@ -194,24 +202,28 @@ DTK_EXPORT int dtk_assign_count(int64_t P, int64_t NKW, const void* found,
                                 const void* val, const void* annv,
                                 const void* kvalid, const void* afound_t,
                                 const void* aval_t, const void* dst0,
-                                const void* dev_pair, const void* kf,
-                                const void* nk, const void* loff,
+                                const void* dev_pair, const void* bf_pair,
+                                const void* kf, const void* nk,
+                                const void* loff,
                                 int64_t nloci, int64_t nslots, int64_t nm_tr,
-                                int64_t threading, void* counts,
-                                void* nmapread, void* kmc, void* out,
-                                void* tr_member, void* slot, void* stream) {
+                                int64_t threading, int64_t annot,
+                                void* counts, void* nmapread, void* kmc,
+                                void* out, void* tr_member, void* slot,
+                                void* ann, void* stream) {
     KdIn in{(const uint8_t*)found, (const int64_t*)val,
             (const int64_t*)annv, (const uint8_t*)kvalid,
             (const uint8_t*)afound_t, (const int64_t*)aval_t};
     if (P <= 0) return (int)cudaGetLastError();
-    auto kernel = threading ? assign_count_kernel<true>
-                            : assign_count_kernel<false>;
+    auto kernel = threading ? (annot ? assign_count_kernel<true, true>
+                                     : assign_count_kernel<true, false>)
+                            : (annot ? assign_count_kernel<false, true>
+                                     : assign_count_kernel<false, false>);
     kernel<<<dtk_grid(2 * P, KD_THREADS), KD_THREADS, 0,
              (cudaStream_t)stream>>>(
         P, (int)NKW, in, (const int64_t*)dst0, (const uint8_t*)dev_pair,
-        (const int32_t*)kf, (const int32_t*)nk, (const int64_t*)loff, nloci,
-        nslots, (int)nm_tr, (unsigned int*)counts, (unsigned int*)nmapread,
-        (unsigned int*)kmc, (int32_t*)out, (uint8_t*)tr_member,
-        (int64_t*)slot);
+        (const uint8_t*)bf_pair, (const int32_t*)kf, (const int32_t*)nk,
+        (const int64_t*)loff, nloci, nslots, (int)nm_tr,
+        (unsigned int*)counts, (unsigned int*)nmapread, (unsigned int*)kmc,
+        (int32_t*)out, (uint8_t*)tr_member, (int64_t*)slot, (uint8_t*)ann);
     return (int)cudaGetLastError();
 }

@@ -12,49 +12,22 @@
 // at W = 4) from HBM for level 0, plus one more row only for misses and
 // second-level keys; the rows land in random places, so nothing coalesces
 // across threads.  The design reads the row through the read-only cache
-// (one sector per slot pair) and writes three coalesced outputs.
-#include "common.cuh"
-
-constexpr int MAXLEV = 32;
-
-struct Levels {
-    const uint32_t* t[MAXLEV];
-    uint32_t mask[MAXLEV];
-    uint32_t salt[MAXLEV];
-    int n;
-};
+// (one sector per slot pair) and writes three coalesced outputs.  The
+// single per-query probe body lives in bucket.cuh, shared with KF and KG.
+#include "bucket.cuh"
 
 __global__ void bucket_lookup_kernel(const int64_t* __restrict__ q,
                                      const int64_t* __restrict__ qloc,
-                                     int64_t n, Levels lv, int W,
+                                     int64_t n, DtkLevels lv, int W,
                                      int composite, int nval,
                                      uint8_t* __restrict__ found,
                                      int64_t* __restrict__ val,
                                      int64_t* __restrict__ val2) {
     int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    uint64_t key = (uint64_t)q[i];
-    uint32_t lo = (uint32_t)key, hi = (uint32_t)(key >> 32);
     uint32_t loc = composite ? (uint32_t)qloc[i] : 0u;
-    const int vp = 2 + composite;
-    bool f = false;
-    uint32_t v = 0, v2 = 0;
-    for (int l = 0; l < lv.n && !f; ++l) {
-        uint32_t h = dtk_mix32(hi ^ lv.salt[l]);
-        if (composite) h = dtk_mix32(h ^ loc);
-        uint32_t b = dtk_mix32(lo ^ h) & lv.mask[l];
-        const uint32_t* row = lv.t[l] + (size_t)b * 8 * W;
-        for (int s = 0; s < 8; ++s) {
-            const uint32_t* sl = row + s * W;
-            bool m = __ldg(sl) == lo && __ldg(sl + 1) == hi &&
-                     (!composite || __ldg(sl + 2) == loc);
-            if (m) {
-                f = true;
-                if (nval >= 1) v = max(v, __ldg(sl + vp));
-                if (nval == 2) v2 = max(v2, __ldg(sl + vp + 1));
-            }
-        }
-    }
+    uint32_t v, v2;
+    bool f = dtk_probe(lv, W, composite, nval, (uint64_t)q[i], loc, &v, &v2);
     found[i] = f;
     val[i] = v;
     val2[i] = v2;
@@ -66,14 +39,9 @@ DTK_EXPORT int dtk_bucket_lookup(const void* q, const void* qloc, int64_t n,
                                  int64_t composite, int64_t nval,
                                  void* found, void* val, void* val2,
                                  void* stream) {
-    if (nlev > MAXLEV) return (int)cudaErrorInvalidValue;
-    Levels lv;
-    lv.n = (int)nlev;
-    for (int l = 0; l < lv.n; ++l) {
-        lv.t[l] = ((const uint32_t* const*)tabs)[l];
-        lv.mask[l] = (uint32_t)(((const int64_t*)nbs)[l] - 1);
-        lv.salt[l] = (uint32_t)((const int64_t*)salts)[l];
-    }
+    DtkLevels lv;
+    if (!dtk_levels(&lv, tabs, nbs, salts, nlev))
+        return (int)cudaErrorInvalidValue;
     const int W = 2 + (int)composite + (int)nval;
     const int threads = 256;
     if (n > 0)

@@ -1,23 +1,26 @@
 """Device-aligner runner: streams read batches from the native reader
 through the optional sampled-k-mer prefilter and the device step, routes
 referee-flagged pairs through the host oracle, and writes the byte-exact
-outputs (.trkmc.ar / .tr.kmers / .tr.summary.txt, and .aln in threading
-mode).
+outputs (.trkmc.ar / .tr.kmers / .tr.summary.txt, .kam, .bub.kmdb, and
+.aln in threading mode).
 
 Counterpart of DeviceAlignRunner.run_file_native in
-danbing_tk_tpu/engine/align_runner.py, cut to counting and graph-threading
-modes: .kam / bubbles, the retry ladder and checkpoints are not ported yet;
-asking for one raises NotImplementedError.  The device accumulates
-TR-k-mer counts in a flat u32 array in .trkmc.ar order; referee'd pairs
-are masked out on the device and recomputed by host_align.process_pair, so
-the final counts are device + host.
+danbing_tk_tpu/engine/align_runner.py; the retry ladder and checkpoints are
+not ported yet, and asking for one raises NotImplementedError.  The device
+accumulates TR-k-mer counts in a flat u32 array in .trkmc.ar order;
+referee'd pairs are masked out on the device and recomputed by
+host_align.process_pair, so the final counts are device + host.
 
-Threading mode is ordered: every pair entering a full step gets an
-ordinal, its side effects (a device-clean .aln row, a host threading
-fallback, a referee call) are buffered per ordinal and applied strictly in
-pair order, so .aln rows interleave exactly as the reference writes them.
-Pairs whose DFA walk is not clean go to the native threading engine
-(native/dtk_thread.cpp) in one batched call per step on a one-worker pool.
+Threading, okam (.kam rows, the default) and bubbles (-bu) are ordered:
+every pair entering a full step gets an ordinal, its side effects (a .kam
+row, bubble inserts, a device-clean .aln row, a host threading fallback, a
+referee call) are buffered per ordinal and applied strictly in pair order,
+so rows interleave and the bubble maps fill exactly as the reference's.
+With -bu the batch-local bubble maps merge into the global DB every
+reads_per_batch / 2 input pairs, the reference's flush cadence, which
+shapes the .bub.kmdb bytes.  Pairs whose DFA walk is not clean go to the
+native threading engine (native/dtk_thread.cpp) in one batched call per
+step on a one-worker pool.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ import torch
 from .._device import resolve_device
 from ..io import binary as bio
 from . import device_align as da
-from .host_align import (AlignConfig, HostAligner, RPGG,
-                         parse_read_name_sim1, parse_read_name_sim2)
+from ..ops import kmers_np as K
+from .host_align import (AlignConfig, BubbleMaps, HostAligner, RPGG,
+                         ReadAsgn, _kam_row, parse_read_name_sim1,
+                         parse_read_name_sim2)
 from .native_thread import NativeThreader, row_stride, split_cg_row
 
 # a prefilter dispatch carries PREFILTER_MULT x the step's pairs (the
@@ -42,10 +47,14 @@ PREFILTER_MULT = 4
 PREFILTER_WINDOW = 8
 READER_PREFETCH = 4
 
-# the step planes the threading funnel reads on the host (JAX
-# align_runner.py THR_KEYS)
+# the step planes the host reads per pair: threading (JAX align_runner.py
+# THR_KEYS) and .kam rows (KAM_KEYS); -bu adds BUB_KEYS
 THR_KEYS = ("nonshort", "sub_drop", "pair_alive", "qc_drop", "vote_pass",
             "dst0", "clean_pair", "tr_member", "nk")
+KAM_KEYS = ("nonshort", "sub_drop", "pair_alive", "qc_drop", "vote_pass",
+            "counted", "dest", "dst0", "kf", "hf", "bf", "rm", "af", "nt",
+            "bs", "ti", "si", "ei", "nk", "ann")
+BUB_KEYS = ("novel_pack", "dest")
 
 _DECODE = np.full(256, ord("N"), dtype=np.uint8)
 _DECODE[:4] = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -53,6 +62,10 @@ _DECODE[:4] = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 def _decode(codes: np.ndarray, rlen: int) -> str:
     return _DECODE[codes[:rlen]].tobytes().decode()
+
+
+def _decode_qual(quals: np.ndarray, rlen: int) -> str:
+    return quals[:rlen].tobytes().decode()
 
 
 def _fetch_async(t: torch.Tensor):
@@ -85,8 +98,9 @@ class DeviceAlignRunner:
         ``thread_view`` stands in for ``rpgg`` when there is none (a
         DeviceRPGG built straight from arrays): an object with per-locus
         ``graphs[d]`` (a dict or a (nodes, masks) array pair) and
-        ``tr_counts[d]`` (a dict) for the batched fallback; referee'd
-        pairs are then counted, not resolved."""
+        ``tr_counts[d]`` (a dict) for the batched fallback.  Without an
+        rpgg, referee'd pairs are counted, not resolved, and write no .kam
+        row; the runner keeps its own bubble maps."""
         da.check_ported_config(cfg)
         if retry_expand:
             raise NotImplementedError(
@@ -99,16 +113,30 @@ class DeviceAlignRunner:
         self.L = max_read_len
         self.expand_cap = expand_cap
         self.drp = drp if drp is not None else \
-            da.DeviceRPGG.build(rpgg, with_tre=False)
+            da.DeviceRPGG.build(rpgg, with_tre=cfg.output_bubbles)
         if cfg.threading and self.drp.graph_tab is None:
             self.drp.add_graph(rpgg)
-        self.step = da.make_step(self.drp, cfg, self.P, self.L,
-                                 expand_cap=expand_cap, device=self.device)
+        # threading never writes .kam
+        self.okam = bool(cfg.okam and not cfg.threading)
+        # fastq + bait: the bait count profile skips quality-masked k-mers
+        # (aQueryFasta_thread.h:1038-1078); the mask is made on the host
+        self.with_qual = bool(cfg.is_fastq and cfg.bait
+                              and self.drp.bait_tab is not None)
+        self.step = da.make_step(
+            self.drp, cfg, self.P, self.L, expand_cap=expand_cap,
+            with_annot=self.okam, with_bubbles=cfg.output_bubbles,
+            with_qual=self.with_qual, device=self.device)
         self.state = da.init_state(self.drp, self.device)
         # host oracle: referee'd pairs' counts go into the rpgg dicts.
         # Without an rpgg (a DeviceRPGG built straight from arrays, as the
         # synthetic scale index is) flagged pairs are counted, not resolved
         self.host = HostAligner(rpgg, cfg) if rpgg is not None else None
+        # the batch-local maps merged at the end of the run (and, with
+        # -bu, at each flush): the host's, which its referee calls fill
+        # too, or the runner's own bubble maps without an rpgg
+        self.bubbles = self.host
+        if self.host is None and cfg.output_bubbles:
+            self.bubbles = BubbleMaps(self.drp.nloci)
         # threading fallback: the native engine over the host graphs
         self.nthr = None
         self.tview = rpgg if rpgg is not None else thread_view
@@ -120,6 +148,7 @@ class DeviceAlignRunner:
             else:
                 raise ValueError("threading without an rpgg needs a "
                                  "thread_view (and no -gcc check)")
+        self.kam_rows: list[str] = []
         self.aln_rows: list[str] = []
         self.n_referee = 0
         self.referee_reasons = {"tie": 0, "ovf": 0, "t2": 0}
@@ -162,9 +191,9 @@ class DeviceAlignRunner:
 
         cfg = self.cfg
         reader = NativeBatchReader(
-            path, self.dispatch_pairs(prefilter), self.L, is_fastq=False,
-            min_read_size=cfg.cth + cfg.ksize - 1,
-            with_titles=self._with_titles())
+            path, self.dispatch_pairs(prefilter), self.L,
+            is_fastq=cfg.is_fastq, min_read_size=cfg.cth + cfg.ksize - 1,
+            with_titles=self._with_titles(), with_quals=self._with_quals())
         reader = PrefetchIterator(reader, READER_PREFETCH)
         try:
             self.run_batches(reader, prefilter)
@@ -172,9 +201,14 @@ class DeviceAlignRunner:
             reader.close()
 
     def _with_titles(self) -> bool:
-        """Titles ride along for .aln rows and the simmode src."""
+        """Titles ride along for .kam and .aln rows and the simmode src."""
         cfg = self.cfg
-        return bool(cfg.threading and (cfg.aln or cfg.simmode))
+        return bool(self.okam or (cfg.threading and (cfg.aln or cfg.simmode)))
+
+    def _with_quals(self) -> bool:
+        """Fastq quality strings ride along for the bait's quality mask,
+        .kam rows and the referee."""
+        return bool(self.cfg.is_fastq)
 
     def dispatch_pairs(self, prefilter: bool) -> int:
         """Pairs per input batch."""
@@ -182,21 +216,34 @@ class DeviceAlignRunner:
 
     def run_batches(self, batches, prefilter: bool = False):
         """Runs packed batches (codes (2n', L) u8, rlen (2n',) i32, n
-        live pairs[, titles]) of ``dispatch_pairs(prefilter)`` rows each
-        through the funnel; the file path feeds it the native reader."""
+        live pairs[, titles[, quals]]) of ``dispatch_pairs(prefilter)``
+        rows each through the funnel; the file path feeds it the native
+        reader.  Titles are '>'-stripped (None without them), quals the
+        (2n', L) u8 phred+33 rows."""
         P, L = self.P, self.L
         cfg = self.cfg
         thr = cfg.threading
-        wt = self._with_titles()
+        okam = self.okam
+        bub = bool(cfg.output_bubbles)
+        ordered = thr or okam or bub
+        wt, wq = self._with_titles(), self._with_quals()
         sim = cfg.simmode
         nloci = self.drp.nloci
         Pp = self.dispatch_pairs(prefilter)
         if prefilter and self.prefilter_P != Pp:
             self.prefilter_step = self._build_prefilter(Pp)
             self.prefilter_P = Pp
-        buf_codes = np.full((2 * P, L), 255, dtype=np.uint8)
-        buf_rlen = np.zeros(2 * P, dtype=np.int32)
-        buf_titles = np.empty(P, dtype=object) if wt else None
+        aux_keys = (("referee_pack",)
+                    + (THR_KEYS if thr else KAM_KEYS if okam else ())
+                    + (BUB_KEYS if bub else ()))
+
+        def new_buffers():
+            return (np.full((2 * P, L), 255, dtype=np.uint8),
+                    np.zeros(2 * P, dtype=np.int32),
+                    np.empty(P, dtype=object) if wt else None,
+                    np.zeros((2 * P, L), dtype=np.uint8) if wq else None)
+
+        buf_codes, buf_rlen, buf_titles, buf_quals = new_buffers()
         nbuf = 0
 
         # threading fallback: batched calls MUST serialize, since each
@@ -209,8 +256,8 @@ class DeviceAlignRunner:
 
             thr_batch_pool = ThreadPoolExecutor(1)
 
-        # ordered mode (threading): ordinal -> buffered effects, applied
-        # strictly in ordinal (pair) order
+        # ordered mode: ordinal -> buffered effects, applied strictly in
+        # ordinal (pair) order
         ord_next = 0
         ord_pend: dict[int, list] = {}
         n_ord = 0
@@ -226,10 +273,27 @@ class DeviceAlignRunner:
             # native titles come '>'-stripped and pruned
             return ">" + titles[i] if titles is not None else ">r"
 
+        def ref_effect(codes, rlen, quals, titles, i):
+            """The referee call's inputs, captured now; the call runs at
+            apply time so its .kam / .aln row and bubbles land in pair
+            order."""
+            qs = (None, None)
+            if quals is not None:
+                qs = (_decode_qual(quals[2 * i], rlen[2 * i]),
+                      _decode_qual(quals[2 * i + 1], rlen[2 * i + 1]))
+            title = title_of(titles, i)
+            return ("ref", title, _decode(codes[2 * i], rlen[2 * i]),
+                    _decode(codes[2 * i + 1], rlen[2 * i + 1]),
+                    pair_src(title) if sim else -1, qs)
+
         def apply_effect(e):
             tag = e[0]
             host = self.host
-            if tag == "aln":
+            if tag == "kam":
+                self.kam_rows.append(e[1])
+            elif tag == "bub":
+                self._add_bubbles_codes(*e[1:])
+            elif tag == "aln":
                 self.aln_rows.append(e[1])
             elif tag == "thr":
                 # -gcc: the Python engine walks and checks the pair here
@@ -273,12 +337,16 @@ class DeviceAlignRunner:
                             f"{src_s}\t{dest}\t{title}\t{s2}\t{s1}\t"
                             f"{c2}\t{t2}\t{c1}\t{t1}\n")
             else:                               # referee (synchronous)
-                _, title, s1, s2, src = e
+                _, title, s1, s2, src, qs = e
                 self.n_referee += 1
-                n0 = len(host.aln_rows)
-                host.process_pair(title, s1, s2, src, (None, None))
-                if len(host.aln_rows) > n0:
-                    self.aln_rows.append(host.aln_rows.pop())
+                # the referee's freshly appended row moves into the
+                # runner's sink in pair order
+                rows, sink = ((host.kam_rows, self.kam_rows) if okam else
+                              (host.aln_rows, self.aln_rows))
+                n0 = len(rows)
+                host.process_pair(title, s1, s2, src, qs)
+                if len(rows) > n0:
+                    sink.append(rows.pop())
 
         def emit(o, effs):
             nonlocal ord_next
@@ -305,28 +373,27 @@ class DeviceAlignRunner:
                 cfg.ksize, cfg.maxncorrection, 0, cfg.aln)
             return fut, {int(i): j for j, i in enumerate(bidx)}
 
-        def thread_effects(ko, referee, codes, rlen, titles, n, ords):
+        def thread_effects(ko, referee, codes, rlen, quals, titles, n, lo,
+                           ords):
             """The ordinal-buffered effects of one threading step."""
             alive = (ko["nonshort"][:n] & ~ko["sub_drop"][:n]
                      & ko["pair_alive"][:n] & ~ko["qc_drop"][:n]
                      & ko["vote_pass"][:n])
+            alive[:lo] = False
             clean = ko["clean_pair"][:n]
             self.n_device_thread += int((alive & clean & ~referee).sum())
             thr_batch = None
             bidx = np.nonzero(alive & ~clean & ~referee)[0]
             if thr_batch_pool is not None and len(bidx):
                 thr_batch = submit_batch(bidx, ko, codes, rlen)
-            for i in range(n):
+            for i in range(lo, n):
                 effs = []
                 if referee[i]:
                     if self.host is None:
                         self.n_referee += 1
                     else:
-                        effs.append((
-                            "ref", title_of(titles, i),
-                            _decode(codes[2 * i], rlen[2 * i]),
-                            _decode(codes[2 * i + 1], rlen[2 * i + 1]),
-                            pair_src(title_of(titles, i)) if sim else -1))
+                        effs.append(ref_effect(codes, rlen, quals, titles,
+                                               i))
                 elif alive[i]:
                     dst0_i = int(ko["dst0"][i])
                     title = title_of(titles, i)
@@ -350,63 +417,101 @@ class DeviceAlignRunner:
                             srcv, dst0_i))
                 emit(int(ords[i]), effs)
 
+        def count_effects(ko, referee, codes, rlen, quals, titles, n, lo,
+                          ords):
+            """The ordinal-buffered effects of one okam / -bu step: the
+            referee call, or the pair's bubble inserts and .kam row."""
+            if bub:
+                novp = ko["novel_pack"][: 2 * n]
+                has = novp.any(axis=1)
+                pair_bub = (has[0::2] | has[1::2]) & ~referee
+            for i in range(lo, n):
+                effs = []
+                if referee[i]:
+                    if self.host is None:
+                        self.n_referee += 1
+                    else:
+                        effs.append(ref_effect(codes, rlen, quals, titles,
+                                               i))
+                else:
+                    if bub and pair_bub[i]:
+                        d = int(ko["dest"][i])
+                        for ridx in (2 * i, 2 * i + 1):
+                            if has[ridx]:
+                                effs.append((
+                                    "bub", d, codes[ridx].copy(),
+                                    int(rlen[ridx]),
+                                    np.unpackbits(novp[ridx])))
+                    if okam:
+                        row = self._kam_device_row(
+                            ko, codes, rlen, quals, titles, i, pair_src)
+                        if row is not None:
+                            effs.append(("kam", row))
+                emit(int(ords[i]), effs)
+
         # full steps are processed fs_window steps after dispatch: the
-        # referee pack (and in threading mode the THR_KEYS planes) travel
-        # device->host in non_blocking copies, so the fetch overlaps the
-        # next steps; effects apply in dispatch order
+        # referee pack and the planes the host reads travel device->host
+        # in non_blocking copies, so the fetch overlaps the next steps;
+        # effects apply in dispatch order
         fs_pending: deque = deque()
         fs_window = 3
 
         def process_step():
-            handle, thr_h, codes, rlen, n, titles, ords = \
-                fs_pending.popleft()
-            pk = _fetched(handle)[:n]
+            (handles, codes, rlen, n, lo, titles, quals,
+             ords) = fs_pending.popleft()
+            ko = {key: _fetched(h) for key, h in handles.items()}
+            pk = ko["referee_pack"][:n]
             referee = (pk & 1) != 0
             for bit, key in ((2, "tie"), (4, "ovf"), (8, "t2")):
                 self.referee_reasons[key] += int(((pk & bit) != 0).sum())
             if thr:
-                ko = {key: _fetched(h) for key, h in thr_h.items()}
-                thread_effects(ko, referee, codes, rlen, titles, n, ords)
-                return
-            # counting mode: only flagged pairs need host work; order of
-            # referee side effects is irrelevant (count adds commute)
-            if self.host is None:
+                thread_effects(ko, referee, codes, rlen, quals, titles, n,
+                               lo, ords)
+            elif ordered:
+                count_effects(ko, referee, codes, rlen, quals, titles, n,
+                              lo, ords)
+            elif self.host is None:
                 self.n_referee += int(referee.sum())
-                return
-            for i in np.nonzero(referee)[0]:
-                self.n_referee += 1
-                s1 = _decode(codes[2 * i], rlen[2 * i])
-                s2 = _decode(codes[2 * i + 1], rlen[2 * i + 1])
-                self.host.process_pair(">r", s1, s2, -1, (None, None))
+            else:
+                # counting mode: only flagged pairs need host work; the
+                # order of their count adds is irrelevant
+                for i in np.nonzero(referee)[0]:
+                    apply_effect(ref_effect(codes, rlen, quals, titles, i))
 
-        def full_step(codes, rlen, n, titles=None):
+        def full_step(codes, rlen, n, titles=None, quals=None, lo=0):
+            """One step over pairs [lo, n) of the batch (pairs before lo
+            belong to an earlier dispatch of the same batch)."""
             nonlocal n_ord
             live = np.zeros(P, dtype=bool)
-            live[:n] = True
+            live[lo:n] = True
             self.n_steps += 1
-            self.n_step_pairs += n
-            self.state, out = self.step(self.state, codes, rlen, live)
-            thr_h = ords = None
-            if thr:
-                thr_h = {key: _fetch_async(out[key]) for key in THR_KEYS}
-                ords = np.arange(n_ord, n_ord + n)
-                n_ord += n
-            fs_pending.append((_fetch_async(out["referee_pack"]), thr_h,
-                               codes, rlen, n, titles, ords))
+            self.n_step_pairs += n - lo
+            if self.with_qual:
+                qm = da.qmask_batch(quals, rlen, cfg.qth, cfg.ksize)
+                self.state, out = self.step(self.state, codes, rlen, live,
+                                            qm)
+            else:
+                self.state, out = self.step(self.state, codes, rlen, live)
+            ords = None
+            if ordered:
+                ords = np.zeros(n, dtype=np.int64)
+                ords[lo:] = np.arange(n_ord, n_ord + n - lo)
+                n_ord += n - lo
+            fs_pending.append(({key: _fetch_async(out[key])
+                                for key in aux_keys}, codes, rlen, n, lo,
+                               titles, quals, ords))
             while len(fs_pending) > fs_window:
                 process_step()
 
         def step_buf():
-            nonlocal nbuf, buf_codes, buf_rlen, buf_titles
+            nonlocal nbuf, buf_codes, buf_rlen, buf_titles, buf_quals
             if not nbuf:
                 return
-            full_step(buf_codes, buf_rlen, nbuf, buf_titles)
-            buf_codes = np.full((2 * P, L), 255, dtype=np.uint8)
-            buf_rlen = np.zeros(2 * P, dtype=np.int32)
-            buf_titles = np.empty(P, dtype=object) if wt else None
+            full_step(buf_codes, buf_rlen, nbuf, buf_titles, buf_quals)
+            buf_codes, buf_rlen, buf_titles, buf_quals = new_buffers()
             nbuf = 0
 
-        def copy_survivors(sel, codes, rlen, titles):
+        def copy_survivors(sel, codes, rlen, titles, quals):
             # block-copy survivors into the repack buffer (chunked at
             # full-step boundaries); rows interleave the two mates
             nonlocal nbuf
@@ -418,6 +523,8 @@ class DeviceAlignRunner:
                 dst = slice(2 * nbuf, 2 * (nbuf + len(chunk)))
                 buf_codes[dst] = codes[src]
                 buf_rlen[dst] = rlen[src]
+                if wq:
+                    buf_quals[dst] = quals[src]
                 if wt:
                     buf_titles[nbuf: nbuf + len(chunk)] = \
                         np.asarray(titles, dtype=object)[chunk]
@@ -425,30 +532,77 @@ class DeviceAlignRunner:
                 if nbuf == P:
                     step_buf()
 
+        # -bu flush cadence: the reference merges batch-local bubble maps
+        # into the global DB every reads_per_batch reads (accumBubbles);
+        # the .bub bytes depend on that merge order, so the funnel
+        # barriers at the same input-pair boundaries
+        bflush = max(cfg.reads_per_batch // 2, 1)
+        next_flush = bflush
+        cursor = 0                  # input pairs consumed
+
+        def batch_flush_barrier():
+            # everything before the boundary lands (referee and bubble
+            # effects) before the batch-local maps merge
+            nonlocal next_flush
+            step_buf()
+            while fs_pending:
+                process_step()
+            self.bubbles.flush_batch()
+            next_flush += bflush
+
         pending: deque = deque()
 
         def drain_one():
-            codes, rlen, n, titles, handle = pending.popleft()
+            nonlocal cursor
+            codes, rlen, n, titles, quals, handle = pending.popleft()
             idx = np.nonzero(_fetched(handle)[:n])[0]
             self.n_prefiltered += int(n - len(idx))
-            copy_survivors(idx, codes, rlen, titles)
+            if not bub:
+                copy_survivors(idx, codes, rlen, titles, quals)
+            else:
+                # survivors segment by segment: every pair before a flush
+                # boundary is processed and merged before any pair after
+                # it enters the repack buffer
+                p = 0
+                while True:
+                    rel = next_flush - cursor
+                    q = int(np.searchsorted(idx[p:], rel)) + p
+                    copy_survivors(idx[p:q], codes, rlen, titles, quals)
+                    p = q
+                    if rel > n:
+                        break
+                    batch_flush_barrier()
+            cursor += n
 
         try:
             for rec in batches:
                 codes, rlen, n = rec[0], rec[1], rec[2]
                 titles = rec[3] if wt else None
+                quals = rec[4] if wq else None
                 if prefilter:
                     live = np.zeros(Pp, dtype=bool)
                     live[:n] = True
                     # several dispatches stay in flight; every batch is a
                     # fresh array, so queueing needs no copies
                     surv = self.prefilter_step(codes, rlen, live)
-                    pending.append((codes, rlen, n, titles,
+                    pending.append((codes, rlen, n, titles, quals,
                                     _fetch_async(surv)))
                     if len(pending) >= PREFILTER_WINDOW:
                         drain_one()
-                else:
-                    full_step(codes, rlen, n, titles)
+                    continue
+                lo = 0
+                if bub:
+                    # split the batch at flush boundaries (live range
+                    # [lo, hi)); the maps merge between the parts
+                    while next_flush - cursor <= n:
+                        rel = next_flush - cursor
+                        if rel > lo:
+                            full_step(codes, rlen, rel, titles, quals, lo)
+                            lo = rel
+                        batch_flush_barrier()
+                if n > lo:
+                    full_step(codes, rlen, n, titles, quals, lo)
+                cursor += n
             while pending:
                 drain_one()
             step_buf()
@@ -457,8 +611,8 @@ class DeviceAlignRunner:
             if ord_pend:
                 raise RuntimeError(f"{len(ord_pend)} ordinals unresolved "
                                    f"after the last step")
-            if self.host is not None:
-                self.host.flush_batch()
+            if self.bubbles is not None:
+                self.bubbles.flush_batch()
             # batched threading counts live in native CountMaps until
             # here; the outputs read the per-locus dicts
             if self.nthr is not None:
@@ -466,6 +620,59 @@ class DeviceAlignRunner:
         finally:
             if thr_batch_pool is not None:
                 thr_batch_pool.shutdown(wait=True)
+
+    # -- okam rows and bubbles --
+
+    def _kam_device_row(self, ko, codes, rlen, quals, titles, i, pair_src):
+        """The .kam row of a device-resolved pair (JAX _kam_device_row and
+        _kam_from_device): the funnel filters over the fetched planes,
+        reads decoded only for emitted rows.  Returns the row, or None
+        when the pair emits nothing."""
+        nloci = self.drp.nloci
+        if not ko["nonshort"][i] or ko["sub_drop"][i] \
+                or not ko["pair_alive"][i] or ko["qc_drop"][i]:
+            return None
+        title = ">" + titles[i]
+        src = pair_src(title) if self.cfg.simmode else -1
+        dest = int(ko["dest"][i]) if ko["counted"][i] else nloci
+        if not ko["vote_pass"][i]:
+            dest = nloci
+        if not ((src != nloci and src != -1) or dest != nloci):
+            return None
+        qs = (".", ".")
+        if quals is not None:
+            qs = (_decode_qual(quals[2 * i], rlen[2 * i]),
+                  _decode_qual(quals[2 * i + 1], rlen[2 * i + 1]))
+        # the assignTRkmc fields are set whenever the pair passed the vote
+        # (even if both mates were then removed); pairs that failed it
+        # keep the struct defaults (reference :2056-2062)
+        ran_asgn = bool(ko["vote_pass"][i])
+        rs = []
+        for ridx in (2 * i, 2 * i + 1):
+            r = ReadAsgn()
+            r.kf, r.hf, r.bf = (int(ko["kf"][ridx]), int(ko["hf"][ridx]),
+                                int(ko["bf"][ridx]))
+            r.rm, r.af = int(ko["rm"][ridx]), int(ko["af"][ridx])
+            if ran_asgn:
+                r.nt, r.bs, r.ti = (int(ko["nt"][ridx]), int(ko["bs"][ridx]),
+                                    int(ko["ti"][ridx]))
+                r.si, r.ei = int(ko["si"][ridx]), int(ko["ei"][ridx])
+                r.as_ = ko["ann"][ridx][: int(ko["nk"][ridx])].tolist()
+            rs.append(r)
+        return _kam_row(title, src, dest, int(ko["dst0"][i]), rs[0], rs[1],
+                        _decode(codes[2 * i], rlen[2 * i]),
+                        _decode(codes[2 * i + 1], rlen[2 * i + 1]),
+                        self.cfg.is_fastq, qs[0], qs[1])
+
+    def _add_bubbles_codes(self, dest, codes_row, rl, novel_bits):
+        """Inserts a mate's novel edges into the batch-local bubble map of
+        ``dest``; edge values come straight from the 2-bit code row."""
+        _, edges = K.seq_to_kmers_and_edges(codes_row[:rl], self.cfg.ksize)
+        order, counts = self.bubbles.batch_map(dest)
+        for pos in np.nonzero(novel_bits[: len(edges)])[0]:
+            e = int(edges[pos])
+            order.insert(e)
+            counts[e] = counts.get(e, 0) + 1
 
     # -- threading rows --
 
@@ -524,3 +731,11 @@ class DeviceAlignRunner:
         from ..io.rowsink import finalize_rows
 
         finalize_rows(self.aln_rows, path)
+
+    def write_kam(self, path):
+        from ..io.rowsink import finalize_rows
+
+        finalize_rows(self.kam_rows, path)
+
+    def write_bubbles(self, path, threshold: int = 5):
+        self.bubbles.write_bubbles(path, threshold)

@@ -1,6 +1,6 @@
 """Device aligner in PyTorch: the asgn-mode counting step of
-danbing_tk_tpu/engine/device_align.py on tensors, with four hand-written
-CUDA kernels on the card and their plain torch versions on the CPU.
+danbing_tk_tpu/engine/device_align.py on tensors, with hand-written CUDA
+kernels on the card and their plain torch versions on the CPU.
 
 Pipeline per batch of P read pairs (2P reads, L columns):
 
@@ -11,9 +11,15 @@ Pipeline per batch of P read pairs (2P reads, L columns):
    -> KC  pair_vote: per-pair dedupe sort, split CSR expansion, event sort
           by (locus, -nm), segment totals, top / tie census, test1/test2,
           referee bits, dst0                         (csrc/pair_vote.cu)
+   -> KF  read_filter (with -qc or -b): the QC mask, dev_pair, and the
+          bait filter's per-read sorted k-mer counts probed against the
+          (kmer, dst0) bait table             (csrc/read_filter.cu)
    -> KB  lookup_bucket on the (kmer, dst0) trfl table for vv k-mers
-   -> KD  assign_count: annotation, the assignTRkmc scan, count atomics
+   -> KD  assign_count: annotation (and the .kam ann plane with
+          with_annot), the assignTRkmc scan, count atomics
                                                      (csrc/assign_count.cu)
+   -> KG  novel_edges (with -bu): the tre probe of each counted mate's
+          in-segment (k+1)-mer edges, bit-packed  (csrc/novel_edges.cu)
 
 In graph-threading mode (cfg.threading) KD stops at the tr_member and slot
 planes, and two launches follow:
@@ -26,8 +32,9 @@ Decision equivalence with the reference is the JAX module's: ties,
 test2-only passes and expansion overflows are flagged for the host referee
 (engine/host_align.process_pair) and masked out of every device count;
 threading pairs whose walk is not clean go to the host threading engine.
-Counting and threading modes are ported (no .kam annotation plane, bait,
-QC or bubbles); make_step raises NotImplementedError for those.
+Extract (-e) and bait tracking (-tb) are not ported; make_step raises
+NotImplementedError for them.  The quality mask of fastq + bait runs
+(qmask_batch) is computed on the host, as in the JAX package.
 
 K-mers are int64 with EMPTY = -1; u32 values (dbi vals, loci, counts) ride
 as int64 values or int32 bit patterns.  The state (counts, nmapread, kmc:
@@ -81,28 +88,59 @@ class DeviceRPGG:
     # 2-plane rows for the prefilter, which never reads vals — the
     # narrower row gathers measurably faster than the 4-plane dbi rows
 
-    def tables(self, device, graph: bool = False) -> dict:
+    def tables(self, device, graph: bool = False, bait: bool = False,
+               qc: bool = False, tre: bool = False) -> dict:
         """The device tables on ``device``, uploaded once and shared by
         every step made from it (the uploads reach ~7 GB at production
-        scale).  With ``graph`` (threading steps) the dict also holds the
-        graph table, uploaded on the first such call (~9 GB at production
-        scale), so counting steps never hold it."""
+        scale).  Each flag adds one table that only some steps read,
+        uploaded on the first call that asks for it, so a counting step
+        never holds them: ``graph`` (threading; ~9 GB at production
+        scale), ``bait`` (-b), ``qc`` (-qc: the mask as nloci + 1 u8, the
+        last entry 0) and ``tre`` (-bu).  Calls with the same flags get
+        the same dict."""
         cache = self.__dict__.setdefault("_dev_cache", {})
-        key = (str(device), graph)
+        dev = str(device)
+        key = (dev, graph, bait, qc, tre)
         if key not in cache:
-            if graph:
-                if self.graph_tab is None:
-                    raise ValueError("no graph table: call "
-                                     "drp.add_graph(rpgg) first")
-                cache[key] = dict(self.tables(device), graph=dt.DevTable.
-                                  upload(self.graph_tab, device))
-            else:
+            if (dev, "base") not in cache:
                 tabs = {"dbi": self.dbi_tab, "trfl": self.trfl_tab}
                 if self.member_tab is not None:
                     tabs["member"] = self.member_tab
-                cache[key] = upload_tables(tabs, self.vv,
-                                           self.locus_offsets, device)
+                cache[(dev, "base")] = upload_tables(
+                    tabs, self.vv, self.locus_offsets, device)
+            out = dict(cache[(dev, "base")])
+            for name, on in (("graph", graph), ("bait", bait), ("qc", qc),
+                             ("tre", tre)):
+                if on:
+                    if (dev, name) not in cache:
+                        cache[(dev, name)] = self._upload(name, device)
+                    out[name] = cache[(dev, name)]
+            cache[key] = out
         return cache[key]
+
+    def _upload(self, name: str, device):
+        if name == "qc":
+            if self.qc is None:
+                raise ValueError("no QC mask: build the RPGG with a qc file")
+            return torch.from_numpy(np.concatenate(
+                [np.asarray(self.qc, np.uint8), [0]]).astype(np.uint8)).to(
+                    device)
+        tab = getattr(self, f"{name}_tab")
+        if tab is None:
+            raise ValueError(f"no {name} table" + (
+                ": call drp.add_graph(rpgg) first" if name == "graph"
+                else ""))
+        return dt.DevTable.upload(tab, device)
+
+    def release(self, device, name: str) -> None:
+        """Drops the device copy of the extra table ``name`` (and every
+        cached dict holding it); steps made before still hold theirs."""
+        cache = self.__dict__.get("_dev_cache", {})
+        dev = str(device)
+        for key in [k for k, v in cache.items() if k[0] == dev
+                    and (k == (dev, name) or (isinstance(v, dict)
+                                              and name in v))]:
+            del cache[key]
 
     def add_graph(self, rpgg: RPGG):
         """Builds the dBG transition table for the threading DFA walk
@@ -505,15 +543,18 @@ def _add_u32(acc: torch.Tensor, idx: torch.Tensor, inc: torch.Tensor):
 
 def assign_count_plain(state, found, val, annv, kvalid, afound_t, aval_t,
                        dst0, dev_pair, kf, nk, loff, nloci: int, nm_tr: int,
-                       threading: bool = False):
+                       threading: bool = False, bf_pair=None,
+                       annot: bool = False):
     """Plain torch version of KD.  found/kvalid/afound_t (2P, NKW) bool
     (found already masked by kvalid); val/annv/aval_t (2P, NKW) int64 u32
     values from the dbi and trfl probes; dst0 (P,) int64; dev_pair (P,)
-    bool; kf/nk (2P,) int32.  Adds the pairs' TR k-mer counts, nmapread
-    and kmc into ``state`` in place and returns the per-read assignTRkmc
-    fields (ASSIGN_KEYS, each (2P,) int32).  With ``threading`` the state
-    is left alone and the result also holds the (2P, NKW) planes
-    "tr_member" (uint8) and "slot" (int64), KE's inputs."""
+    bool; kf/nk (2P,) int32; bf_pair (P,) bool or None (KF's bait
+    verdict: a filtered pair's mates enter removed).  Adds the pairs' TR
+    k-mer counts, nmapread and kmc into ``state`` in place and returns the
+    per-read assignTRkmc fields (ASSIGN_KEYS, each (2P,) int32), with
+    ``annot`` also the (2P, NKW) uint8 "ann" plane.  With ``threading``
+    the state is left alone and the result also holds the (2P, NKW)
+    planes "tr_member" (uint8) and "slot" (int64), KE's inputs."""
     dev = found.device
     R, NKW = found.shape
     P = R // 2
@@ -550,6 +591,8 @@ def assign_count_plain(state, found, val, annv, kvalid, afound_t, aval_t,
     ei2 = torch.where(adj2, ti2, -1)
 
     rm_entry = kf == 1
+    if bf_pair is not None:
+        rm_entry = rm_entry | bf_pair.repeat_interleave(2)
     nt_rec = torch.where((bs == 2) & (nt_total >= 2), 2,
                          torch.where((bs == 1) & (nt_total >= 3), 3,
                                      nt_total))
@@ -581,6 +624,8 @@ def assign_count_plain(state, found, val, annv, kvalid, afound_t, aval_t,
                ti=torch.where(rmd, -1, torch.where(nt_total >= 1, ti1, -1)),
                si=si, ei=ei, si_=si_, ei_=ei_)
     out = {k: v.int() for k, v in out.items()}
+    if annot:
+        out["ann"] = ann.to(torch.uint8)
     if threading:
         in_tr = afound & (((aval >> 2) & 1) == 1)
         out["tr_member"] = (((ann == 2) | in_tr) & kvalid).to(torch.uint8)
@@ -603,13 +648,14 @@ def assign_count_plain(state, found, val, annv, kvalid, afound_t, aval_t,
 
 def assign_count(state, found, val, annv, kvalid, afound_t, aval_t,
                  dst0, dev_pair, kf, nk, loff, nloci: int, nm_tr: int,
-                 threading: bool = False):
+                 threading: bool = False, bf_pair=None, annot: bool = False):
     """KD: annotation, the sequential assignTRkmc scan per read and the
     count scatter (u32 atomics).  Same contract as assign_count_plain."""
     if found.device.type == "cpu":
         return assign_count_plain(state, found, val, annv, kvalid,
                                   afound_t, aval_t, dst0, dev_pair, kf, nk,
-                                  loff, nloci, nm_tr, threading)
+                                  loff, nloci, nm_tr, threading, bf_pair,
+                                  annot)
     R, NKW = found.shape
     P = R // 2
     for t in (found, kvalid, afound_t):
@@ -621,8 +667,12 @@ def assign_count(state, found, val, annv, kvalid, afound_t, aval_t,
     for name in ("counts", "nmapread", "kmc"):
         if state[name].dtype != torch.int32:
             raise ValueError(f"state[{name!r}] must be int32")
+    if bf_pair is not None and (bf_pair.dtype != torch.bool
+                                or bf_pair.shape != (P,)):
+        raise ValueError("assign_count: bf_pair must be (P,) bool")
     args = [x.contiguous() for x in (found, val, annv, kvalid, afound_t,
                                       aval_t, dst0, dev_pair)]
+    bf_pair = None if bf_pair is None else bf_pair.contiguous()
     kf = kf.to(torch.int32).contiguous()
     nk = nk.to(torch.int32).contiguous()
     loff = loff.contiguous()
@@ -633,17 +683,23 @@ def assign_count(state, found, val, annv, kvalid, afound_t, aval_t,
         tr_member = torch.empty((R, NKW), dtype=torch.uint8,
                                 device=found.device)
         slot = torch.empty((R, NKW), dtype=torch.int64, device=found.device)
+    ann = torch.empty((R, NKW), dtype=torch.uint8, device=found.device) \
+        if annot else None
     fn = bind(kernel_lib("assign_count"), "dtk_assign_count",
-              "ii" + "p" * 11 + "iiii" + "p" * 7)
-    check(fn(P, NKW, *[ptr(a) for a in args], ptr(kf), ptr(nk), ptr(loff),
-             nloci, state["counts"].shape[0] - 1, nm_tr, int(threading),
-             ptr(state["counts"]), ptr(state["nmapread"]),
-             ptr(state["kmc"]), ptr(out),
+              "ii" + "p" * 12 + "iiiii" + "p" * 8)
+    check(fn(P, NKW, *[ptr(a) for a in args],
+             None if bf_pair is None else ptr(bf_pair), ptr(kf), ptr(nk),
+             ptr(loff), nloci, state["counts"].shape[0] - 1, nm_tr,
+             int(threading), int(annot), ptr(state["counts"]),
+             ptr(state["nmapread"]), ptr(state["kmc"]), ptr(out),
              None if tr_member is None else ptr(tr_member),
-             None if slot is None else ptr(slot), stream_of(found)),
+             None if slot is None else ptr(slot),
+             None if ann is None else ptr(ann), stream_of(found)),
           "assign_count")
     assign_count.launches += 1
     res = dict(zip(ASSIGN_KEYS, out.unbind(0)))
+    if annot:
+        res["ann"] = ann
     if threading:
         res.update(tr_member=tr_member, slot=slot)
     return res
@@ -726,16 +782,207 @@ def thread_walk(state, nc, gfound, gmask, kvalid, nk, dev_pair, tr_member,
 thread_walk.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# KF read_filter (QC + bait)
+# ---------------------------------------------------------------------------
+
+def qmask_batch(quals: np.ndarray, rlen: np.ndarray, qth: int,
+                k: int) -> np.ndarray:
+    """Vectorized qString2qMask (aQueryFasta_thread.h:1043-1078) over a
+    (R, L) batch of raw phred+33 quality bytes (0-padded), on the host.
+
+    The reference's two-pointer scan is NOT a plain sliding-window AND:
+    once the scan position reaches nk (= nq-k+1), later windows are left
+    False even if their bases all pass.  Closed form:
+        qmask[w] = all(q[w..w+k-1] >= qth)
+                   AND (w <= nk-k  OR  w is a good-run start)
+    Returns (R, L-k+1) bool aligned with the k-mer window index.
+    """
+    R, L = quals.shape
+    NKW = L - k + 1
+    good = (quals.astype(np.int32) - 33) >= qth
+    # padded tail bytes are 0 -> good False there already
+    c = np.cumsum(good.astype(np.int32), axis=1)
+    c = np.concatenate([np.zeros((R, 1), np.int32), c], axis=1)
+    fullgood = (c[:, k:] - c[:, :-k]) == k          # (R, NKW)
+    w = np.arange(NKW, dtype=np.int32)[None, :]
+    nk = (rlen - k + 1).astype(np.int32)[:, None]
+    runstart = np.concatenate(
+        [np.ones((R, 1), bool), ~good[:, : NKW - 1]], axis=1)
+    return fullgood & (w < nk) & ((w <= nk - k) | runstart)
+
+
+def read_filter_plain(kmer, qmask, dst0, vote_pass, pack, qc, bait,
+                      nloci: int):
+    """Plain torch version of KF.  kmer (2P, NKW) int64 (EMPTY-masked);
+    qmask (2P, NKW) bool or None; dst0 (P,) int64; vote_pass (P,) bool;
+    pack (P,) uint8 (KC's referee bits); qc the (nloci + 1,) uint8 pass
+    mask with a trailing 0, or None; bait the (kmer, locus) -> (mi << 8) |
+    ma table (a DevTable), or None.  Returns dev_pair (P,) bool, qc_drop
+    (P,) bool, bf (2P,) int32 and bf_pair (P,) bool."""
+    P = dst0.shape[0]
+    vp = vote_pass & ((pack & 1) == 0)
+    if qc is not None:
+        qc_ok = qc[dst0.clamp(0, nloci)] == 1
+    else:
+        qc_ok = torch.ones_like(vp)
+    dev_pair, qc_drop = vp & qc_ok, vp & ~qc_ok
+    if bait is None:
+        return (dev_pair, qc_drop,
+                torch.zeros(2 * P, dtype=torch.int32, device=kmer.device),
+                torch.zeros_like(vp))
+    R, NKW = kmer.shape
+    key = kmer if qmask is None else torch.where(qmask, kmer, EMPTY)
+    # valid k-mers are < 2^62: INT64_MAX puts EMPTY last, as JAX's u32 sort
+    s = torch.sort(torch.where(key == EMPTY, _I64MAX, key), dim=1).values
+    valid = s != _I64MAX
+    first = torch.ones((R, 1), dtype=torch.bool, device=kmer.device)
+    new = valid & torch.cat([first, s[:, 1:] != s[:, :-1]], 1)
+    widx = torch.arange(NKW, device=kmer.device).expand(R, NKW)
+    nxt = torch.cat([_rev_cummin(torch.where(new, widx, NKW))[:, 1:],
+                     torch.full((R, 1), NKW, device=kmer.device)], 1)
+    cnt = torch.where(new, torch.minimum(nxt, valid.sum(1, keepdim=True))
+                      - widx, 0) & 0xFF
+    loc = dst0.repeat_interleave(2)[:, None].expand(R, NKW)
+    bfound, bval, _ = dt.lookup_bucket_plain(
+        bait, torch.where(new, s, EMPTY), loc)
+    viol = bfound & new & ((cnt < (bval >> 8)) | (cnt > (bval & 0xFF)))
+    bf = viol.any(1) & dev_pair.repeat_interleave(2)
+    return dev_pair, qc_drop, bf.int(), bf.view(P, 2).any(1)
+
+
+def read_filter(kmer, qmask, dst0, vote_pass, pack, qc, bait, nloci: int):
+    """KF: QC mask and bait filter, one CUDA block per pair.  Same
+    contract as read_filter_plain; needs qc or bait."""
+    if kmer.device.type == "cpu":
+        return read_filter_plain(kmer, qmask, dst0, vote_pass, pack, qc,
+                                 bait, nloci)
+    R, NKW = kmer.shape
+    P = R // 2
+    if qc is None and bait is None:
+        raise ValueError("read_filter: nothing to do without qc or bait")
+    for t, dtype, shape in ((kmer, torch.int64, (2 * P, NKW)),
+                            (dst0, torch.int64, (P,)),
+                            (vote_pass, torch.bool, (P,)),
+                            (pack, torch.uint8, (P,))):
+        if t.dtype != dtype or t.shape != shape:
+            raise ValueError("read_filter: kmer (2P, NKW) int64, dst0 (P,) "
+                             "int64, vote_pass (P,) bool, pack (P,) uint8")
+    if qmask is not None and (qmask.dtype != torch.bool
+                              or qmask.shape != kmer.shape):
+        raise ValueError("read_filter: qmask must be a bool plane like kmer")
+    if qc is not None and (qc.dtype != torch.uint8
+                           or qc.shape != (nloci + 1,)):
+        raise ValueError("read_filter: qc must be (nloci + 1,) uint8")
+    if bait is not None and (not bait.composite or bait.nval != 1):
+        raise ValueError("read_filter: bait is a composite 1-value table")
+    dev = kmer.device
+    kmer, dst0 = kmer.contiguous(), dst0.contiguous()
+    vote_pass, pack = vote_pass.contiguous(), pack.contiguous()
+    qmask = None if qmask is None or bait is None else qmask.contiguous()
+    dev_pair = torch.empty(P, dtype=torch.bool, device=dev)
+    qc_drop = torch.empty(P, dtype=torch.bool, device=dev)
+    bf = torch.empty(R, dtype=torch.int32, device=dev)
+    bf_pair = torch.empty(P, dtype=torch.bool, device=dev)
+    lv = dt.level_args(bait) if bait is not None else (None, None, None, 0)
+    fn = bind(kernel_lib("read_filter"), "dtk_read_filter",
+              "iipppppp" + "i" + "pppi" + "ppppp")
+    check(fn(P, NKW, ptr(kmer), None if qmask is None else ptr(qmask),
+             ptr(dst0), ptr(vote_pass), ptr(pack),
+             None if qc is None else ptr(qc), nloci, *lv, ptr(dev_pair),
+             ptr(qc_drop), ptr(bf), ptr(bf_pair), stream_of(kmer)),
+          "read_filter")
+    read_filter.launches += 1
+    return dev_pair, qc_drop, bf, bf_pair
+
+
+read_filter.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# KG novel_edges (bubbles)
+# ---------------------------------------------------------------------------
+
+_BITS = (1 << torch.arange(7, -1, -1)).to(torch.uint8)
+
+
+def pack_bits(m: torch.Tensor) -> torch.Tensor:
+    """np.packbits(m, axis=-1) of a (R, n) bool plane: position 8j + t is
+    bit 7 - t of byte j, zeros past n."""
+    R, n = m.shape
+    pad = torch.nn.functional.pad(m.to(torch.uint8), (0, -n % 8))
+    return (pad.view(R, -1, 8) * _BITS.to(m.device)).sum(
+        -1, dtype=torch.uint8)
+
+
+def unpack_bits(b: torch.Tensor, n: int) -> torch.Tensor:
+    """The (R, n) bool plane of pack_bits."""
+    return ((b[:, :, None] & _BITS.to(b.device)) != 0).reshape(
+        b.shape[0], -1)[:, :n]
+
+
+def novel_edges_plain(edge, evalid, si_, ei_, rm, counted, dst0, tre):
+    """Plain torch version of KG.  edge (2P, NE) int64 canonical (k+1)-mer
+    edges and evalid (2P, NE) bool (KA's); si_/ei_/rm (2P,) int32 (KD's);
+    counted (P,) bool; dst0 (P,) int64; tre the (edge, locus) table.
+    Returns the bit-packed novel-edge plane (2P, ceil(NE / 8)) uint8."""
+    R, NE = edge.shape
+    pos = torch.arange(NE, device=edge.device)
+    act = (rm == 0) & counted.repeat_interleave(2)
+    need = evalid & (pos >= si_[:, None]) & (pos < (ei_ - 1)[:, None]) \
+        & act[:, None]
+    loc = dst0.repeat_interleave(2)[:, None].expand(R, NE)
+    found = dt.lookup_bucket_plain(tre, torch.where(need, edge, EMPTY),
+                                   loc)[0]
+    return pack_bits(need & ~found)
+
+
+def novel_edges(edge, evalid, si_, ei_, rm, counted, dst0, tre):
+    """KG: the novel-edge plane, one warp per read.  Same contract as
+    novel_edges_plain."""
+    if edge.device.type == "cpu":
+        return novel_edges_plain(edge, evalid, si_, ei_, rm, counted, dst0,
+                                 tre)
+    R, NE = edge.shape
+    P = R // 2
+    if edge.dtype != torch.int64 or evalid.dtype != torch.bool \
+            or evalid.shape != edge.shape or R != 2 * P:
+        raise ValueError("novel_edges: edge (2P, NE) int64, evalid bool")
+    for t in (si_, ei_, rm):
+        if t.dtype != torch.int32 or t.shape != (R,):
+            raise ValueError("novel_edges: si_/ei_/rm must be (2P,) int32")
+    if counted.dtype != torch.bool or counted.shape != (P,) \
+            or dst0.dtype != torch.int64 or dst0.shape != (P,):
+        raise ValueError("novel_edges: counted (P,) bool, dst0 (P,) int64")
+    if not tre.composite or tre.nval != 1:
+        raise ValueError("novel_edges: tre is a composite 1-value table")
+    args = [x.contiguous() for x in (edge, evalid, si_, ei_, rm, counted,
+                                      dst0)]
+    out = torch.empty((R, (NE + 7) // 8), dtype=torch.uint8,
+                      device=edge.device)
+    fn = bind(kernel_lib("novel_edges"), "dtk_novel_edges",
+              "ii" + "p" * 7 + "pppi" + "pp")
+    check(fn(P, NE, *[ptr(a) for a in args], *dt.level_args(tre), ptr(out),
+             stream_of(edge)), "novel_edges")
+    novel_edges.launches += 1
+    return out
+
+
+novel_edges.launches = 0
+
+
+KERNEL_FNS = {"KA": extract_kmers, "KB": dt.lookup_bucket, "KC": pair_vote,
+              "KD": assign_count, "KE": thread_walk, "KF": read_filter,
+              "KG": novel_edges}
+
+
 def launch_counts() -> dict:
-    """{kernel: launches} of the five wrappers."""
-    return {"KA": extract_kmers.launches, "KB": dt.lookup_bucket.launches,
-            "KC": pair_vote.launches, "KD": assign_count.launches,
-            "KE": thread_walk.launches}
+    """{kernel: launches} of the seven wrappers."""
+    return {name: fn.launches for name, fn in KERNEL_FNS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in (extract_kmers, dt.lookup_bucket, pair_vote, assign_count,
-               thread_walk):
+    for fn in KERNEL_FNS.values():
         fn.launches = 0
 
 
@@ -745,21 +992,9 @@ def reset_launch_counts() -> None:
 
 def check_ported_config(cfg: AlignConfig) -> None:
     """Raises NotImplementedError for every mode the port does not run yet
-    (ROADMAP.md, port queue).  Threading mode admits -a/-ae and simmode,
-    and ignores okam: threading never writes .kam."""
-    thr = cfg.threading
+    (ROADMAP.md, port queue)."""
     unported = [
-        (cfg.okam and not thr, "okam / .kam output (run with -ka)",
-         "okam/simmode"),
-        (cfg.simmode and not thr, "simmode (-s) outside threading",
-         "okam/simmode"),
-        (cfg.bait, "bait filter (-b)", "bait/QC/fastq, K9"),
-        (cfg.qc, "QC mask (-qc)", "bait/QC/fastq, K10"),
-        (cfg.is_fastq, "fastq input (-fq)", "bait/QC/fastq"),
-        (cfg.output_bubbles, "bubbles (-bu)", "bubbles, K11"),
         (cfg.extract, "extract mode (-e)", "okam/simmode"),
-        (cfg.aln and not thr, "alignment output (-a/-ae) without -g/-gc",
-         "okam/simmode"),
         (cfg.track_bait, "bait tracking (-tb)", "bait/QC/fastq"),
     ]
     for on, what, item in unported:
@@ -808,29 +1043,44 @@ def make_prefilter_step_q(drp: DeviceRPGG, cfg: AlignConfig, P: int,
 
 
 def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
-              expand_cap: int = 512, device=None,
-              capture: dict | None = None):
+              expand_cap: int = 512, with_annot: bool = False,
+              with_bubbles: bool = False, with_qual: bool = False,
+              device=None, capture: dict | None = None):
     """Builds the per-batch step: counting mode, or graph-threading mode
-    when ``cfg.threading`` (the JAX make_step(threading=True)).
+    when ``cfg.threading`` (the JAX make_step(threading=True)).  QC
+    (cfg.qc and a QC mask) and bait (cfg.bait and a bait table) add KF;
+    ``with_annot`` adds the (2P, NKW) uint8 "ann" plane of .kam rows (the
+    JAX default is on; here it is off, the production counting step);
+    ``with_bubbles`` (and a tre table) adds KG's "novel_pack" and its
+    unpacked "novel_edge"; ``with_qual`` makes the step take the bait's
+    quality mask (qmask_batch) as a fifth argument.
 
-    Returns step(state, codes (2P, L) u8, rlen (2P,) i32, live (P,) bool)
-      -> (state, outputs dict); state (init_state) is updated in place.
-    Inputs may be numpy arrays or tensors; outputs are device tensors with
-    the JAX step's keys (no "ann" plane; threading mode adds "clean",
-    "clean_pair" and "tr_member").  With ``capture`` (a dict) each call
-    stores every kernel's arguments under its name, so a check can replay
-    one kernel on the step's real inputs."""
+    Returns step(state, codes (2P, L) u8, rlen (2P,) i32, live (P,) bool
+    [, qmask (2P, L-k+1) bool]) -> (state, outputs dict); state
+    (init_state) is updated in place.  Inputs may be numpy arrays or
+    tensors; outputs are device tensors with the JAX step's keys
+    (threading mode adds "clean", "clean_pair" and "tr_member").  With
+    ``capture`` (a dict) each call stores every kernel's arguments under
+    its name, so a check can replay one kernel on the step's real
+    inputs."""
     check_ported_config(cfg)
     threading = bool(cfg.threading)
+    has_qc = bool(cfg.qc) and drp.qc is not None
+    has_bait = bool(cfg.bait) and drp.bait_tab is not None
+    has_tre = bool(with_bubbles) and drp.tre_tab is not None
     dev = resolve_device(device)
-    tabs = drp.tables(dev, graph=threading)
+    tabs = drp.tables(dev, graph=threading, bait=has_bait, qc=has_qc,
+                      tre=has_tre)
     k, cth = cfg.ksize, int(cfg.cth)
     NKW = L - k + 1
     E = int(expand_cap)
     nloci = drp.nloci
     nf, nmf = cfg.n_filter, cfg.nm_filter
 
-    def step(state, codes, rlen, live):
+    def step(state, codes, rlen, live, qmask=None):
+        if with_qual and qmask is None:
+            raise ValueError("this step was made with_qual: pass the "
+                             "quality mask (qmask_batch)")
         codes = _as(codes, torch.uint8, dev)
         rlen = _as(rlen, torch.int32, dev)
         live = _as(live, torch.bool, dev)
@@ -860,9 +1110,24 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
         dst0, vote_pass, pack = pair_vote(kmer, val, use, pair_kf,
                                           tabs["vv"], E, cth)
         referee = (pack & 1) != 0
-        dev_pair = vote_pass & ~referee
         hf = ((pair_kf & ~vote_pass & ~referee).repeat_interleave(2)
               & (kf == 0)).int()
+
+        # ---- QC (K10) and bait (K9) ----
+        bf_pair = None
+        if has_qc or has_bait:
+            qm = _as(qmask, torch.bool, dev) if with_qual else None
+            kf_args = (kmer, qm, dst0, vote_pass, pack, tabs.get("qc"),
+                       tabs.get("bait"), nloci)
+            if capture is not None:
+                capture["KF"] = kf_args
+            dev_pair, qc_drop, bf, bf_pair = read_filter(*kf_args)
+            if not has_bait:
+                bf_pair = None
+        else:
+            dev_pair = vote_pass & ~referee
+            qc_drop = torch.zeros(P, dtype=torch.bool, device=dev)
+            bf = torch.zeros(2 * P, dtype=torch.int32, device=dev)
 
         # ---- annotation probe for vv k-mers at (kmer, dst0) (K6) ----
         need = found & ((val & 1) == 1)
@@ -873,7 +1138,7 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
         # ---- assignTRkmc + accumulation (K7, K8) ----
         kd_args = (found, val, annv, kvalid, afound_t, aval_t, dst0,
                    dev_pair, kf, nk, tabs["loff"], nloci, cfg.nm_tr,
-                   threading)
+                   threading, bf_pair, bool(with_annot))
         if capture is not None:
             capture.update(
                 KA=(codes, rlen, k), KB_dbi=(tabs["dbi"], kmer),
@@ -912,19 +1177,25 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
             hf.sum(),
             2 * dev_pair.sum(),
             nmate.sum(),
-            torch.zeros((), dtype=torch.int64, device=dev),
-            torch.zeros((), dtype=torch.int64, device=dev),
+            torch.where(qc_drop, 2 - kf_p.sum(1), 0).sum(),
+            ((bf != 0) & (kf == 0)).sum(),
         ]).long()
-        zeros_p = torch.zeros(P, dtype=torch.bool, device=dev)
         out = dict(
             pair_alive=pair_kf, vote_pass=vote_pass, referee=referee,
             referee_tie=(pack & 2) != 0, referee_ovf=(pack & 4) != 0,
             referee_t2=(pack & 8) != 0, referee_pack=pack,
-            dst0=dst0, counted=counted, dest=dest, qc_drop=zeros_p,
-            bf=torch.zeros(2 * P, dtype=torch.int32, device=dev),
-            kf=kf, hf=hf, nk=nk,
+            dst0=dst0, counted=counted, dest=dest, qc_drop=qc_drop,
+            bf=bf, kf=kf, hf=hf, nk=nk,
             sub_drop=pair_nonshort & ~pair_sub, nonshort=pair_nonshort,
             **a, **thr_out)
+        if has_tre:
+            # ---- bubbles (K11): novel (k+1)-mer edges of counted mates
+            kg_args = (ex["edge"], ex["evalid"], a["si_"], a["ei_"],
+                       a["rm"], counted, dst0, tabs["tre"])
+            if capture is not None:
+                capture["KG"] = kg_args
+            out["novel_pack"] = novel_edges(*kg_args)
+            out["novel_edge"] = unpack_bits(out["novel_pack"], L - k)
         return state, out
 
     return step

@@ -646,21 +646,65 @@ def iter_fasta_pairs(path: str, min_read_size: int, nloci: int,
         yield batch
 
 
-class HostAligner:
+class BubbleMaps:
+    """The -bu bubble DB: batch-local novel-edge maps per locus, merged
+    into the global DB at each batch flush in batch-local-map order
+    (accumBubbles, aQueryFasta_thread.cpp:1599-1606), and dumped by
+    write_bubbles.  Loci get their maps on first use."""
+
+    def __init__(self, nloci: int):
+        self.nloci = nloci
+        self.bub_orders: dict[int, StdUmapOrder] = {}
+        self.bub_counts: dict[int, dict] = {}
+        # batch-local bubbles: locus -> (StdUmapOrder, counts)
+        self._bub_batch: dict[int, tuple[StdUmapOrder, dict]] = {}
+
+    def batch_map(self, locus: int) -> tuple[StdUmapOrder, dict]:
+        ent = self._bub_batch.get(locus)
+        if ent is None:
+            ent = self._bub_batch[locus] = (StdUmapOrder(), {})
+        return ent
+
+    def flush_batch(self):
+        """accumBubbles: merge batch-local bubble maps into the global DB
+        in batch-local iteration order."""
+        for locus, (order, counts) in self._bub_batch.items():
+            go = self.bub_orders.setdefault(locus, StdUmapOrder())
+            gc = self.bub_counts.setdefault(locus, {})
+            for km in order:
+                go.insert(km)
+                gc[km] = gc.get(km, 0) + counts[km]
+        self._bub_batch = {}
+
+    def write_bubbles(self, path: str, threshold: int = 5):
+        index, ks, vs = [], [], []
+        for i in range(self.nloci):
+            cnt = self.bub_counts.get(i, {})
+            nskip = 0
+            for km in self.bub_orders.get(i, ()):
+                c = cnt[km]
+                if c >= threshold:
+                    ks.append(km)
+                    vs.append(c)
+                else:
+                    nskip += 1
+            index.append(len(cnt) - nskip)
+        # dumpKmerMapDB declares vs as vector<uint64_t> regardless of the
+        # map's value type (aQueryFasta_thread.h:998-1004) -> 8-byte values
+        bio.write_kmap_db(path, np.array(index, np.uint64),
+                          np.array(ks, np.uint64), np.array(vs, np.uint64))
+
+
+class HostAligner(BubbleMaps):
     """End-to-end exact re-implementation of the align main + CountWords
     worker (single logical thread; batches processed sequentially)."""
 
     def __init__(self, rpgg: RPGG, cfg: AlignConfig):
+        super().__init__(rpgg.nloci)
         self.g = rpgg
         self.cfg = cfg
         self.nmapread = np.zeros(rpgg.nloci, dtype=np.uint64)
         self.kmc = np.zeros(rpgg.nloci, dtype=np.uint64)
-        # global bubbleDB (accumulated per batch in batch-local-map order,
-        # matching accumBubbles aQueryFasta_thread.cpp:1599-1606)
-        self.bub_orders = [StdUmapOrder() for _ in range(rpgg.nloci)]
-        self.bub_counts: list[dict] = [dict() for _ in range(rpgg.nloci)]
-        # batch-local bubbles: locus -> (StdUmapOrder, counts)
-        self._bub_batch: dict[int, tuple[StdUmapOrder, dict]] = {}
         # -tb bait-hit tracker (btTK), same per-locus order machinery
         self.bt_orders = [StdUmapOrder() for _ in range(rpgg.nloci)]
         self.bt_counts: list[dict] = [dict() for _ in range(rpgg.nloci)]
@@ -699,14 +743,8 @@ class HostAligner:
             self.flush_batch()
 
     def flush_batch(self):
-        """accumBubbles: merge batch-local bubble maps into the global DB in
-        batch-local iteration order."""
-        for locus, (order, counts) in self._bub_batch.items():
-            go, gc = self.bub_orders[locus], self.bub_counts[locus]
-            for km in order:
-                go.insert(km)
-                gc[km] = gc.get(km, 0) + counts[km]
-        self._bub_batch = {}
+        """accumBubbles, then accumBaitKmerHits."""
+        super().flush_batch()
         # accumBaitKmerHits (:1608-1616); outer tri order is irrelevant
         # (per-locus DBs), inner kmer order is the batch-local hash order
         for locus, (order, counts) in self._bt_batch.items():
@@ -811,10 +849,7 @@ class HostAligner:
                     trc[km] += 1
             if cfg.output_bubbles:
                 tre = g.tre_sets[dest]
-                ent = self._bub_batch.get(dest)
-                if ent is None:
-                    ent = (StdUmapOrder(), {})
-                    self._bub_batch[dest] = ent
+                ent = self.batch_map(dest)
                 if not r1.rm:
                     count_novel_edges(caes1, r1, tre, ent[0], ent[1])
                 if not r2.rm:
@@ -974,24 +1009,6 @@ class HostAligner:
         with open(path, "w") as f:
             for i in range(self.g.nloci):
                 f.write(f"{self.nmapread[i]}\t{self.kmc[i]}\n")
-
-    def write_bubbles(self, path: str, threshold: int = 5):
-        index, ks, vs = [], [], []
-        for i in range(self.g.nloci):
-            cnt = self.bub_counts[i]
-            nskip = 0
-            for km in self.bub_orders[i]:
-                c = cnt[km]
-                if c >= threshold:
-                    ks.append(km)
-                    vs.append(c)
-                else:
-                    nskip += 1
-            index.append(len(cnt) - nskip)
-        # dumpKmerMapDB declares vs as vector<uint64_t> regardless of the
-        # map's value type (aQueryFasta_thread.h:998-1004) -> 8-byte values
-        bio.write_kmap_db(path, np.array(index, np.uint64),
-                          np.array(ks, np.uint64), np.array(vs, np.uint64))
 
 
 def _nonempty(kmers) -> bool:

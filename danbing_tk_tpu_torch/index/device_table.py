@@ -257,6 +257,24 @@ class DevTable:
                    bool(tab.composite), int(getattr(tab, "nval", 1)))
 
 
+def level_args(tab: DevTable) -> tuple:
+    """A table's levels as a kernel entry point takes them (csrc/bucket.cuh
+    dtk_levels): the row pointers, bucket counts and salt constants, each
+    a ctypes array cast to a pointer, and the level count.  The arrays are
+    copied by the entry point before it returns."""
+    if len(tab.levels) > MAX_LEVELS:
+        raise ValueError(f"table has {len(tab.levels)} levels "
+                         f"(kernels take <= {MAX_LEVELS})")
+    tabs = (ctypes.c_void_p * MAX_LEVELS)(*[t.data_ptr()
+                                            for t in tab.levels])
+    nbs = (ctypes.c_int64 * MAX_LEVELS)(*[t.shape[0] for t in tab.levels])
+    salts = (ctypes.c_int64 * MAX_LEVELS)(*[salt_constant(s)
+                                            for s in tab.salts])
+    return (ctypes.cast(tabs, ctypes.c_void_p),
+            ctypes.cast(nbs, ctypes.c_void_p),
+            ctypes.cast(salts, ctypes.c_void_p), len(tab.levels))
+
+
 def lookup_bucket_plain(tab: DevTable, q: torch.Tensor, q_loc=None):
     """Plain torch version of KB: -> (found bool, val int64, val2 int64),
     each shaped like ``q``; val/val2 hold u32 values (0 where not found,
@@ -300,9 +318,6 @@ def lookup_bucket(tab: DevTable, q: torch.Tensor, q_loc=None):
         raise ValueError("queries must be int64 k-mers")
     if tab.composite and q_loc is None:
         raise ValueError("a composite table needs q_loc")
-    if len(tab.levels) > MAX_LEVELS:
-        raise ValueError(f"table has {len(tab.levels)} levels "
-                         f"(kernel takes <= {MAX_LEVELS})")
     if any(t.device != q.device for t in tab.levels):
         raise ValueError("table and queries must be on the same device")
     shape = q.shape
@@ -316,20 +331,11 @@ def lookup_bucket(tab: DevTable, q: torch.Tensor, q_loc=None):
     found = torch.empty(n, dtype=torch.bool, device=q.device)
     val = torch.empty(n, dtype=torch.int64, device=q.device)
     val2 = torch.empty_like(val)
-    nlev = len(tab.levels)
-    tabs = (ctypes.c_void_p * MAX_LEVELS)(*[t.data_ptr()
-                                            for t in tab.levels])
-    nbs = (ctypes.c_int64 * MAX_LEVELS)(*[t.shape[0] for t in tab.levels])
-    salts = (ctypes.c_int64 * MAX_LEVELS)(*[salt_constant(s)
-                                            for s in tab.salts])
     fn = bind(kernel_lib("bucket_lookup"), "dtk_bucket_lookup",
               "ppipppiiipppp")
     check(fn(ptr(qf), None if lf is None else ptr(lf), n,
-             ctypes.cast(tabs, ctypes.c_void_p),
-             ctypes.cast(nbs, ctypes.c_void_p),
-             ctypes.cast(salts, ctypes.c_void_p), nlev,
-             int(tab.composite), tab.nval, ptr(found), ptr(val), ptr(val2),
-             stream_of(qf)), "bucket_lookup")
+             *level_args(tab), int(tab.composite), tab.nval, ptr(found),
+             ptr(val), ptr(val2), stream_of(qf)), "bucket_lookup")
     lookup_bucket.launches += 1
     return found.view(shape), val.view(shape), val2.view(shape)
 

@@ -38,7 +38,7 @@ NATIVE_SRCS = {"native": os.path.join(ROOT, "native", "dtk_native.cpp"),
                "thread": os.path.join(ROOT, "native", "dtk_thread.cpp")}
 
 KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
-           "thread_walk")
+           "thread_walk", "read_filter", "novel_edges")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -67,7 +67,8 @@ def nvcc_path() -> str:
 
 def _kernel_target(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
-    deps = [src, os.path.join(CSRC, "common.cuh")]
+    deps = [src] + sorted(os.path.join(CSRC, h) for h in os.listdir(CSRC)
+                          if h.endswith(".cuh"))
     out = os.path.join(KERNEL_DIR,
                        f"lib{name}-{_digest(deps, NVCC_FLAGS)}.so")
     return src, out

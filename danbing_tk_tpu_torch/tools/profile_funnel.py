@@ -1,18 +1,22 @@
 """Where the time goes in the production-size funnel on a card.
 
     python -m danbing_tk_tpu_torch.tools.profile_funnel [--nloci N]
-        [--pairs N] [--out DIR] [--threading]
+        [--pairs N] [--out DIR] [--threading | --okam]
 
 Builds the synthetic scale index (tools/scale_index.py), runs the funnel
-of chip_smoke.py phase 5 (counting) or, with --threading, phase 6 (-gc 85
-3 on reads with 0.5% substitutions, the graph table built too) once to
-warm up, then once more under torch.profiler (CPU + CUDA activities).
-Prints the host wall, the summed device time per kernel name, the device
-busy time (union of kernel and copy intervals) and the idle share (1 -
-busy / wall), and writes the chrome trace and the key_averages table under
---out.  In threading mode the host view's locus builds are done in the
-warm-up pass (the profiled pass reuses them), and the host seconds spent
-waiting on the batched native engine are printed beside the wall.
+of chip_smoke.py phase 5 (counting), with --threading phase 6 (-gc 85 3
+on reads with 0.5% substitutions, the graph table built too) or with
+--okam phase 7 (.kam rows, -s 2 -b -qc -bu on reads with 0.5%
+substitutions and simmode-2 titles; the tre table, bait table and QC mask
+built too) once to warm up, then once more under torch.profiler (CPU +
+CUDA activities).  Prints the host wall, the summed device time per kernel
+name, the device busy time (union of kernel and copy intervals) and the
+idle share (1 - busy / wall), and writes the chrome trace and the
+key_averages table under --out.  In threading mode the host view's locus
+builds are done in the warm-up pass (the profiled pass reuses them), and
+the host seconds spent waiting on the batched native engine are printed
+beside the wall; in okam mode, the host seconds spent making .kam rows,
+inserting bubbles and merging the bubble maps.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ import torch
 
 from ..engine.align_runner import DeviceAlignRunner
 from ..engine.host_align import AlignConfig
-from .scale_index import (ScaleThreadView, build_scale_graph,
-                          build_scale_rpgg, sample_read_batch)
+from .scale_index import (ScaleThreadView, build_scale_bait,
+                          build_scale_graph, build_scale_qc, build_scale_rpgg,
+                          build_scale_tre, sample_read_batch, sim_titles)
 
 
 def _busy_ms(events) -> float:
@@ -48,15 +53,14 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
-def _time_engine_calls(runner):
-    """Wraps the runner's batched threading engine so the seconds its
-    calls take (on the one-worker pool) are summed into the returned
-    one-element list."""
+def _time_calls(obj, name: str):
+    """Wraps the method ``name`` of ``obj`` (when obj is not None) so the
+    seconds its calls take are summed into the returned one-element
+    list."""
     acc = [0.0]
-    nthr = runner.nthr
-    if nthr is None:
+    if obj is None:
         return acc
-    call = nthr.thread_pairs
+    call = getattr(obj, name)
 
     def timed(*a, **k):
         t0 = time.perf_counter()
@@ -65,7 +69,7 @@ def _time_engine_calls(runner):
         finally:
             acc[0] += time.perf_counter() - t0
 
-    nthr.thread_pairs = timed
+    setattr(obj, name, timed)
     return acc
 
 
@@ -75,7 +79,9 @@ def main(argv=None):
     ap.add_argument("--pairs", type=int, default=1 << 20)
     ap.add_argument("--seed", type=int, default=9)
     ap.add_argument("--out", default="build/profile")
-    ap.add_argument("--threading", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--threading", action="store_true")
+    mode.add_argument("--okam", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_funnel needs a CUDA card")
@@ -96,19 +102,34 @@ def main(argv=None):
                           okam=False, threading=True, thread_cth=85,
                           maxncorrection=3)
         view, sub_rate = ScaleThreadView(seqs), 0.005
+    if args.okam:
+        drp.tre_tab, _ = build_scale_tre(seqs, verbose=False)
+        drp.bait_tab, _ = build_scale_bait(seqs, seed=args.seed)
+        drp.qc = build_scale_qc(args.nloci, seed=args.seed)
+        cfg = AlignConfig(ksize=21, cth=20, n_filter=4, nm_filter=1,
+                          okam=True, simmode=2, bait=True, qc=True,
+                          output_bubbles=True)
+        sub_rate = 0.005
     print(f"index nloci={args.nloci} built in {time.time() - t0:.1f}s "
-          f"threading={args.threading}", flush=True)
+          f"threading={args.threading} okam={args.okam}", flush=True)
     P, L = 4096, 160
-    rng = np.random.default_rng([args.seed, 3 if args.threading else 1])
+    rng = np.random.default_rng(
+        [args.seed, 3 if args.threading else 5 if args.okam else 1])
     runner = DeviceAlignRunner(None, cfg, batch_pairs=P, max_read_len=L,
                                drp=drp, device=dev, thread_view=view)
     Pd = runner.dispatch_pairs(True)
     nbat = -(-args.pairs // Pd)
-    batches = [sample_read_batch(seqs, Pd, L, rng, frac_tr=0.05,
-                                 read_len=150, sub_rate=sub_rate or 0.0)
-               + (Pd,) for _ in range(nbat)]
+    batches = []
+    for _ in range(nbat):
+        c, r, li = sample_read_batch(seqs, Pd, L, rng, frac_tr=0.05,
+                                     read_len=150, sub_rate=sub_rate or 0.0,
+                                     with_loci=True)
+        batches.append((c, r, Pd, sim_titles(li) if args.okam else None))
     runner.run_batches(batches, prefilter=True)         # warm-up
-    engine_wait = _time_engine_calls(runner)
+    engine_wait = _time_calls(runner.nthr, "thread_pairs")
+    kam_s = _time_calls(runner, "_kam_device_row")
+    bub_s = _time_calls(runner, "_add_bubbles_codes")
+    merge_s = _time_calls(runner.bubbles, "flush_batch")
     torch.cuda.synchronize()
     steps0 = runner.n_steps
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -135,7 +156,10 @@ def main(argv=None):
     print(f"funnel pairs={nbat * Pd} wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy:.3f} idle_share={1 - busy / wall_ms:.4f} "
           f"steps={runner.n_steps - steps0} dispatches={nbat} "
-          f"engine_call_ms={engine_wait[0] * 1e3:.3f}", flush=True)
+          f"engine_call_ms={engine_wait[0] * 1e3:.3f} "
+          f"kam_row_ms={kam_s[0] * 1e3:.3f} bubble_insert_ms="
+          f"{bub_s[0] * 1e3:.3f} bubble_merge_ms={merge_s[0] * 1e3:.3f}",
+          flush=True)
     for name, ms in sorted(per.items(), key=lambda kv: -kv[1])[:20]:
         print(f"  {ms:10.3f} ms  {name}", flush=True)
 

@@ -20,8 +20,12 @@ hit and the full vote/annotate/count path runs realistically.
 For graph threading, ``build_scale_graph`` makes the (node, locus) ->
 out-edge-mask table from the loci's own sequences by the ``fa2kmers -g``
 rule, and ``ScaleThreadView`` gives the host threading fallback
-``graphs[d]`` / ``tr_counts[d]`` of a locus on first use.  Used by
-chip_smoke.py's production-size phases.
+``graphs[d]`` / ``tr_counts[d]`` of a locus on first use.  For the okam
+funnel (bait, QC, bubbles), ``build_scale_tre`` makes the (edge, locus)
+table of the loci's canonical (k+1)-mers (the fa2kmers tre rule),
+``build_scale_bait`` a bait table of each locus's own k-mers,
+``build_scale_qc`` a QC mask, and ``sim_titles`` simmode-2 read titles.
+Used by chip_smoke.py's production-size phases.
 """
 
 from __future__ import annotations
@@ -220,6 +224,80 @@ def build_scale_graph(seqs: np.ndarray, k: int = 21, chunk: int = 4096,
               f"{time.time()-t0:.1f}s", file=sys.stderr)
     tab = dt.build_bucket_table(nodes, masks, loci)
     return tab, len(nodes)
+
+
+def _canonical(codes: np.ndarray, k: int) -> np.ndarray:
+    """Canonical k-mers of every row of (n, Lt) u8 codes (all ACGT)."""
+    fwd = _fwd_kmers(codes, k)
+    rc = _fwd_kmers((3 - codes)[:, ::-1], k)[:, ::-1]
+    return np.minimum(fwd, rc)
+
+
+def build_scale_tre(seqs: np.ndarray, k: int = 21, chunk: int = 4096,
+                    verbose: bool = True):
+    """The composite tre table (canonical (k+1)-mer edge, locus) -> 1 of
+    every locus of ``seqs``, by the ``fa2kmers`` tre rule
+    (apps/fa2kmers.py make_tre_kmers: the TR sequence's canonical
+    (k+1)-mers, a set per locus; the synthetic loci are all TR).  The
+    table DeviceRPGG.build makes from pan.tre.kmers.  Returns
+    (BucketTable, entries)."""
+    t0 = time.time()
+    keys, loci = [], []
+    for s in range(0, len(seqs), chunk):
+        e = np.sort(_canonical(seqs[s:s + chunk], k + 1), axis=1)
+        keep = np.ones(e.shape, dtype=bool)
+        keep[:, 1:] = e[:, 1:] != e[:, :-1]
+        keys.append(e[keep])
+        loci.append(np.repeat(np.arange(s, s + len(e), dtype=np.uint32),
+                              keep.sum(axis=1)))
+    keys, loci = np.concatenate(keys), np.concatenate(loci)
+    if verbose:
+        print(f"[scale-index] tre {len(keys)/1e6:.1f}M edges in "
+              f"{time.time()-t0:.1f}s", file=sys.stderr)
+    tab = dt.build_bucket_table(keys, np.ones(len(keys), np.uint32), loci)
+    return tab, len(keys)
+
+
+def build_scale_bait(seqs: np.ndarray, k: int = 21, per_locus: int = 64,
+                     seed: int = 9):
+    """A bait table (canonical k-mer, locus) -> (mi << 8) | ma of
+    ``per_locus`` of each locus's own k-mers, at evenly spaced windows
+    from a random offset: all but one have the window [1, 255], which a
+    k-mer present in a read always meets; one, drawn per locus, has
+    [0, 0], so a mate that carries it is bait-filtered (a read covering
+    ~130 of 1,500 windows does so ~9% of the time).  Returns
+    (BucketTable, entries)."""
+    nloci, Ltr = seqs.shape
+    nw = Ltr - k + 1
+    rng = np.random.default_rng([seed, 4])
+    step = max(nw // per_locus, 1)
+    pos = (rng.integers(0, nw - step * (per_locus - 1), nloci)[:, None]
+           + step * np.arange(per_locus)[None, :])
+    win = seqs[np.arange(nloci)[:, None, None],
+               pos[:, :, None] + np.arange(k)[None, None, :]]
+    kms = _canonical(win.reshape(-1, k), k).reshape(-1)
+    vals = np.full((nloci, per_locus), (1 << 8) | 255, dtype=np.uint32)
+    vals[np.arange(nloci), rng.integers(0, per_locus, nloci)] = 0
+    loci = np.repeat(np.arange(nloci, dtype=np.uint32), per_locus)
+    return dt.build_bucket_table(kms, vals.reshape(-1), loci), len(kms)
+
+
+def build_scale_qc(nloci: int, fail_frac: float = 0.05,
+                   seed: int = 9) -> np.ndarray:
+    """A QC pass mask (u8[nloci], 1 = pass) with ``fail_frac`` of the
+    loci, drawn from the seed, failing."""
+    rng = np.random.default_rng([seed, 5])
+    qc = np.ones(nloci, dtype=np.uint8)
+    qc[rng.choice(nloci, int(nloci * fail_frac), replace=False)] = 0
+    return qc
+
+
+def sim_titles(loci: np.ndarray) -> list[str]:
+    """Simmode-2 titles ``chr:beg-end:LOCUS`` ('.' for background, -1) of
+    the pairs sample_read_batch(with_loci=True) made, '>'-stripped as the
+    native reader gives them."""
+    return [f"syn:{i}-{i + 1}:{'.' if d < 0 else d}"
+            for i, d in enumerate(np.asarray(loci).tolist())]
 
 
 class ScaleThreadView:

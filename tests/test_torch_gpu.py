@@ -169,4 +169,84 @@ def test_golden_threading_on_cuda(cuda, tmp_path):
                        ("out.tr.kmers", "out.thread.tr.kmers")):
         with open(os.path.join(GOLDEN, gold), "rb") as f:
             assert (tmp_path / name).read_bytes() == f.read(), name
-    assert min(da.launch_counts().values()) > 0
+    counts = da.launch_counts()
+    assert min(counts[t] for t in ("KA", "KB", "KC", "KD", "KE")) > 0
+
+
+@pytest.fixture(scope="module")
+def drp_filters():
+    rp = RPGG(os.path.join(GOLDEN, "pan"), bait=True,
+              qc_file=os.path.join(GOLDEN, "qc.txt"))
+    return da.DeviceRPGG.build(rp, with_tre=True)
+
+
+FQ = dict(KW, okam=True, simmode=2, bait=True, qc=True, is_fastq=True,
+          output_bubbles=True)
+
+
+def test_kf_kg_kd_annot_match_plain_on_step_inputs(cuda, drp_filters):
+    from danbing_tk_tpu_torch.io.native_reader import NativeBatchReader
+
+    P, L = 1024, 192
+    rd = NativeBatchReader(os.path.join(GOLDEN, "reads.sim.fq"), P, L,
+                           is_fastq=True, min_read_size=40,
+                           with_titles=False, with_quals=True)
+    n_bf = n_qc = n_novel = 0
+    for codes, rlen, n, _, quals in rd:
+        cap = {}
+        step = da.make_step(drp_filters, AlignConfig(**FQ), P, L,
+                            with_annot=True, with_bubbles=True,
+                            with_qual=True, device=cuda, capture=cap)
+        qm = da.qmask_batch(quals, rlen, 20, 21)
+        step(da.init_state(drp_filters, cuda), codes, rlen,
+             np.arange(P) < n, qm)
+        n0 = da.launch_counts()
+        got = da.read_filter(*cap["KF"])
+        want = da.read_filter_plain(*cap["KF"])
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        gk = da.novel_edges(*cap["KG"])
+        assert torch.equal(gk, da.novel_edges_plain(*cap["KG"]))
+        sk, sp = da.init_state(drp_filters, cuda), \
+            da.init_state(drp_filters, cuda)
+        gd = da.assign_count(sk, *cap["KD"])
+        wd = da.assign_count_plain(sp, *cap["KD"])
+        assert set(gd) == set(wd) >= {"ann"}
+        for key in wd:
+            assert torch.equal(gd[key], wd[key]), key
+        for key in ("counts", "nmapread", "kmc"):
+            assert torch.equal(sk[key], sp[key]), key
+        n1 = da.launch_counts()
+        assert [n1[t] - n0[t] for t in ("KD", "KF", "KG")] == [1, 1, 1]
+        n_bf += int(got[3].sum())
+        n_qc += int(got[1].sum())
+        n_novel += int((gk != 0).sum())
+    assert n_bf > 0 and n_qc > 0 and n_novel > 0
+
+
+@pytest.mark.parametrize("mode", ["okam_bu", "fastq_bait"])
+def test_golden_okam_on_cuda(cuda, tmp_path, mode):
+    if mode == "okam_bu":
+        rp = RPGG(os.path.join(GOLDEN, "pan"))
+        cfg = AlignConfig(**dict(KW, okam=True, output_bubbles=True))
+        reads, gold = "reads.fa", "out"
+        outs = ("kam", "trkmc.ar", "bub.kmdb")
+    else:
+        rp = RPGG(os.path.join(GOLDEN, "pan"), bait=True)
+        cfg = AlignConfig(**dict(KW, okam=True, simmode=2, bait=True,
+                                 is_fastq=True))
+        reads, gold = "reads.sim.fq", "out.fq"
+        outs = ("kam", "trkmc.ar", "tr.summary.txt")
+    da.reset_launch_counts()
+    run = DeviceAlignRunner(rp, cfg, device=cuda)
+    run.run_file_native(os.path.join(GOLDEN, reads), prefilter=True)
+    run.write_kam(tmp_path / "o.kam")
+    run.write_trkmc_ar(tmp_path / "o.trkmc.ar")
+    run.write_summary(tmp_path / "o.tr.summary.txt")
+    if cfg.output_bubbles:
+        run.write_bubbles(tmp_path / "o.bub.kmdb")
+    for ext in outs:
+        with open(os.path.join(GOLDEN, f"{gold}.{ext}"), "rb") as f:
+            assert (tmp_path / f"o.{ext}").read_bytes() == f.read(), ext
+    counts = da.launch_counts()
+    assert counts["KG" if mode == "okam_bu" else "KF"] > 0

@@ -20,7 +20,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         continue
     importlib.import_module(m.name)
 import chip_smoke
-for m in ("engine.threading", "engine.native_thread", "tools.scale_index"):
+for m in ("engine.threading", "engine.native_thread", "tools.scale_index",
+          "tools.profile_funnel", "tools.ab_assign_count"):
     assert pkg.__name__ + "." + m in sys.modules, m
 bad = sorted(n for n in sys.modules if n == "jax" or n.startswith("jax.")
              or n == "danbing_tk_tpu" or n.startswith("danbing_tk_tpu."))
@@ -47,8 +48,9 @@ def test_cli_raises_without_card(monkeypatch, tmp_path):
         cli.main(argv)
     # the same run on the CPU only when asked; unported modes name their
     # ROADMAP item instead of being dropped
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([a for a in argv if a != "-ka"] + ["--torch-device", "cpu"])
+    for extra in (["-e", "1"], ["-b", "-tb"], ["-t", "1"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.main(argv + extra + ["--torch-device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main([a for a in argv if a != "--native-io"]
                  + ["--torch-device", "cpu"])
@@ -68,7 +70,7 @@ def test_kernels_have_counters_and_notes():
     from danbing_tk_tpu_torch.kernels import build
 
     counts = da.launch_counts()
-    assert set(counts) == {"KA", "KB", "KC", "KD", "KE"}
+    assert set(counts) == {"KA", "KB", "KC", "KD", "KE", "KF", "KG"}
     assert all(isinstance(v, int) for v in counts.values())
     for name in build.KERNELS:
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:

@@ -5,7 +5,7 @@
 
 Phases; any failure exits non-zero (nothing is caught and continued):
   1. environment: torch / CUDA / nvcc versions, the card and its power limit
-  2. build: the five CUDA kernels (nvcc, in parallel, -Xptxas -v) and the
+  2. build: the eight CUDA kernels (nvcc, in parallel, -Xptxas -v) and the
      native host runtime and threading engine (g++); then the synthetic
      production-size index (danbing_tk_tpu_torch/tools/scale_index.py)
   3. every kernel of the counting step against its plain torch version on
@@ -43,10 +43,23 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      -bu, simmode-2 titles, 5% TR pool with 0.5% substitutions): .kam
      rows, bubble maps at the reference's flush cadence; referee'd pairs
      are counted, not resolved
-  8. the kernels line (JSON): each kernel's ``launches`` is the sum over
-     the three funnel runs (per path in ``launches_by_path``), the counts
-     set to 0 just before each run and read just after it
-  9. the last line: {"ok": true, "device": {...}}
+  8. pred (danbing-tk's bias correction), once phases 2-7 have released
+     the card: (a) the golden cohort (the six non-empty
+     tests/golden/out*.trkmc.ar, pan.tr.ksi, invariant k-mers from the
+     seed) through ``pred`` on cuda, all three files byte-equal to the host
+     oracle (the numpy bias_correction_np), KH launched; (b) KH against
+     its plain version on the card at ns = 32 x nk = 120M
+     (danbing_tk_tpu_torch/tools/scale_pred.py; 15.36 GB a copy, offsets
+     past 2^31), bit-equal as u32 views, CUDA-event ms, bound and peak
+     memory; (c) the ``pred`` CLI through files at ns = 8 (4 when the temp
+     disk cannot hold 8 samples' inputs and outputs), full nk, byte-equal
+     to the host oracle, with each span's seconds and the device's share
+     of the wall
+  9. the kernels line (JSON): each kernel's ``launches`` is the sum over
+     its paths' runs (per path in ``launches_by_path``: the three funnel
+     runs, and for KH the pred file run), the counts set to 0 just before
+     each run and read just after it
+ 10. the last line: {"ok": true, "device": {...}}
 
 Needs a CUDA card; exits 1 without one, or without the package beside it.
 """
@@ -134,7 +147,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import numpy as np
 
     t_start = time.time()
     # ---- 1. environment ----
@@ -166,11 +178,31 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[2] {name}: {line.strip()}")
 
+    res = align_phases(args, dev)
+    # ---- 8. pred ----
+    # every device tensor of phases 2-7 died with align_phases
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[8] device memory held after phase 7: "
+        f"{torch.cuda.memory_allocated()} B")
+    kh, kh_launches = pred_phase(args.seed, dev)
+    return finish(res, kh, kh_launches, kind, smi, t_start)
+
+
+def align_phases(args, dev) -> dict:
+    """Phases 2 (scale index) to 7; returns the kernel results and the
+    launch counts of every path."""
+    import numpy as np
+    import torch
+
     from danbing_tk_tpu_torch.engine import device_align as da
     from danbing_tk_tpu_torch.engine.align_runner import DeviceAlignRunner
     from danbing_tk_tpu_torch.engine.host_align import AlignConfig
     from danbing_tk_tpu_torch.index import device_table as dt
     from danbing_tk_tpu_torch.io.native_reader import sample_queries
+    from danbing_tk_tpu_torch.kernels import build
     from danbing_tk_tpu_torch.ops import kmers as km
     from danbing_tk_tpu_torch.tools.scale_index import (
         ScaleThreadView, build_scale_bait, build_scale_graph, build_scale_qc,
@@ -354,7 +386,7 @@ def main() -> int:
     from danbing_tk_tpu_torch.apps import cli
 
     gold = os.path.join(ROOT, "tests", "golden")
-    da.reset_launch_counts()
+    build.reset_launch_counts()
     t0 = time.time()
     with tempfile.TemporaryDirectory(prefix="dtk_smoke_") as out_dir:
         cli.main(["align", "--device", "--native-io", "--prefilter", "-ka",
@@ -363,7 +395,7 @@ def main() -> int:
                   os.path.join(gold, "reads.fa"), "-o",
                   os.path.join(out_dir, "OUT")])
         torch.cuda.synchronize()
-        golden_counts = da.launch_counts()
+        golden_counts = build.launch_counts()
         with open(os.path.join(out_dir, "OUT.trkmc.ar"), "rb") as f:
             got = f.read()
     with open(os.path.join(gold, "out.trkmc.ar"), "rb") as f:
@@ -374,7 +406,7 @@ def main() -> int:
         fail(f"golden run skipped a kernel: {golden_counts}")
     log(f"[4] golden CLI on cuda: .trkmc.ar byte-equal, "
         f"{time.time() - t0:.1f}s, launches {golden_counts}")
-    da.reset_launch_counts()
+    build.reset_launch_counts()
     t0 = time.time()
     with tempfile.TemporaryDirectory(prefix="dtk_smoke_") as out_dir:
         out = os.path.join(out_dir, "OUT")
@@ -383,7 +415,7 @@ def main() -> int:
                   "-qs", os.path.join(gold, "pan"), "-fa",
                   os.path.join(gold, "reads.sim.fa"), "-on", out])
         torch.cuda.synchronize()
-        golden_thr_counts = da.launch_counts()
+        golden_thr_counts = build.launch_counts()
         for ext, name in ((".aln", "out.thread.aln"),
                           (".tr.kmers", "out.thread.tr.kmers")):
             with open(out + ext, "rb") as f, \
@@ -410,12 +442,12 @@ def main() -> int:
     npairs = nbat * Pd
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    da.reset_launch_counts()
+    build.reset_launch_counts()
     t0 = time.time()
     runner.run_batches(batches, prefilter=True)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = da.launch_counts()
+    launches = build.launch_counts()
     if min(launches[t] for t in COUNTING) <= 0:
         fail(f"the funnel skipped a kernel: {launches}")
     stats = runner.state["stats"].cpu().tolist()
@@ -523,12 +555,12 @@ def main() -> int:
     t_view, n_view = view.build_s, len(view.graphs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    da.reset_launch_counts()
+    build.reset_launch_counts()
     t0 = time.time()
     trunner.run_batches(tbatches, prefilter=True)
     torch.cuda.synchronize()
     twall = time.time() - t0
-    tlaunches = da.launch_counts()
+    tlaunches = build.launch_counts()
     if min(tlaunches[t] for t in THREADING) <= 0:
         fail(f"the threading funnel skipped a kernel: {tlaunches}")
     n_surv = trunner.n_step_pairs
@@ -561,7 +593,7 @@ def main() -> int:
 
     # ---- 7. okam, bait, QC and bubbles ----
     # (a) the golden CLI on cuda
-    da.reset_launch_counts()
+    build.reset_launch_counts()
     t0 = time.time()
     okam_golden = (
         (["-bu", "-fa", "reads.fa"], "out",
@@ -586,7 +618,7 @@ def main() -> int:
                         fail(f"golden {' '.join(flags)}: .{ext} differs "
                              f"from tests/golden/{gname}.{ext}")
         torch.cuda.synchronize()
-    golden_okam_counts = da.launch_counts()
+    golden_okam_counts = build.launch_counts()
     if min(golden_okam_counts[t] for t in OKAM) <= 0:
         fail(f"golden okam runs skipped a kernel: {golden_okam_counts}")
     log(f"[7] golden CLI on cuda: default .kam + -bu, -fq -b -s 2, -qc -s 2 "
@@ -707,12 +739,12 @@ def main() -> int:
     t_odata = time.time() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    da.reset_launch_counts()
+    build.reset_launch_counts()
     t0 = time.time()
     orunner.run_batches(obatches, prefilter=True)
     torch.cuda.synchronize()
     owall = time.time() - t0
-    olaunches = da.launch_counts()
+    olaunches = build.launch_counts()
     if min(olaunches[t] for t in OKAM) <= 0:
         fail(f"the okam funnel skipped a kernel: {olaunches}")
     ost = orunner.state["stats"].cpu().tolist()
@@ -744,21 +776,220 @@ def main() -> int:
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
         f"stats={ost} launches={olaunches}")
 
-    # ---- 8. kernels line ----
+    return dict(results=results, launches=launches, tlaunches=tlaunches,
+                olaunches=olaunches, golden=(golden_counts, golden_thr_counts,
+                                             golden_okam_counts))
+
+
+def gt_file_equal(path: str, m) -> bool:
+    """Whether the GT matrix file ``path`` holds the (ns, nk) f32 array m
+    bit for bit (u32 dims, then column-major data), read in blocks."""
+    import numpy as np
+
+    ns, nk = m.shape
+    block = max(1, (1 << 26) // (4 * ns))
+    with open(path, "rb") as f:
+        if np.fromfile(f, np.uint32, 2).tolist() != [ns, nk]:
+            return False
+        for c0 in range(0, nk, block):
+            c1 = min(nk, c0 + block)
+            got = np.fromfile(f, np.uint32, (c1 - c0) * ns)
+            if got.size != (c1 - c0) * ns or not np.array_equal(
+                    got.reshape(c1 - c0, ns), m[:, c0:c1].T.view(np.uint32)):
+                return False
+        return f.read(1) == b""
+
+
+def pred_oracle_check(meta, ik, outs, what):
+    """Holds pred's three files against the host oracle (the numpy
+    bias_correction_np on the port's loader) on the same inputs; returns
+    (NaN, inf) counts of the corrected matrix."""
+    import numpy as np
+
+    from danbing_tk_tpu_torch.analysis import pred
+    from danbing_tk_tpu_torch.io import binary as bio
+
+    fns, rds = pred.read_gt_meta(meta)
+    nk_cum, nik_cum, iki, ikc = bio.read_ikmer_meta(ik)
+    gt = pred.load_gt_normalized(fns, rds, int(nk_cum[-1]))
+    if not gt_file_equal(outs[0], gt):
+        fail(f"{what} pred: raw GT differs from the host oracle")
+    with np.errstate(divide="ignore", invalid="ignore"):
+        bias = pred.bias_correction_np(gt, nk_cum, nik_cum, iki, ikc)
+    if not gt_file_equal(outs[1], gt):
+        fail(f"{what} pred: corrected GT differs from the host oracle")
+    want = outs[2] + ".oracle"
+    pred.write_bias(want, bias)
+    with open(outs[2], "rb") as f, open(want, "rb") as g:
+        if f.read() != g.read():
+            fail(f"{what} pred: bias TSV differs from the host oracle")
+    return int(np.isnan(gt).sum()), int(np.isinf(gt).sum())
+
+
+def pred_phase(seed: int, dev):
+    """Phase 8: (a) the golden cohort through ``pred`` on cuda, (b) KH
+    against its plain version at ns = 32 x nk = 120M, (c) the ``pred`` CLI
+    through files at ns = 8, full nk.  Returns (KH's result, its launches
+    in (c))."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from danbing_tk_tpu_torch.analysis import pred
+    from danbing_tk_tpu_torch.apps import cli
+    from danbing_tk_tpu_torch.kernels import build
+    from danbing_tk_tpu_torch.tools import scale_pred
+
+    def outs_of(d):
+        return [os.path.join(d, o) for o in ("raw.gt", "corr.gt",
+                                              "bias.tsv")]
+
+    # (a) the golden cohort
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="dtk_smoke_") as d:
+        meta, ik = scale_pred.write_golden_cohort(
+            os.path.join(ROOT, "tests", "golden"), d, seed=seed)
+        build.reset_launch_counts()
+        cli.main(["pred", meta, ik] + outs_of(d))
+        n_gold = build.launch_counts()["KH"]
+        g_nan, g_inf = pred_oracle_check(meta, ik, outs_of(d), "golden")
+    if n_gold != 1:
+        fail(f"golden pred launched KH {n_gold} times")
+    log(f"[8a] golden pred CLI on cuda: raw, corr and bias.tsv byte-equal "
+        f"to the host oracle (NaN {g_nan}, inf {g_inf}), KH launches "
+        f"{n_gold}, {time.time() - t0:.1f}s")
+
+    # (b) KH against the plain version at ns = 32, nk = 120M
+    ns = 32
+    co = scale_pred.build_cohort(ns, seed=seed)
+    n_tr = len(co["nk_cum"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    base = scale_pred.build_gt(co, dev)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    nk = base.shape[1]
+    idx = pred.index_tensors(co["nk_cum"], co["nik_cum"], co["iki"],
+                             co["ikc"], dev)
+    k = base.clone()
+    bk = pred.bias_correction(k, *idx)
+    p = base.clone()
+    bp = pred.bias_correction_plain(p, *idx)
+    torch.cuda.synchronize()
+    if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
+        fail("KH's corrected GT differs from the plain version's")
+    if not torch.equal(bk.view(torch.int32), bp.view(torch.int32)):
+        fail("KH's bias differs from the plain version's")
+    peak = torch.cuda.max_memory_allocated()
+
+    def timed(fn, target, reps):
+        """Median ms of fn(target) over reps, target restored from base
+        before each (KH works in place)."""
+        ts = []
+        for _ in range(reps):
+            target.copy_(base)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn(target)
+            e1.record()
+            e1.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        ts.sort()
+        return ts[len(ts) // 2]
+
+    kh_ms = timed(lambda g: pred.bias_correction(g, *idx), k, 9)
+    plain_ms = timed(lambda g: pred.bias_correction_plain(g, *idx), p, 3)
+    del p, bp
+    n_nan = int(torch.isnan(k).sum())
+    n_inf = int(torch.isinf(k).sum())
+    # the bytes this data makes KH move: every column of an active locus
+    # read and written, the invariant columns of a skipped locus read,
+    # 5 B per invariant k-mer (u32 iki, u8 ikc), 8 B per locus (u32
+    # nk_cum, nik_cum), the bias written
+    active = (bk != 0).any(0).cpu().numpy()
+    nk_per = np.diff(co["nk_cum"].astype(np.int64), prepend=0)
+    nik = np.diff(co["nik_cum"].astype(np.int64), prepend=0)
+    act_cols = int(nk_per[active].sum())
+    ik_skipped = int(nik[~active].sum())
+    kh_bytes = (4 * ns * (2 * act_cols + ik_skipped) + 5 * int(nik.sum())
+                + 8 * n_tr + 4 * ns * n_tr)
+    bound = kh_bytes / HBM_BYTES_PER_MS
+    n_dead = int(((nik > 0) & ~active).sum())
+    log(f"[8b] KH bias_correct ns={ns} nk={nk} (ns*nk={ns * nk}) match=True "
+        f"max_abs_err=0 ms={kh_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound:.4f} bytes={kh_bytes} active_loci="
+        f"{int(active.sum())} no_ik_loci={int((nik == 0).sum())} "
+        f"zero_mean_loci={n_dead} nan={n_nan} inf={n_inf} "
+        f"gen={t_gen:.1f}s peak_memory_allocated={peak}")
+    kh = dict(match=True, max_abs_err=0, ms=kh_ms, plain_ms=plain_ms,
+              bound_ms=bound, bound_by="bytes", library_ms=None,
+              source="danbing_tk_tpu_torch/csrc/bias_correct.cu",
+              replaces="danbing_tk_tpu/analysis/pred.py:99")
+    del base, k, bk, idx
+    torch.cuda.empty_cache()
+
+    # (c) the pred CLI through files
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    # the u64 inputs and the two f32 outputs of ns = 8, with 10% to spare
+    ns = 8
+    need = ns * nk * (8 + 2 * 4) * 1.1
+    log(f"[8c] free disk in {tmp}: {free} B; ns={ns} needs ~{need:.0f} B")
+    if free < need:
+        fail(f"not enough disk for the pred file run: {free} B free in "
+             f"{tmp}, ~{need:.0f} B needed")
+    co = scale_pred.build_cohort(ns, seed=seed + 1)
+    with tempfile.TemporaryDirectory(prefix="dtk_smoke_") as d:
+        t0 = time.time()
+        meta, ik = scale_pred.write_cohort(co, d, dev)
+        t_files = time.time() - t0
+        build.reset_launch_counts()
+        spans = cli.main(["pred", meta, ik] + outs_of(d))
+        n_launch = build.launch_counts()["KH"]
+        t0 = time.time()
+        c_nan, c_inf = pred_oracle_check(meta, ik, outs_of(d), "file run")
+        t_oracle = time.time() - t0
+    if n_launch <= 0:
+        fail("the pred file run did not launch KH")
+    wall = spans["wall"]
+    log(f"[8c] pred CLI on cuda, ns={ns} nk={nk}: outputs byte-equal to "
+        f"the host oracle (NaN {c_nan}, inf {c_inf}); spans(s) "
+        + " ".join(f"{k_}={v:.3f}" for k_, v in spans.items())
+        + f" KH_share_of_wall={spans['kernel'] / wall:.5f} "
+        f"transfer_share={(spans['h2d'] + spans['d2h']) / wall:.4f} "
+        f"inputs_written_in={t_files:.1f}s oracle={t_oracle:.1f}s "
+        f"KH launches {n_launch}")
+    return kh, n_launch
+
+
+def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
+    """Phases 9 and 10: the kernels line and the last line."""
+    import torch
+
+    # ---- 9. kernels line ----
     names = {"KA": "KA extract_kmers", "KB": "KB bucket_lookup",
              "KC": "KC pair_vote", "KD": "KD assign_count",
              "KE": "KE thread_walk", "KF": "KF read_filter",
              "KG": "KG novel_edges"}
+    launches, tlaunches, olaunches = (res["launches"], res["tlaunches"],
+                                      res["olaunches"])
     kern = [dict(name=names[t], route="cuda",
                  launches=launches[t] + tlaunches[t] + olaunches[t],
                  launches_by_path={"counting": launches[t],
                                    "threading": tlaunches[t],
                                    "okam": olaunches[t]},
-                 **results[t]) for t in names]
-    log(f"[8] golden launches {golden_counts} / threading "
+                 **res["results"][t]) for t in names]
+    kern.append(dict(name="KH bias_correct", route="cuda",
+                     launches=kh_launches,
+                     launches_by_path={"pred": kh_launches}, **kh))
+    golden_counts, golden_thr_counts, golden_okam_counts = res["golden"]
+    log(f"[9] golden launches {golden_counts} / threading "
         f"{golden_thr_counts} / okam {golden_okam_counts}; card {smi}; "
         f"smoke wall {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kern}), flush=True)
+    # ---- 10. last line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

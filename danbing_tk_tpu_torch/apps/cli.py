@@ -1,8 +1,8 @@
-"""Command-line interface: ``python -m danbing_tk_tpu_torch align ...``.
+"""Command-line interface: ``python -m danbing_tk_tpu_torch align|pred ...``.
 
-The ``align`` subcommand takes the JAX CLI's flags
-(danbing_tk_tpu/apps/cli.py) plus ``--torch-device`` (default ``cuda``;
-without a card the run raises unless ``--torch-device cpu`` is given).
+Both subcommands take the JAX CLI's arguments (danbing_tk_tpu/apps/cli.py)
+plus ``--torch-device`` (default ``cuda``; without a card the run raises
+unless ``--torch-device cpu`` is given).
 The port runs the counting funnel, by default with .kam rows (-ka turns
 them off), with simmode, bait, QC, fastq input and bubbles, and the
 graph-threading funnel,
@@ -14,6 +14,11 @@ graph-threading funnel,
 
 and raises NotImplementedError, naming the ROADMAP item, for any mode it
 does not run yet (-e, -tb, -t, checkpoints, the retry ladder).
+
+``pred gt.meta ikmer.meta raw.gt corr.gt bias.tsv`` is danbing-tk's bias
+correction, with KH on the card; its files are byte-identical to the JAX
+package's default (numpy) ``pred``.  ``--jax`` is accepted so that JAX
+command lines run unchanged: the port has the one device path.
 """
 
 from __future__ import annotations
@@ -86,6 +91,13 @@ def _cmd_align(args):
     print(f"align done -> {pref}", file=sys.stderr)
 
 
+def _cmd_pred(args):
+    from ..analysis.pred import run_pred
+
+    return run_pred(args.gt_meta, args.ikmer_meta, args.out_raw, args.out,
+                    args.out_bias, device=args.torch_device)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="danbing-tk-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -145,8 +157,22 @@ def main(argv=None):
                         "the kernels' plain versions)")
     a.set_defaults(fn=_cmd_align)
 
+    pr = sub.add_parser("pred", help="bias correction")
+    pr.add_argument("gt_meta")
+    pr.add_argument("ikmer_meta")
+    pr.add_argument("out_raw")
+    pr.add_argument("out")
+    pr.add_argument("out_bias")
+    pr.add_argument("--jax", action="store_true",
+                    help="accepted for the JAX CLI's command lines; the "
+                         "port's one path is KH on the torch device")
+    pr.add_argument("--torch-device", default="cuda",
+                    help="torch device (default cuda; cpu runs KH's plain "
+                         "version)")
+    pr.set_defaults(fn=_cmd_pred)
+
     args = p.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

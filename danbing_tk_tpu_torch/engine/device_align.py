@@ -50,7 +50,8 @@ import torch
 
 from .._device import resolve_device
 from ..index import device_table as dt
-from ..kernels.build import bind, check, kernel_lib, ptr, stream_of
+from ..kernels.build import (bind, check, kernel_lib, launched, ptr,
+                             stream_of)
 from ..ops.kmers import EMPTY, extract_kmers
 from .host_align import AlignConfig, RPGG
 
@@ -516,11 +517,8 @@ def pair_vote(kmer, val, use, pair_kf, vv, E: int, cth: int):
     check(fn(ptr(kmer), ptr(val), ptr(use), ptr(pair_kf), P, NKW, ptr(vv),
              vv.shape[0], E, cth, kc_smem_bytes(2 * NKW, E), ptr(dst0),
              ptr(vote_pass), ptr(pack), stream_of(kmer)), "pair_vote")
-    pair_vote.launches += 1
+    launched("KC")
     return dst0, vote_pass, pack
-
-
-pair_vote.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -696,16 +694,13 @@ def assign_count(state, found, val, annv, kvalid, afound_t, aval_t,
              None if slot is None else ptr(slot),
              None if ann is None else ptr(ann), stream_of(found)),
           "assign_count")
-    assign_count.launches += 1
+    launched("KD")
     res = dict(zip(ASSIGN_KEYS, out.unbind(0)))
     if annot:
         res["ann"] = ann
     if threading:
         res.update(tr_member=tr_member, slot=slot)
     return res
-
-
-assign_count.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -775,11 +770,8 @@ def thread_walk(state, nc, gfound, gmask, kvalid, nk, dev_pair, tr_member,
              *[ptr(a) for a in rest], state["counts"].shape[0] - 1,
              ptr(state["counts"]), ptr(clean), ptr(clean_pair),
              stream_of(nc)), "thread_walk")
-    thread_walk.launches += 1
+    launched("KE")
     return clean, clean_pair
-
-
-thread_walk.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -892,11 +884,8 @@ def read_filter(kmer, qmask, dst0, vote_pass, pack, qc, bait, nloci: int):
              None if qc is None else ptr(qc), nloci, *lv, ptr(dev_pair),
              ptr(qc_drop), ptr(bf), ptr(bf_pair), stream_of(kmer)),
           "read_filter")
-    read_filter.launches += 1
+    launched("KF")
     return dev_pair, qc_drop, bf, bf_pair
-
-
-read_filter.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -964,26 +953,8 @@ def novel_edges(edge, evalid, si_, ei_, rm, counted, dst0, tre):
               "ii" + "p" * 7 + "pppi" + "pp")
     check(fn(P, NE, *[ptr(a) for a in args], *dt.level_args(tre), ptr(out),
              stream_of(edge)), "novel_edges")
-    novel_edges.launches += 1
+    launched("KG")
     return out
-
-
-novel_edges.launches = 0
-
-
-KERNEL_FNS = {"KA": extract_kmers, "KB": dt.lookup_bucket, "KC": pair_vote,
-              "KD": assign_count, "KE": thread_walk, "KF": read_filter,
-              "KG": novel_edges}
-
-
-def launch_counts() -> dict:
-    """{kernel: launches} of the seven wrappers."""
-    return {name: fn.launches for name, fn in KERNEL_FNS.items()}
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_FNS.values():
-        fn.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels.build import bind, check, kernel_lib, ptr, stream_of
+from ..kernels.build import (bind, check, kernel_lib, launched, ptr,
+                             stream_of)
 
 EMPTY = np.uint32(0xFFFFFFFF)
 MAX_LEVELS = 32
@@ -33,7 +34,6 @@ def _mix32_np(x: np.ndarray) -> np.ndarray:
     x *= np.uint32(0x846CA68B)
     x ^= x >> np.uint32(16)
     return x
-
 
 
 BUCKET = 8
@@ -336,8 +336,5 @@ def lookup_bucket(tab: DevTable, q: torch.Tensor, q_loc=None):
     check(fn(ptr(qf), None if lf is None else ptr(lf), n,
              *level_args(tab), int(tab.composite), tab.nval, ptr(found),
              ptr(val), ptr(val2), stream_of(qf)), "bucket_lookup")
-    lookup_bucket.launches += 1
+    launched("KB")
     return found.view(shape), val.view(shape), val2.view(shape)
-
-
-lookup_bucket.launches = 0

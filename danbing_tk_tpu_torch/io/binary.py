@@ -123,11 +123,20 @@ def read_gt_matrix(path: str) -> np.ndarray:
             (nrow, ncol), order="F")
 
 
+GT_BLOCK_BYTES = 1 << 26
+
+
 def write_gt_matrix(path: str, m) -> None:
+    """Column-major like read_gt_matrix, written in blocks of columns of
+    ~GT_BLOCK_BYTES, so no full transposed copy of a cohort matrix is
+    ever held."""
     m = np.asarray(m, dtype=np.float32)
+    nrow, ncol = m.shape
+    block = max(1, GT_BLOCK_BYTES // (4 * max(nrow, 1)))
     with open(path, "wb") as f:
-        np.uint32([m.shape[0], m.shape[1]]).tofile(f)
-        np.ascontiguousarray(m.T).tofile(f)
+        np.uint32([nrow, ncol]).tofile(f)
+        for c0 in range(0, ncol, block):
+            np.ascontiguousarray(m[:, c0:c0 + block].T).tofile(f)
 
 
 def read_ikmer_meta(path: str):

@@ -38,8 +38,14 @@ NATIVE_SRCS = {"native": os.path.join(ROOT, "native", "dtk_native.cpp"),
                "thread": os.path.join(ROOT, "native", "dtk_thread.cpp")}
 
 KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
-           "thread_walk", "read_filter", "novel_edges")
+           "thread_walk", "read_filter", "novel_edges", "bias_correct")
 
+# launches of each kernel (KA-KH: KERNELS in order); its wrapper adds one
+# where it launches the kernel, and nowhere else
+LAUNCHES = dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF", "KG", "KH"), 0)
+
+# no --use_fast_math: KH (bias_correct.cu) must divide and add in IEEE
+# round-to-nearest to give numpy's bytes
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]
@@ -104,6 +110,20 @@ def build_kernels(names=KERNELS) -> dict[str, float]:
     return secs
 
 
+def build_ab(src: str, name: str):
+    """``src`` (a kernel source of this or another checkout) built with
+    NVCC_FLAGS into build/torch_kernels/ab/lib<name>.so, for same-call A/B
+    timing; returns the loaded library and the lines of -Xptxas -v that
+    give registers."""
+    out = os.path.join(KERNEL_DIR, "ab", f"lib{name}.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    log = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", out, src],
+                         check=True, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True).stdout
+    return ctypes.CDLL(out), [x.strip() for x in log.splitlines()
+                              if "registers" in x]
+
+
 def kernel_lib(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``csrc/<name>.cu`` (built on first use)."""
     with _lock:
@@ -114,6 +134,21 @@ def kernel_lib(name: str) -> ctypes.CDLL:
                 build_kernels([name])
             lib = _libs[name] = ctypes.CDLL(out)
         return lib
+
+
+def launched(kernel: str) -> None:
+    """Counts one launch of ``kernel`` ("KA" ... "KH")."""
+    LAUNCHES[kernel] += 1
+
+
+def launch_counts() -> dict:
+    """{kernel: launches} since the last reset_launch_counts()."""
+    return dict(LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def check(err: int, what: str) -> None:

@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.build import bind, check, kernel_lib, ptr, stream_of
+from ..kernels.build import (bind, check, kernel_lib, launched, ptr,
+                             stream_of)
 
 EMPTY = -1
 _SIGN = -(1 << 63)
@@ -102,9 +103,7 @@ def extract_kmers(codes: torch.Tensor, rlen: torch.Tensor, k: int):
     check(fn(ptr(codes), ptr(rlen), B, L, k, ptr(kmer), ptr(nc),
              ptr(kvalid), ptr(edge), ptr(evalid), ptr(nk), ptr(any_valid),
              stream_of(codes)), "extract_kmers")
-    extract_kmers.launches += 1
+    launched("KA")
     return dict(kmer=kmer, kvalid=kvalid, nc=nc, edge=edge, evalid=evalid,
                 nk=nk, any_valid=any_valid)
 
-
-extract_kmers.launches = 0

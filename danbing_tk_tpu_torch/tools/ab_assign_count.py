@@ -19,7 +19,6 @@ quartiles, and the change's wins.  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
 import subprocess
 
@@ -46,18 +45,6 @@ def _ms_per_launch(fn, reps: int = 20, n: int = 10) -> float:
         e1.synchronize()
         ts.append(e0.elapsed_time(e1) / reps)
     return float(np.median(ts))
-
-
-def _build(src: str, name: str):
-    """``src`` built with nvcc into build/torch_kernels/ab/; returns the
-    loaded library and the lines of -Xptxas -v that give registers."""
-    out = os.path.join(build.KERNEL_DIR, "ab", f"lib{name}.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    log = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out,
-                          src], check=True, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True).stdout
-    return ctypes.CDLL(out), [x.strip() for x in log.splitlines()
-                              if "registers" in x]
 
 
 def main(argv=None):
@@ -93,10 +80,11 @@ def main(argv=None):
     ptrs = [build.ptr(t) for t in (
         found, val, annv, kvalid, afound_t, aval_t, dst0, dev_pair, kf, nk,
         loff)]
-    plib, preg = _build(os.path.join(args.parent, "danbing_tk_tpu_torch",
-                                     "csrc", "assign_count.cu"), "parent")
-    clib, creg = _build(os.path.join(build.CSRC, "assign_count.cu"),
-                        "change")
+    plib, preg = build.build_ab(os.path.join(
+        args.parent, "danbing_tk_tpu_torch", "csrc", "assign_count.cu"),
+        "parent")
+    clib, creg = build.build_ab(os.path.join(build.CSRC, "assign_count.cu"),
+                                "change")
     print(f"parent registers: {preg}\nchange registers: {creg}", flush=True)
     pfn = build.bind(plib, "dtk_assign_count",
                      "ii" + "p" * 11 + "iiii" + "p" * 7)

@@ -1,6 +1,6 @@
 """Each hand-written kernel against its plain torch version on a card, and
-the golden counting and threading funnels end to end on cuda.  Every
-comparison is exact.
+the golden counting, threading, okam and pred runs end to end on cuda.
+Every comparison is exact (KH's as u32 views, NaNs included).
 
 These tests import only the port (the card's machine has no JAX) and skip
 without a card.  On the card:
@@ -18,6 +18,7 @@ from danbing_tk_tpu_torch.engine import device_align as da
 from danbing_tk_tpu_torch.engine.align_runner import DeviceAlignRunner
 from danbing_tk_tpu_torch.engine.host_align import AlignConfig, RPGG
 from danbing_tk_tpu_torch.index import device_table as dt
+from danbing_tk_tpu_torch.kernels import build
 from danbing_tk_tpu_torch.ops import kmers as km
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -53,10 +54,10 @@ def test_ka_matches_plain(cuda, k):
     rlen = rng.integers(0, 161, 512).astype(np.int32)
     c = torch.from_numpy(codes).to(cuda)
     r = torch.from_numpy(rlen).to(cuda)
-    n0 = km.extract_kmers.launches
+    n0 = build.launch_counts()["KA"]
     got = km.extract_kmers(c, r, k)
     want = km.extract_kmers_plain(c, r, k)
-    assert km.extract_kmers.launches == n0 + 1
+    assert build.launch_counts()["KA"] == n0 + 1
     for key in want:
         assert torch.equal(got[key], want[key]), key
 
@@ -72,10 +73,10 @@ def test_kb_matches_plain(cuda, drp):
     tabs = drp.tables(cuda)
     for name in ("dbi", "member", "trfl"):
         ql = loc if tabs[name].composite else None
-        n0 = dt.lookup_bucket.launches
+        n0 = build.launch_counts()["KB"]
         got = dt.lookup_bucket(tabs[name], qd, ql)
         want = dt.lookup_bucket_plain(tabs[name], qd, ql)
-        assert dt.lookup_bucket.launches == n0 + 1
+        assert build.launch_counts()["KB"] == n0 + 1
         for g, w in zip(got, want):
             assert torch.equal(g, w), name
 
@@ -102,14 +103,14 @@ def test_kc_kd_match_plain_on_step_inputs(cuda, drp, E, off):
 
 
 def test_golden_funnel_on_cuda(cuda, tmp_path):
-    da.reset_launch_counts()
+    build.reset_launch_counts()
     run = DeviceAlignRunner(RPGG(os.path.join(GOLDEN, "pan")),
                             AlignConfig(**KW), device=cuda)
     run.run_file_native(os.path.join(GOLDEN, "reads.fa"), prefilter=True)
     run.write_trkmc_ar(tmp_path / "out.trkmc.ar")
     with open(os.path.join(GOLDEN, "out.trkmc.ar"), "rb") as f:
         assert (tmp_path / "out.trkmc.ar").read_bytes() == f.read()
-    counts = da.launch_counts()
+    counts = build.launch_counts()
     assert min(counts[t] for t in ("KA", "KB", "KC", "KD")) > 0
     assert counts["KE"] == 0           # the walk runs only when threading
 
@@ -147,10 +148,10 @@ def test_kb_graph_kd_ke_match_plain_on_step_inputs(cuda, drp_graph):
     assert set(got) == set(want) >= {"tr_member", "slot"}
     for key in want:
         assert torch.equal(got[key], want[key]), key
-    n0 = da.thread_walk.launches
+    n0 = build.launch_counts()["KE"]
     got = da.thread_walk(sk, *cap["KE"])
     want = da.thread_walk_plain(sp, *cap["KE"])
-    assert da.thread_walk.launches == n0 + 1
+    assert build.launch_counts()["KE"] == n0 + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert bool(got[1].any()) and not bool(got[1].all())
@@ -159,7 +160,7 @@ def test_kb_graph_kd_ke_match_plain_on_step_inputs(cuda, drp_graph):
 
 
 def test_golden_threading_on_cuda(cuda, tmp_path):
-    da.reset_launch_counts()
+    build.reset_launch_counts()
     run = DeviceAlignRunner(RPGG(os.path.join(GOLDEN, "pan")),
                             AlignConfig(**THR), device=cuda)
     run.run_file_native(os.path.join(GOLDEN, "reads.sim.fa"), prefilter=True)
@@ -169,7 +170,7 @@ def test_golden_threading_on_cuda(cuda, tmp_path):
                        ("out.tr.kmers", "out.thread.tr.kmers")):
         with open(os.path.join(GOLDEN, gold), "rb") as f:
             assert (tmp_path / name).read_bytes() == f.read(), name
-    counts = da.launch_counts()
+    counts = build.launch_counts()
     assert min(counts[t] for t in ("KA", "KB", "KC", "KD", "KE")) > 0
 
 
@@ -200,7 +201,7 @@ def test_kf_kg_kd_annot_match_plain_on_step_inputs(cuda, drp_filters):
         qm = da.qmask_batch(quals, rlen, 20, 21)
         step(da.init_state(drp_filters, cuda), codes, rlen,
              np.arange(P) < n, qm)
-        n0 = da.launch_counts()
+        n0 = build.launch_counts()
         got = da.read_filter(*cap["KF"])
         want = da.read_filter_plain(*cap["KF"])
         for g, w in zip(got, want):
@@ -216,7 +217,7 @@ def test_kf_kg_kd_annot_match_plain_on_step_inputs(cuda, drp_filters):
             assert torch.equal(gd[key], wd[key]), key
         for key in ("counts", "nmapread", "kmc"):
             assert torch.equal(sk[key], sp[key]), key
-        n1 = da.launch_counts()
+        n1 = build.launch_counts()
         assert [n1[t] - n0[t] for t in ("KD", "KF", "KG")] == [1, 1, 1]
         n_bf += int(got[3].sum())
         n_qc += int(got[1].sum())
@@ -237,7 +238,7 @@ def test_golden_okam_on_cuda(cuda, tmp_path, mode):
                                  is_fastq=True))
         reads, gold = "reads.sim.fq", "out.fq"
         outs = ("kam", "trkmc.ar", "tr.summary.txt")
-    da.reset_launch_counts()
+    build.reset_launch_counts()
     run = DeviceAlignRunner(rp, cfg, device=cuda)
     run.run_file_native(os.path.join(GOLDEN, reads), prefilter=True)
     run.write_kam(tmp_path / "o.kam")
@@ -248,5 +249,72 @@ def test_golden_okam_on_cuda(cuda, tmp_path, mode):
     for ext in outs:
         with open(os.path.join(GOLDEN, f"{gold}.{ext}"), "rb") as f:
             assert (tmp_path / f"o.{ext}").read_bytes() == f.read(), ext
-    counts = da.launch_counts()
+    counts = build.launch_counts()
     assert counts["KG" if mode == "okam_bu" else "KF"] > 0
+
+
+def _pred_cases(cuda, tmp_path):
+    """(gt on the card, ikmer.meta arrays): the golden cohort (nk % 4 ==
+    2: KH's scalar divide) and fuzz cohorts of 13 samples (a ragged
+    sample chunk) with skipped, zero-mean and zero-bias loci, with loci of
+    200 k-mers (16 B aligned blocks) and of 203 (unaligned block ends)."""
+    from danbing_tk_tpu_torch.analysis import pred
+    from danbing_tk_tpu_torch.io import binary as bio
+    from danbing_tk_tpu_torch.tools import scale_pred
+
+    meta, ik = scale_pred.write_golden_cohort(GOLDEN, str(tmp_path))
+    fns, rds = pred.read_gt_meta(meta)
+    gmeta = bio.read_ikmer_meta(ik)
+    gold = pred.load_gt_normalized(fns, rds, int(gmeta[0][-1]))
+    cases = [(torch.from_numpy(gold).to(cuda), gmeta)]
+    for kpl in (200, 203):
+        co = scale_pred.build_cohort(13, nloci=300, kmers_per_locus=kpl,
+                                     seed=3, p_dead=0.05, p_zero=0.05)
+        cases.append((scale_pred.build_gt(co, cuda), (
+            co["nk_cum"], co["nik_cum"], co["iki"], co["ikc"])))
+    return cases
+
+
+def test_kh_matches_plain_and_host_oracle(cuda, tmp_path):
+    from danbing_tk_tpu_torch.analysis import pred
+
+    for gt, meta in _pred_cases(cuda, tmp_path):
+        k, p = gt.clone(), gt.clone()
+        n0 = build.launch_counts()["KH"]
+        bk = pred.bias_correction(k, *meta)
+        bp = pred.bias_correction_plain(p, *meta)
+        assert build.launch_counts()["KH"] == n0 + 1
+        torch.cuda.synchronize()
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+        assert torch.equal(bk.view(torch.int32), bp.view(torch.int32))
+        host = gt.cpu().numpy()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            hb = pred.bias_correction_np(host, *meta)
+        assert np.array_equal(k.cpu().numpy().view(np.uint32),
+                              host.view(np.uint32))
+        assert np.array_equal(bk.cpu().numpy().view(np.uint32),
+                              hb.view(np.uint32))
+    assert bool(torch.isnan(k).any()) and bool(torch.isinf(k).any())
+
+
+def test_golden_pred_cli_on_cuda(cuda, tmp_path):
+    from danbing_tk_tpu_torch.analysis import pred
+    from danbing_tk_tpu_torch.apps import cli
+    from danbing_tk_tpu_torch.io import binary as bio
+    from danbing_tk_tpu_torch.tools import scale_pred
+
+    meta, ik = scale_pred.write_golden_cohort(GOLDEN, str(tmp_path))
+    outs = [str(tmp_path / o) for o in ("raw.gt", "corr.gt", "bias.tsv")]
+    n0 = build.launch_counts()["KH"]
+    cli.main(["pred", meta, ik] + outs)
+    assert build.launch_counts()["KH"] == n0 + 1
+    fns, rds = pred.read_gt_meta(meta)
+    nk_cum, nik_cum, iki, ikc = bio.read_ikmer_meta(ik)
+    gt = pred.load_gt_normalized(fns, rds, int(nk_cum[-1]))
+    bio.write_gt_matrix(str(tmp_path / "o.raw"), gt)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        bias = pred.bias_correction_np(gt, nk_cum, nik_cum, iki, ikc)
+    bio.write_gt_matrix(str(tmp_path / "o.corr"), gt)
+    pred.write_bias(str(tmp_path / "o.bias"), bias)
+    for got, want in zip(outs, ("o.raw", "o.corr", "o.bias")):
+        assert open(got, "rb").read() == (tmp_path / want).read_bytes()

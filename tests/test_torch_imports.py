@@ -21,7 +21,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke
 for m in ("engine.threading", "engine.native_thread", "tools.scale_index",
-          "tools.profile_funnel", "tools.ab_assign_count"):
+          "tools.profile_funnel", "tools.ab_assign_count", "analysis.pred",
+          "tools.scale_pred", "tools.ab_bias_correct"):
     assert pkg.__name__ + "." + m in sys.modules, m
 bad = sorted(n for n in sys.modules if n == "jax" or n.startswith("jax.")
              or n == "danbing_tk_tpu" or n.startswith("danbing_tk_tpu."))
@@ -54,6 +55,14 @@ def test_cli_raises_without_card(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main([a for a in argv if a != "--native-io"]
                  + ["--torch-device", "cpu"])
+    # pred, with or without the JAX CLI's --jax, needs the card too
+    from danbing_tk_tpu_torch.tools.scale_pred import write_golden_cohort
+
+    meta, ik = write_golden_cohort(GOLDEN, str(tmp_path))
+    outs = [str(tmp_path / o) for o in ("raw.gt", "corr.gt", "bias.tsv")]
+    for extra in ([], ["--jax"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["pred", meta, ik] + outs + extra)
 
 
 def test_api_defaults_to_cuda(monkeypatch):
@@ -66,12 +75,14 @@ def test_api_defaults_to_cuda(monkeypatch):
 
 
 def test_kernels_have_counters_and_notes():
-    from danbing_tk_tpu_torch.engine import device_align as da
     from danbing_tk_tpu_torch.kernels import build
 
-    counts = da.launch_counts()
-    assert set(counts) == {"KA", "KB", "KC", "KD", "KE", "KF", "KG"}
-    assert all(isinstance(v, int) for v in counts.values())
+    build.reset_launch_counts()
+    counts = build.launch_counts()
+    assert counts == dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF",
+                                    "KG", "KH"), 0)
+    assert len(counts) == len(build.KERNELS)
+    assert "bias_correct" in build.KERNELS
     for name in build.KERNELS:
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             src = f.read()

@@ -5,7 +5,7 @@
 
 Phases; any failure exits non-zero (nothing is caught and continued):
   1. environment: torch / CUDA / nvcc versions, the card and its power limit
-  2. build: the eight CUDA kernels (nvcc, in parallel, -Xptxas -v) and the
+  2. build: the nine CUDA kernels (nvcc, in parallel, -Xptxas -v) and the
      native host runtime and threading engine (g++); then the synthetic
      production-size index (danbing_tk_tpu_torch/tools/scale_index.py)
   3. every kernel of the counting step against its plain torch version on
@@ -22,6 +22,20 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      TR pool, 95% random background, 150 bp in L = 160 rows) through the
      host-sampled prefilter, survivor repack and the full step; flagged
      pairs are counted, not resolved
+ 5s. the sharded funnel on a world-1 NCCL group: (a) the golden funnel
+     through ShardedAlignRunner (index sharded, E = 128 -> 512,
+     checkpoints every 64 pairs), a run stopped after three prefilter
+     dispatches and resumed, and the CLI with --retry-expand 512
+     --checkpoint, all byte-equal; (b) KI on D = 4 row-block views of the
+     scale index's dbi, trfl and member tables at the main path's query
+     shapes, each block against its plain version and the blocks' sum
+     against KB (non-EMPTY queries), CUDA-event times; (c) KC's large-E
+     mode (E = 4096, P = _tier_P(4096) = 2048 overflow pairs of the TR
+     pool, the vote's arrays in a global workspace) against
+     pair_vote_plain; (d) phase 5's batches through ShardedAlignRunner
+     (shard_index, E = 512 -> [4096]): reads/s, retried pairs, the
+     referee share beside phase 5's, the collectives' ms per step, peak
+     memory; KI and KC[large-E] launched
   6. the production-size threading funnel (-gc 85 3): the index's graph
      table (the fa2kmers -g rule over the loci's sequences), built and
      uploaded only now, so the counting phases never hold it; the
@@ -51,14 +65,15 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      its plain version on the card at ns = 32 x nk = 120M
      (danbing_tk_tpu_torch/tools/scale_pred.py; 15.36 GB a copy, offsets
      past 2^31), bit-equal as u32 views, CUDA-event ms, bound and peak
-     memory; (c) the ``pred`` CLI through files at ns = 8 (4 when the temp
-     disk cannot hold 8 samples' inputs and outputs), full nk, byte-equal
-     to the host oracle, with each span's seconds and the device's share
-     of the wall
-  9. the kernels line (JSON): each kernel's ``launches`` is the sum over
-     its paths' runs (per path in ``launches_by_path``: the three funnel
-     runs, and for KH the pred file run), the counts set to 0 just before
-     each run and read just after it
+     memory; (c) the ``pred`` CLI through files at ns = 8, full nk
+     (failing when the temp disk cannot hold 8 samples' inputs and
+     outputs), byte-equal to the host oracle, with each span's seconds and
+     the device's share of the wall
+  9. the kernels line (JSON): KA-KI and KC's large-E instance; each
+     kernel's ``launches`` is the sum over its paths' runs (per path in
+     ``launches_by_path``: the counting, sharded, threading and okam
+     funnel runs, and for KH the pred file run), the counts set to 0 just
+     before each run and read just after it
  10. the last line: {"ok": true, "device": {...}}
 
 Needs a CUDA card; exits 1 without one, or without the package beside it.
@@ -79,6 +94,7 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM HBM3, published peak
 COUNTING = ("KA", "KB", "KC", "KD")     # the counting path's kernels
 THREADING = COUNTING + ("KE",)
 OKAM = COUNTING + ("KF", "KG")          # -b -qc -bu adds KF and KG
+SHARDED = ("KA", "KC", "KD", "KI")      # shard_index: KI in place of KB
 
 
 def log(msg: str) -> None:
@@ -467,6 +483,12 @@ def align_phases(args, dev) -> dict:
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
         f"stats={stats} launches={launches}")
 
+    # ---- 5s. the sharded funnel (world-1 NCCL group) ----
+    sharded = sharded_phase(args, dev, dict(
+        drp=drp, seqs=seqs, cap=cap, q_mem=q_mem, batches=batches, P=P, L=L,
+        E=E, k=k, RL=RL, cfg=cfg, reads_s=2 * npairs / wall,
+        ref_share=ref_share))
+
     # ---- 6. production-size threading funnel ----
     t0 = time.time()
     drp.graph_tab, n_graph = build_scale_graph(seqs, verbose=False)
@@ -776,9 +798,284 @@ def align_phases(args, dev) -> dict:
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
         f"stats={ost} launches={olaunches}")
 
+    results["KI"] = dict(sharded["KI"],
+                         source="danbing_tk_tpu_torch/csrc/sharded_lookup.cu",
+                         replaces="danbing_tk_tpu/parallel/sharded_index.py:53")
+    results["KC[large-E]"] = dict(
+        sharded["KCL"], source="danbing_tk_tpu_torch/csrc/pair_vote.cu",
+        replaces="danbing_tk_tpu/engine/device_align.py:618")
     return dict(results=results, launches=launches, tlaunches=tlaunches,
-                olaunches=olaunches, golden=(golden_counts, golden_thr_counts,
-                                             golden_okam_counts))
+                olaunches=olaunches, slaunches=sharded["launches"],
+                golden=(golden_counts, golden_thr_counts,
+                        golden_okam_counts))
+
+
+def sharded_phase(args, dev, ctx) -> dict:
+    """Phase 5s: the sharded funnel on a world-1 NCCL group.  (a) the
+    golden funnel through ShardedAlignRunner (index sharded, E = 128 ->
+    512, checkpoints every 64 pairs), a run stopped after three prefilter
+    dispatches and resumed, and the CLI with --retry-expand 512
+    --checkpoint, all byte-equal; (b) KI on D = 4 row-block views of the
+    scale index's dbi, trfl and member tables at the main path's query
+    shapes, each block against its plain version and the blocks' sum
+    against KB; (c) KC's large-E mode at E = 4096 and P = _tier_P(4096) on
+    overflow pairs of the TR pool against pair_vote_plain; (d) phase 5's
+    batches through ShardedAlignRunner(shard_index=True, expand_cap=512,
+    retry_expand=[4096]).  Returns the KI and KC[large-E] results and the
+    launches of (d)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from danbing_tk_tpu_torch.apps import cli
+    from danbing_tk_tpu_torch.engine import device_align as da
+    from danbing_tk_tpu_torch.engine.align_runner import (
+        Stopped, stop_after_prefilter)
+    from danbing_tk_tpu_torch.engine.host_align import AlignConfig, RPGG
+    from danbing_tk_tpu_torch.index import device_table as dt
+    from danbing_tk_tpu_torch.kernels import build
+    from danbing_tk_tpu_torch.parallel import mesh as pm
+    from danbing_tk_tpu_torch.parallel import sharded_index as si
+    from danbing_tk_tpu_torch.parallel.runner import ShardedAlignRunner
+    from danbing_tk_tpu_torch.tools.scale_index import sample_read_batch
+
+    drp, seqs, cap, q_mem, batches = (ctx["drp"], ctx["seqs"], ctx["cap"],
+                                      ctx["q_mem"], ctx["batches"])
+    P, L, E, k, RL = ctx["P"], ctx["L"], ctx["E"], ctx["k"], ctx["RL"]
+    mesh = pm.make_mesh(device=dev)
+    log(f"[5s] mesh: backend={dist.get_backend()} world={mesh.world} "
+        f"rank={mesh.rank} device={mesh.device}")
+
+    # ---- (a) golden: funnel, stop + resume, CLI ----
+    gold = os.path.join(ROOT, "tests", "golden")
+    reads = os.path.join(gold, "reads.fa")
+    with open(os.path.join(gold, "out.trkmc.ar"), "rb") as f:
+        want = f.read()
+    gcfg = AlignConfig(ksize=21, cth=20, n_filter=4, nm_filter=1,
+                       okam=False)
+    t0 = time.time()
+
+    def golden_runner():
+        return ShardedAlignRunner(RPGG(os.path.join(gold, "pan")), gcfg,
+                                  mesh=mesh, batch_pairs=64,
+                                  max_read_len=192, expand_cap=128,
+                                  retry_expand=512, shard_index=True)
+
+    with tempfile.TemporaryDirectory(prefix="dtk_smoke_") as d:
+        build.reset_launch_counts()
+        r = golden_runner()
+        r.run_file_native(reads, prefilter=True,
+                          checkpoint=os.path.join(d, "full.npz"),
+                          checkpoint_every=64)
+        torch.cuda.synchronize()
+        gl = build.launch_counts()
+        r.write_trkmc_ar(os.path.join(d, "a.trkmc.ar"))
+        n_ret = r.n_retried
+        r1 = golden_runner()
+        stop_after_prefilter(r1, 3)
+        ck = os.path.join(d, "stop.npz")
+        try:
+            r1.run_file_native(reads, prefilter=True, checkpoint=ck,
+                               checkpoint_every=64)
+            fail("the stopped sharded run did not stop")
+        except Stopped:
+            pass
+        cursor = int(np.load(ck)["cursor"])
+        r2 = golden_runner()
+        r2.run_file_native(reads, prefilter=True, checkpoint=ck,
+                           checkpoint_every=64)
+        r2.write_trkmc_ar(os.path.join(d, "b.trkmc.ar"))
+        cli.main(["align", "--device", "--native-io", "--prefilter", "-ka",
+                  "-cth", "20", "-kf", "4", "1", "--expand-cap", "128",
+                  "--retry-expand", "512", "--checkpoint",
+                  os.path.join(d, "cli.npz"), "-qs",
+                  os.path.join(gold, "pan"), "-fa", reads, "-o",
+                  os.path.join(d, "c")])
+        for name in ("a", "b", "c"):
+            with open(os.path.join(d, f"{name}.trkmc.ar"), "rb") as f:
+                if f.read() != want:
+                    fail(f"golden sharded run {name}: .trkmc.ar differs "
+                         f"from tests/golden/out.trkmc.ar")
+    # with the index sharded KI answers every probe (member, dbi, trfl)
+    if min(gl[t] for t in SHARDED) <= 0 or n_ret <= 0:
+        fail(f"the golden sharded funnel skipped a kernel or the ladder: "
+             f"{gl}, retried {n_ret}")
+    log(f"[5s-a] golden sharded funnel (shard_index, E=128->512, "
+        f"checkpoint every 64 pairs), stop after 3 dispatches at cursor "
+        f"{cursor} + resume, and the CLI with --retry-expand 512 "
+        f"--checkpoint: .trkmc.ar byte-equal; retried={n_ret}, "
+        f"{time.time() - t0:.1f}s, launches {gl}")
+
+    # ---- (b) KI on D = 4 row-block views at the main path's shapes ----
+    tabs = drp.tables(dev)
+    D = 4
+
+    def ki_bytes(meta, blk, q, loc):
+        """Bytes one rank's KI moves on this data: each gathered query
+        (and locus) read once, each distinct owned row that a query
+        probes up to its first owned hit read once, three int32 planes
+        written."""
+        qf = q.reshape(-1)
+        lf = None if loc is None else loc.reshape(-1).long() & 0xFFFFFFFF
+        lo, hi = qf & 0xFFFFFFFF, (qf >> 32) & 0xFFFFFFFF
+        rows = 0
+        done = torch.zeros(qf.shape, dtype=torch.bool, device=qf.device)
+        for t, m in zip(blk.levels, meta):
+            salt, nb, off, nrow = m
+            b = dt.bucket_index(lo, hi, lf, salt, nb)
+            probe = (b >= off) & (b < off + nrow) & ~done
+            rows += int(torch.unique(b[probe]).numel())
+            one = dt.DevTable([t], [salt], blk.composite, blk.nval)
+            done |= dt.lookup_bucket_owned_plain(one, [m], qf, lf)[0] != 0
+        return (rows * 8 * blk.W * 4
+                + qf.numel() * (8 + 8 * (loc is not None) + 12)), rows
+
+    ki_res = {}
+    for tname, (tab, q, loc) in (("dbi", cap["KB_dbi"] + (None,)),
+                                 ("trfl", cap["KB_trfl"]),
+                                 ("member", (tabs["member"], q_mem, None))):
+        real = q.reshape(-1) != -1
+        tot = torch.zeros((3, q.numel()), dtype=torch.int64, device=dev)
+        worst = None
+        for d_, (blk, meta) in enumerate(si.row_blocks(tab, D)):
+            got = dt.lookup_bucket_owned(blk, meta, q, loc)
+            err = max_abs_err(got, dt.lookup_bucket_owned_plain(blk, meta,
+                                                                q, loc))
+            if err:
+                fail(f"KI[{tname}] block {d_} disagrees with its plain "
+                     f"version (max |err| {err})")
+            for i, x in enumerate(got):
+                tot[i] += x.reshape(-1).long() & 0xFFFFFFFF
+            ms = cuda_ms(lambda b=blk, m=meta: dt.lookup_bucket_owned(
+                b, m, q, loc))
+            if worst is None or ms > worst[0]:
+                worst = (ms, d_, blk, meta)
+        f, v, v2 = (x.reshape(-1) for x in dt.lookup_bucket(tab, q, loc))
+        sum_err = max(int((tot[0][real] > 0).ne(f[real]).sum()),
+                      int((tot[1][real] - v[real]).abs().max()),
+                      int((tot[2][real] - v2[real]).abs().max()))
+        if sum_err:
+            fail(f"KI[{tname}]: the blocks' sum differs from KB "
+                 f"(max |err| {sum_err})")
+        ms, d_, blk, meta = worst
+        plain_ms = cuda_ms(lambda: dt.lookup_bucket_owned_plain(
+            blk, meta, q, loc), n=3, reps=3, warm=1)
+        nbytes, rows = ki_bytes(meta, blk, q, loc)
+        bound = nbytes / HBM_BYTES_PER_MS
+        log(f"[5s-b] KI sharded_lookup[{tname}] D={D} match=True "
+            f"max_abs_err=0 sum_vs_KB_max_abs_err=0 (on "
+            f"{int(real.sum())} non-EMPTY of {q.numel()} queries) "
+            f"slowest_block={d_} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound:.4f} bytes={nbytes} owned_rows={rows}")
+        ki_res[tname] = dict(match=True, max_abs_err=0, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound,
+                             bound_by="bytes", library_ms=None)
+
+    # ---- (c) KC large-E on overflow pairs of the TR pool ----
+    E4 = 4096
+    srunner = ShardedAlignRunner(None, ctx["cfg"], mesh=mesh, batch_pairs=P,
+                                 max_read_len=L, expand_cap=E,
+                                 retry_expand=[E4], shard_index=True,
+                                 drp=drp)
+    Pt = srunner.retry_P[0]             # _tier_P(4096)
+    kc_rng = np.random.default_rng([args.seed, 6])
+    kcap: dict = {}
+    step = da.make_step(drp, ctx["cfg"], P, L, expand_cap=E, device=dev,
+                        capture=kcap)
+    parts, n_have, n_batches = [], 0, 0
+    live = np.ones(P, dtype=bool)
+    while n_have < Pt:
+        c_, r_ = sample_read_batch(seqs, P, L, kc_rng, frac_tr=1.0,
+                                   read_len=RL)
+        _, out = step(da.init_state(drp, dev), c_, r_, live)
+        n_batches += 1
+        ovf = torch.nonzero((out["referee_pack"] & 4) != 0).reshape(-1)
+        kmer, val, use, pkf = kcap["KC"][:4]
+        rows = torch.stack([2 * ovf, 2 * ovf + 1], 1).reshape(-1)
+        parts.append((kmer[rows], val[rows], use[rows], pkf[ovf]))
+        n_have += int(ovf.numel())
+    kc_args = [torch.cat([p_[i] for p_ in parts])[: (2 if i < 3 else 1) * Pt]
+               for i in range(4)] + [kcap["KC"][4], E4, kcap["KC"][6]]
+    mode = da.check_vote_shape(2 * (L - k + 1), E4)
+    if mode != "large-E":
+        fail(f"E={E4} did not select KC's large-E mode ({mode})")
+    got = da.pair_vote(*kc_args)
+    err = max_abs_err(got, da.pair_vote_plain(*kc_args))
+    torch.cuda.synchronize()
+    if err:
+        fail(f"KC[large-E] disagrees with pair_vote_plain (max |err| {err})")
+    n_ovf4 = int(((got[2] & 4) != 0).sum())
+    kcl_ms = cuda_ms(lambda: da.pair_vote(*kc_args), n=5, reps=3, warm=1)
+    kcl_plain = cuda_ms(lambda: da.pair_vote_plain(*kc_args), n=3, reps=1,
+                        warm=1)
+    NKW = L - k + 1
+    kcl_bound = (2 * Pt * NKW * 17 + Pt * 11) / HBM_BYTES_PER_MS
+    ws = Pt * da.kc_workspace_stride(2 * NKW, E4)
+    log(f"[5s-c] KC pair_vote[large-E] P={Pt} W={2 * NKW} E={E4} "
+        f"match=True max_abs_err=0 ms={kcl_ms:.4f} plain_ms={kcl_plain:.4f} "
+        f"bound_ms={kcl_bound:.4f} workspace_bytes={ws} "
+        f"(kc_smem_bytes={da.kc_smem_bytes(2 * NKW, E4)} > "
+        f"{da.SMEM_LIMIT}) overflow_pairs_from={n_batches} TR batches, "
+        f"still overflowing at E={E4}: {n_ovf4}")
+    kcl = dict(match=True, max_abs_err=0, ms=kcl_ms, plain_ms=kcl_plain,
+               bound_ms=kcl_bound, bound_by="bytes", library_ms=None)
+    del kc_args, parts, got, kcap, step
+
+    # ---- (d) phase 5's batches through the sharded runner ----
+    npairs = sum(b[2] for b in batches)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.time()
+    srunner.run_batches(batches, prefilter=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    sl = build.launch_counts()
+    if min(sl[t] for t in SHARDED + ("KC[large-E]",)) <= 0:
+        fail(f"the sharded funnel skipped a kernel: {sl}")
+    stats = srunner._dev_state("stats").tolist()
+    nmap = srunner._dev_state("nmapread")[:-1]
+    if int(nmap.sum()) != stats[6] or srunner.n_prefiltered + \
+            srunner.n_step_pairs != npairs:
+        fail(f"sharded funnel bookkeeping: nmapread {int(nmap.sum())} vs "
+             f"stats {stats}, pairs {npairs}")
+    peak = torch.cuda.max_memory_allocated()
+    # the collectives of one step: the dbi and trfl probes' all_gather +
+    # reduce_scatter (the full collective probe less KI alone) and the
+    # referee pack's gather
+    dblk, dmeta = si.device_block(drp, "dbi", 1, 0, dev)
+    tblk, tmeta = si.device_block(drp, "trfl", 1, 0, dev)
+    dq, (_, tq, tl) = cap["KB_dbi"][1], cap["KB_trfl"]
+    coll = 0.0
+    for blk, meta, q, loc in ((dblk, dmeta, dq, None),
+                              (tblk, tmeta, tq, tl)):
+        full = cuda_ms(lambda: si.lookup_bucket_sharded(
+            blk, meta, q, loc, group=mesh.group))
+        ki = cuda_ms(lambda: dt.lookup_bucket_owned(blk, meta, q, loc))
+        coll += max(full - ki, 0.0)
+    pk = torch.zeros(P, dtype=torch.uint8, device=dev)
+    coll += cuda_ms(lambda: pm.gather_planes({"referee_pack": pk}, mesh))
+    # K15: the finalize merge of the counts (int64, one all_reduce)
+    nslots = srunner.state["counts"].numel()
+    k15_ms = cuda_ms(lambda: pm.merged_tensor(srunner.state, "counts", mesh),
+                     n=5, reps=3, warm=1)
+    k15_bound = 12 * nslots / HBM_BYTES_PER_MS
+    ref_share = srunner.n_referee / max(srunner.n_step_pairs, 1)
+    log(f"[5s-d] sharded funnel (world 1, shard_index, E={E}->{E4}): "
+        f"pairs={npairs} wall={wall:.3f}s reads/s={2 * npairs / wall:.0f} "
+        f"(phase 5: {ctx['reads_s']:.0f}) survivors={srunner.n_step_pairs} "
+        f"retried={srunner.n_retried} steps={srunner.n_steps} "
+        f"referee={srunner.n_referee} referee_share={ref_share:.5f} "
+        f"(phase 5: {ctx['ref_share']:.5f}) reasons={srunner.referee_reasons} "
+        f"collective_probe_ms_per_step={coll:.4f} (world 1: the probes' "
+        f"cost beyond KI, collectives and their glue, and the pack's "
+        f"gather) K15_finalize_merge_ms={k15_ms:.4f} (counts, {nslots} "
+        f"slots, bound_ms={k15_bound:.4f}) memory_held_before={held} "
+        f"max_memory_allocated={peak} stats={stats} launches={sl}")
+    del srunner
+    dist.destroy_process_group()
+    return dict(KI=ki_res["dbi"], KCL=kcl, launches=sl, ki_all=ki_res)
 
 
 def gt_file_equal(path: str, m) -> bool:
@@ -970,16 +1267,15 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
 
     # ---- 9. kernels line ----
     names = {"KA": "KA extract_kmers", "KB": "KB bucket_lookup",
-             "KC": "KC pair_vote", "KD": "KD assign_count",
-             "KE": "KE thread_walk", "KF": "KF read_filter",
-             "KG": "KG novel_edges"}
-    launches, tlaunches, olaunches = (res["launches"], res["tlaunches"],
-                                      res["olaunches"])
+             "KC": "KC pair_vote", "KC[large-E]": "KC pair_vote[large-E]",
+             "KD": "KD assign_count", "KE": "KE thread_walk",
+             "KF": "KF read_filter", "KG": "KG novel_edges",
+             "KI": "KI sharded_lookup"}
+    paths = {"counting": res["launches"], "sharded": res["slaunches"],
+             "threading": res["tlaunches"], "okam": res["olaunches"]}
     kern = [dict(name=names[t], route="cuda",
-                 launches=launches[t] + tlaunches[t] + olaunches[t],
-                 launches_by_path={"counting": launches[t],
-                                   "threading": tlaunches[t],
-                                   "okam": olaunches[t]},
+                 launches=sum(c[t] for c in paths.values()),
+                 launches_by_path={p: c[t] for p, c in paths.items()},
                  **res["results"][t]) for t in names]
     kern.append(dict(name="KH bias_correct", route="cuda",
                      launches=kh_launches,

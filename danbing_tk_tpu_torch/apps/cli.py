@@ -5,15 +5,19 @@ plus ``--torch-device`` (default ``cuda``; without a card the run raises
 unless ``--torch-device cpu`` is given).
 The port runs the counting funnel, by default with .kam rows (-ka turns
 them off), with simmode, bait, QC, fastq input and bubbles, and the
-graph-threading funnel,
+graph-threading funnel, each with the retry ladder (--retry-expand) and
+checkpoints (--checkpoint, --checkpoint-every),
 
     align --device --native-io [--prefilter] [-ka] [-s 1|2] [-b] \
-        [-qc QC] [-bu] -qs PAN (-fa READS | -fq READS) -o OUT
+        [-qc QC] [-bu] [--retry-expand E1,E2] [--checkpoint CK] \
+        -qs PAN (-fa READS | -fq READS) -o OUT
     align --device --native-io [--prefilter] -gc T C [-a|-ae] [-s 2] \
         -qs PAN -fa READS -on OUT
 
 and raises NotImplementedError, naming the ROADMAP item, for any mode it
-does not run yet (-e, -tb, -t, checkpoints, the retry ladder).
+does not run yet (-e, -tb, -t).  A run resumed from its checkpoint keeps
+the partial .kam, which the checkpoint truncates back to its high-water
+mark.
 
 ``pred gt.meta ikmer.meta raw.gt corr.gt bias.tsv`` is danbing-tk's bias
 correction, with KH on the card; its files are byte-identical to the JAX
@@ -24,6 +28,7 @@ command lines run unchanged: the port has the one device path.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -65,7 +70,10 @@ def _cmd_align(args):
     from ..io.rowsink import RowSink
 
     if al.okam:
-        al.kam_rows = RowSink(pref + ".kam")
+        # a resumed run keeps the partial .kam (the checkpoint loader
+        # truncates it back to the saved high-water mark)
+        resuming = bool(args.checkpoint and os.path.exists(args.checkpoint))
+        al.kam_rows = RowSink(pref + ".kam", append=resuming)
     if cfg.aln:
         al.aln_rows = RowSink(pref + ".aln")
     al.run_file_native(args.fa or args.fq, checkpoint=args.checkpoint,
@@ -142,16 +150,20 @@ def main(argv=None):
                    help="device sampled-kmer prefilter pass before the "
                         "full pipeline (WGS production path)")
     a.add_argument("--checkpoint", metavar="PATH",
-                   help="periodically persist count state (not ported yet)")
+                   help="periodically persist count state; resume from "
+                        "PATH after a crash")
     a.add_argument("--checkpoint-every", type=int, default=None,
-                   metavar="PAIRS", help="checkpoint cadence (not ported yet)")
+                   metavar="PAIRS",
+                   help="fixed save cadence in pairs; default auto-sizes "
+                        "from the measured save cost (<5%% overhead)")
     a.add_argument("--expand-cap", type=int, default=512,
                    help="per-pair kmer->locus expansion slots on device")
     a.add_argument("--retry-expand",
                    type=lambda v: [int(x) for x in v.split(",")],
                    default=0,
-                   help="second device step for overflowing pairs "
-                        "(not ported yet)")
+                   help="retry ladder: re-run overflowing pairs through "
+                        "device steps with these many slots (comma-"
+                        "separated tiers) before the host referee")
     a.add_argument("--torch-device", default="cuda",
                    help="torch device of the engine (default cuda; cpu runs "
                         "the kernels' plain versions)")

@@ -27,8 +27,16 @@
 // W * 17 B of input and writes 10 B; the two bitonic sorts cost
 // O(n log^2 n) shared-memory compare-exchanges with a barrier per pass.
 // The design keeps every intermediate in shared memory (nothing of the
-// (P, E, W) planes exists) and sizes it for the launch's (W, E); the
-// wrapper refuses shapes above the block's opt-in limit.
+// (P, E, W) planes exists) and sizes it for the launch's (W, E).
+//
+// Large-E mode (the retry ladder's E = 4096 tier, whose arrays pass a
+// block's 227 KB): the same kernel, instantiated with kGlobal, carves the
+// same arrays out of the pair's own slice of a global workspace (P slices
+// of the same layout, allocated by the wrapper) instead of dynamic shared
+// memory.  The slices stay in L2 while their block runs (132 blocks of
+// ~300 KB); __syncthreads orders a block's global accesses as it orders
+// its shared ones, so every step above runs unchanged.  The wrapper picks
+// the mode from the shape before the launch.
 #include "common.cuh"
 
 constexpr unsigned FULL = 0xFFFFFFFFu;
@@ -122,6 +130,7 @@ __device__ __forceinline__ char* carve(char*& p, size_t bytes) {
     return r;
 }
 
+template <bool kGlobal>
 __global__ void pair_vote_kernel(const int64_t* __restrict__ kmer,
                                  const int64_t* __restrict__ val,
                                  const uint8_t* __restrict__ use,
@@ -130,7 +139,8 @@ __global__ void pair_vote_kernel(const int64_t* __restrict__ kmer,
                                  int64_t nvv, int E, int cth,
                                  int64_t* __restrict__ dst0_out,
                                  uint8_t* __restrict__ vote_out,
-                                 uint8_t* __restrict__ pack_out) {
+                                 uint8_t* __restrict__ pack_out,
+                                 char* ws, int64_t ws_stride) {
     extern __shared__ __align__(16) char smem[];
     const int p = blockIdx.x;
     const int tid = threadIdx.x, T = blockDim.x;
@@ -141,7 +151,7 @@ __global__ void pair_vote_kernel(const int64_t* __restrict__ kmer,
     int EVP = 1;
     while (EVP < EV) EVP <<= 1;
 
-    char* sp = smem;
+    char* sp = kGlobal ? ws + (size_t)p * (size_t)ws_stride : smem;
     uint64_t* wkey = (uint64_t*)carve(sp, WP * 8);
     uint64_t* wpay = (uint64_t*)carve(sp, WP * 8);
     int32_t* fcnt = (int32_t*)carve(sp, W * 4);
@@ -385,15 +395,35 @@ DTK_EXPORT int dtk_pair_vote(const void* kmer, const void* val,
                              void* pack, void* stream) {
     const int threads = 256;
     cudaError_t err = cudaFuncSetAttribute(
-        pair_vote_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pair_vote_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     if (P > 0)
-        pair_vote_kernel<<<(unsigned)P, threads, (size_t)smem,
-                           (cudaStream_t)stream>>>(
+        pair_vote_kernel<false><<<(unsigned)P, threads, (size_t)smem,
+                                  (cudaStream_t)stream>>>(
             (const int64_t*)kmer, (const int64_t*)val, (const uint8_t*)use,
             (const uint8_t*)pair_kf, (int)NKW, (const int32_t*)vv, nvv,
             (int)E, (int)cth, (int64_t*)dst0, (uint8_t*)vote_pass,
-            (uint8_t*)pack);
+            (uint8_t*)pack, nullptr, 0);
+    return (int)cudaGetLastError();
+}
+
+// Large-E mode: ws holds P slices of ws_stride bytes (a multiple of 256,
+// at least the shared-memory mode's layout for this (W, E)).
+DTK_EXPORT int dtk_pair_vote_global(const void* kmer, const void* val,
+                                    const void* use, const void* pair_kf,
+                                    int64_t P, int64_t NKW, const void* vv,
+                                    int64_t nvv, int64_t E, int64_t cth,
+                                    void* ws, int64_t ws_stride, void* dst0,
+                                    void* vote_pass, void* pack,
+                                    void* stream) {
+    const int threads = 256;
+    if (P > 0)
+        pair_vote_kernel<true><<<(unsigned)P, threads, 0,
+                                 (cudaStream_t)stream>>>(
+            (const int64_t*)kmer, (const int64_t*)val, (const uint8_t*)use,
+            (const uint8_t*)pair_kf, (int)NKW, (const int32_t*)vv, nvv,
+            (int)E, (int)cth, (int64_t*)dst0, (uint8_t*)vote_pass,
+            (uint8_t*)pack, (char*)ws, ws_stride);
     return (int)cudaGetLastError();
 }

@@ -5,11 +5,21 @@ outputs (.trkmc.ar / .tr.kmers / .tr.summary.txt, .kam, .bub.kmdb, and
 .aln in threading mode).
 
 Counterpart of DeviceAlignRunner.run_file_native in
-danbing_tk_tpu/engine/align_runner.py; the retry ladder and checkpoints are
-not ported yet, and asking for one raises NotImplementedError.  The device
-accumulates TR-k-mer counts in a flat u32 array in .trkmc.ar order;
-referee'd pairs are masked out on the device and recomputed by
-host_align.process_pair, so the final counts are device + host.
+danbing_tk_tpu/engine/align_runner.py, with its retry ladder and
+checkpoints.  The device accumulates TR-k-mer counts in a flat u32 array
+in .trkmc.ar order; referee'd pairs are masked out on the device and
+recomputed by host_align.process_pair, so the final counts are device +
+host.
+
+The retry ladder (``retry_expand``): a pair whose k-mer -> locus expansion
+overflows the step's E slots (referee bit 2) re-batches through steps of
+growing E (an int is one tier, a list a ladder) before the host referee
+sees it; only the last tier's overflow goes there.  Checkpoints
+(``checkpoint=``) write an npz with the JAX runner's keys and dtypes (the
+pair cursor, the host counts, ``dev_<state key>`` as u32 / int64 and
+``x_<extra>``: the configuration, the prefilter repack buffer, the retry
+buffers and, in ordered mode, the .kam high-water mark and the bubble
+maps), so a checkpoint crosses between the packages.
 
 Threading, okam (.kam rows, the default) and bubbles (-bu) are ordered:
 every pair entering a full step gets an ordinal, its side effects (a .kam
@@ -25,6 +35,8 @@ step on a one-worker pool.
 
 from __future__ import annotations
 
+import os
+import time
 from collections import deque
 
 import numpy as np
@@ -46,6 +58,12 @@ from .native_thread import NativeThreader, row_stride, split_cg_row
 PREFILTER_MULT = 4
 PREFILTER_WINDOW = 8
 READER_PREFETCH = 4
+# auto checkpoint cadence: the first save after CKPT_FIRST_S seconds, then
+# every CKPT_WALL_MULT x the last save's wall (<5% overhead)
+CKPT_FIRST_S = 60.0
+CKPT_WALL_MULT = 20.0
+# state keys that hold u32 accumulators (int32 bit patterns on the device)
+U32_KEYS = ("counts", "nmapread", "kmc")
 
 # the step planes the host reads per pair: threading (JAX align_runner.py
 # THR_KEYS) and .kam rows (KAM_KEYS); -bu adds BUB_KEYS
@@ -87,6 +105,55 @@ def _fetched(handle) -> np.ndarray:
     return host.numpy()
 
 
+def _snapshot_async(state: dict) -> dict:
+    """{key: handle for ``_fetched``} of a copy of ``state`` taken now:
+    on the card each tensor is cloned on a side stream (the current
+    stream then waits for the clones, not for the host copies) and copied
+    into pinned memory with a non-blocking copy on the same side stream."""
+    dev = next(iter(state.values())).device
+    if dev.type == "cpu":
+        return {k: (v.clone(), None) for k, v in state.items()}
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        clones = {k: v.clone() for k, v in state.items()}
+    main.wait_stream(side)
+    out = {}
+    with torch.cuda.stream(side):
+        for k, c in clones.items():
+            host = torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
+            host.copy_(c, non_blocking=True)
+            out[k] = host
+        ev = torch.cuda.Event()
+        ev.record(side)
+    return {k: (h, ev) for k, h in out.items()}
+
+
+def _npz_state(key: str, a: np.ndarray) -> np.ndarray:
+    """A state array in the JAX runner's checkpoint dtype: u32 for the
+    accumulators (int32 bit patterns, or a rank sum in int64 that must
+    fit), int64 for stats."""
+    if key not in U32_KEYS:
+        return a.astype(np.int64)
+    if a.dtype == np.int32:
+        return a.view(np.uint32)
+    if a.size and (int(a.min()) < 0 or int(a.max()) > 0xFFFFFFFF):
+        raise OverflowError(f"state {key!r} passes the u32 range of the "
+                            f"checkpoint format")
+    return a.astype(np.uint32)
+
+
+def _state_tensor(key: str, a: np.ndarray, device) -> torch.Tensor:
+    """A checkpoint's state array as the runner's device tensor: u32
+    accumulators as int32 bit patterns, stats int64."""
+    if key in U32_KEYS:
+        a = np.ascontiguousarray(a.astype(np.uint32)).view(np.int32)
+    else:
+        a = a.astype(np.int64)
+    return torch.from_numpy(a).to(device)
+
+
 class DeviceAlignRunner:
     def __init__(self, rpgg: RPGG, cfg: AlignConfig, batch_pairs: int = 4096,
                  max_read_len: int = 256, expand_cap: int = 512,
@@ -102,10 +169,6 @@ class DeviceAlignRunner:
         rpgg, referee'd pairs are counted, not resolved, and write no .kam
         row; the runner keeps its own bubble maps."""
         da.check_ported_config(cfg)
-        if retry_expand:
-            raise NotImplementedError(
-                "the retry ladder (--retry-expand) is not ported yet "
-                "(ROADMAP: port queue item 1)")
         self.device = resolve_device(device)
         self.rpgg = rpgg
         self.cfg = cfg
@@ -122,11 +185,25 @@ class DeviceAlignRunner:
         # (aQueryFasta_thread.h:1038-1078); the mask is made on the host
         self.with_qual = bool(cfg.is_fastq and cfg.bait
                               and self.drp.bait_tab is not None)
-        self.step = da.make_step(
-            self.drp, cfg, self.P, self.L, expand_cap=expand_cap,
-            with_annot=self.okam, with_bubbles=cfg.output_bubbles,
-            with_qual=self.with_qual, device=self.device)
-        self.state = da.init_state(self.drp, self.device)
+        # the retry ladder: tiers of strictly growing E, each with a batch
+        # size that keeps P * E within ~4x the primary step's; the steps
+        # are built on first use
+        if not retry_expand:
+            ladder = []
+        elif isinstance(retry_expand, int):
+            ladder = [retry_expand]
+        else:
+            ladder = [int(e) for e in retry_expand]
+        if not all(b > a for a, b in zip([expand_cap] + ladder, ladder)):
+            raise ValueError(f"the retry ladder must strictly grow from "
+                             f"expand_cap={expand_cap}: {ladder}")
+        self.retry_E = ladder
+        self.retry_P = [self._tier_P(E) for E in ladder]
+        self.retry_steps: list = [None] * len(ladder)
+        self.n_retried = 0
+        self.step = self._build_step(expand_cap, with_annot=self.okam,
+                                     with_qual=self.with_qual)
+        self.state = self._init_state()
         # host oracle: referee'd pairs' counts go into the rpgg dicts.
         # Without an rpgg (a DeviceRPGG built straight from arrays, as the
         # synthetic scale index is) flagged pairs are counted, not resolved
@@ -153,12 +230,39 @@ class DeviceAlignRunner:
         self.n_referee = 0
         self.referee_reasons = {"tie": 0, "ovf": 0, "t2": 0}
         self.n_prefiltered = 0
-        self.n_steps = 0            # full steps dispatched
-        self.n_step_pairs = 0       # live pairs entering full steps
+        self.n_steps = 0            # full steps dispatched (retry tiers too)
+        self.n_step_pairs = 0       # live pairs entering primary steps
         self.n_host_thread = 0      # pairs of the host threading fallback
         self.n_device_thread = 0    # pairs threaded clean on the device
         self.prefilter_step = None
         self.prefilter_P = None
+        # prefilter dispatches in flight (the checkpoint tests drain each
+        # dispatch at once, so saves land before an injected fault)
+        self.prefilter_window = PREFILTER_WINDOW
+        # this process applies host effects (referee calls, rows, bubble
+        # inserts) and writes checkpoints; a sharded runner's other ranks
+        # only step their slices and keep the ladder in lockstep
+        self.lead = True
+        self._ckpt_pool = None
+        self._ckpt_fut = None
+        self._last_ckpt_wall = None
+
+    def _tier_P(self, E: int) -> int:
+        """Batch size of a retry tier: keep P * E (the vote's working set)
+        within ~4x the primary step's."""
+        scale = max(1, E // (4 * self.expand_cap))
+        return max(128, self.P // scale)
+
+    # -- step construction hooks (the sharded runner overrides them) --
+
+    def _build_step(self, expand_cap, with_annot, with_qual, P=None):
+        return da.make_step(
+            self.drp, self.cfg, P or self.P, self.L, expand_cap=expand_cap,
+            with_annot=with_annot, with_bubbles=self.cfg.output_bubbles,
+            with_qual=with_qual, device=self.device)
+
+    def _init_state(self):
+        return da.init_state(self.drp, self.device)
 
     def _build_prefilter(self, Pp: int):
         """Returns step(codes, rlen, live) -> survive (Pp,) on the device:
@@ -174,6 +278,22 @@ class DeviceAlignRunner:
 
         return _pre
 
+    def _dev_state(self, key: str) -> np.ndarray:
+        """A device accumulator as a host array: u32 keys as uint32, stats
+        int64 (a sharded runner merges its ranks' in int64)."""
+        t = self.state[key]
+        return da.state_u32(t) if key in U32_KEYS else t.cpu().numpy()
+
+    def _outputs(self, out: dict, keys) -> dict:
+        """The step planes the host reads, for the whole batch (a sharded
+        runner gathers its ranks' slices)."""
+        return {key: out[key] for key in keys}
+
+    def _agree(self, flag: bool) -> bool:
+        """A decision every rank takes together (a sharded runner's ranks
+        must save checkpoints at the same dispatch)."""
+        return flag
+
     def run_file_native(self, path: str, prefilter: bool = False,
                         checkpoint: str | None = None,
                         checkpoint_every: int | None = None):
@@ -181,11 +301,8 @@ class DeviceAlignRunner:
         strings are decoded from the 2-bit codes only where the host needs
         them.  With ``prefilter`` a sampled-k-mer pass on the device drops
         non-matching pairs first and only densely re-packed survivors run
-        the full step."""
-        if checkpoint is not None or checkpoint_every is not None:
-            raise NotImplementedError(
-                "checkpoints are not ported yet (ROADMAP: port queue "
-                "item 1)")
+        the full step.  ``checkpoint`` and ``checkpoint_every`` are
+        run_batches'."""
         from ..io.native_reader import NativeBatchReader
         from ..io.prefetch import PrefetchIterator
 
@@ -196,7 +313,8 @@ class DeviceAlignRunner:
             with_titles=self._with_titles(), with_quals=self._with_quals())
         reader = PrefetchIterator(reader, READER_PREFETCH)
         try:
-            self.run_batches(reader, prefilter)
+            self.run_batches(reader, prefilter, checkpoint=checkpoint,
+                             checkpoint_every=checkpoint_every)
         finally:
             reader.close()
 
@@ -214,12 +332,23 @@ class DeviceAlignRunner:
         """Pairs per input batch."""
         return self.P * (PREFILTER_MULT if prefilter else 1)
 
-    def run_batches(self, batches, prefilter: bool = False):
+    def run_batches(self, batches, prefilter: bool = False,
+                    checkpoint: str | None = None,
+                    checkpoint_every: int | None = None):
         """Runs packed batches (codes (2n', L) u8, rlen (2n',) i32, n
         live pairs[, titles[, quals]]) of ``dispatch_pairs(prefilter)``
         rows each through the funnel; the file path feeds it the native
         reader.  Titles are '>'-stripped (None without them), quals the
-        (2n', L) u8 phred+33 rows."""
+        (2n', L) u8 phred+33 rows.
+
+        With ``checkpoint`` the run resumes from that file when it exists
+        (batches up to its pair cursor are skipped; a resume under another
+        configuration raises) and saves to it every ``checkpoint_every``
+        input pairs, or with ``checkpoint_every=None`` at a cadence sized
+        from the measured save cost (the first save after 60 s, then every
+        20 x the last save's wall), and once at the end.  Saves are
+        deferred: the state is snapshotted on the device and written by a
+        background thread."""
         P, L = self.P, self.L
         cfg = self.cfg
         thr = cfg.threading
@@ -229,6 +358,10 @@ class DeviceAlignRunner:
         wt, wq = self._with_titles(), self._with_quals()
         sim = cfg.simmode
         nloci = self.drp.nloci
+        lead = self.lead
+        if checkpoint and thr and cfg.aln:
+            raise ValueError("a checkpoint does not hold the .aln rows: run "
+                             "threading with -a/-ae without --checkpoint")
         Pp = self.dispatch_pairs(prefilter)
         if prefilter and self.prefilter_P != Pp:
             self.prefilter_step = self._build_prefilter(Pp)
@@ -237,14 +370,43 @@ class DeviceAlignRunner:
                     + (THR_KEYS if thr else KAM_KEYS if okam else ())
                     + (BUB_KEYS if bub else ()))
 
-        def new_buffers():
-            return (np.full((2 * P, L), 255, dtype=np.uint8),
-                    np.zeros(2 * P, dtype=np.int32),
-                    np.empty(P, dtype=object) if wt else None,
-                    np.zeros((2 * P, L), dtype=np.uint8) if wq else None)
+        def new_buffers(n):
+            return dict(codes=np.full((2 * n, L), 255, dtype=np.uint8),
+                        rlen=np.zeros(2 * n, dtype=np.int32),
+                        titles=np.empty(n, dtype=object) if wt else None,
+                        quals=np.zeros((2 * n, L), dtype=np.uint8)
+                        if wq else None,
+                        ords=np.zeros(n, dtype=np.int64) if ordered
+                        else None, n=0)
 
-        buf_codes, buf_rlen, buf_titles, buf_quals = new_buffers()
-        nbuf = 0
+        buf = new_buffers(P)
+
+        done, pre = (self._load_checkpoint(checkpoint) if checkpoint
+                     else (0, None))
+        if pre is not None:
+            self._check_resume(pre, prefilter, Pp)
+            if prefilter:
+                buf.update(codes=pre["buf_codes"], rlen=pre["buf_rlen"],
+                           n=int(pre["nbuf"]))
+                self.n_prefiltered = int(pre["n_prefiltered"])
+                if wq and "buf_quals" in pre:
+                    buf["quals"] = pre["buf_quals"]
+
+        # the retry tiers' buffers; tier 0's npz keys keep the JAX
+        # runner's single-tier names
+        ntier = len(self.retry_E)
+        ret = []
+        for t in range(ntier):
+            r = new_buffers(self.retry_P[t])
+            pk, nk = ("ret", "nret") if t == 0 else (f"ret{t}", f"nret{t}")
+            if pre is not None and f"{pk}_codes" in pre:
+                r.update(codes=pre[f"{pk}_codes"], rlen=pre[f"{pk}_rlen"],
+                         n=int(pre[nk]))
+                if wq and f"{pk}_quals" in pre:
+                    r["quals"] = pre[f"{pk}_quals"]
+            ret.append(r)
+        if ntier and pre is not None and "n_retried" in pre:
+            self.n_retried = int(pre["n_retried"])
 
         # threading fallback: batched calls MUST serialize, since each
         # dtk_thread_pairs call merges into the shared per-locus CountMaps
@@ -257,7 +419,8 @@ class DeviceAlignRunner:
             thr_batch_pool = ThreadPoolExecutor(1)
 
         # ordered mode: ordinal -> buffered effects, applied strictly in
-        # ordinal (pair) order
+        # ordinal (pair) order; a pair deferred to a retry tier leaves a
+        # hole that its tier (or the referee) fills later
         ord_next = 0
         ord_pend: dict[int, list] = {}
         n_ord = 0
@@ -338,7 +501,6 @@ class DeviceAlignRunner:
                             f"{c2}\t{t2}\t{c1}\t{t1}\n")
             else:                               # referee (synchronous)
                 _, title, s1, s2, src, qs = e
-                self.n_referee += 1
                 # the referee's freshly appended row moves into the
                 # runner's sink in pair order
                 rows, sink = ((host.kam_rows, self.kam_rows) if okam else
@@ -355,6 +517,15 @@ class DeviceAlignRunner:
                 for e in ord_pend.pop(ord_next):
                     apply_effect(e)
                 ord_next += 1
+
+        def referee_pair(codes, rlen, quals, titles, i):
+            """A flagged pair's effects: the host referee's call, or with
+            no rpgg (or on a rank that does not lead) none: it is
+            counted."""
+            self.n_referee += 1
+            if self.host is None or not lead:
+                return []
+            return [ref_effect(codes, rlen, quals, titles, i)]
 
         def submit_batch(bidx, ko, codes, rlen):
             """One dtk_thread_pairs call for this step's fallback pairs;
@@ -375,11 +546,14 @@ class DeviceAlignRunner:
 
         def thread_effects(ko, referee, codes, rlen, quals, titles, n, lo,
                            ords):
-            """The ordinal-buffered effects of one threading step."""
+            """The ordinal-buffered effects of one threading step (pairs
+            deferred to a retry tier are no longer flagged here)."""
             alive = (ko["nonshort"][:n] & ~ko["sub_drop"][:n]
                      & ko["pair_alive"][:n] & ~ko["qc_drop"][:n]
                      & ko["vote_pass"][:n])
             alive[:lo] = False
+            # a pair deferred to a retry tier (ordinal -1) is threaded there
+            alive &= ords[:n] >= 0
             clean = ko["clean_pair"][:n]
             self.n_device_thread += int((alive & clean & ~referee).sum())
             thr_batch = None
@@ -387,13 +561,11 @@ class DeviceAlignRunner:
             if thr_batch_pool is not None and len(bidx):
                 thr_batch = submit_batch(bidx, ko, codes, rlen)
             for i in range(lo, n):
+                if ords[i] < 0:
+                    continue
                 effs = []
                 if referee[i]:
-                    if self.host is None:
-                        self.n_referee += 1
-                    else:
-                        effs.append(ref_effect(codes, rlen, quals, titles,
-                                               i))
+                    effs = referee_pair(codes, rlen, quals, titles, i)
                 elif alive[i]:
                     dst0_i = int(ko["dst0"][i])
                     title = title_of(titles, i)
@@ -426,14 +598,12 @@ class DeviceAlignRunner:
                 has = novp.any(axis=1)
                 pair_bub = (has[0::2] | has[1::2]) & ~referee
             for i in range(lo, n):
+                if ords[i] < 0:
+                    continue
                 effs = []
                 if referee[i]:
-                    if self.host is None:
-                        self.n_referee += 1
-                    else:
-                        effs.append(ref_effect(codes, rlen, quals, titles,
-                                               i))
-                else:
+                    effs = referee_pair(codes, rlen, quals, titles, i)
+                elif lead:
                     if bub and pair_bub[i]:
                         d = int(ko["dest"][i])
                         for ridx in (2 * i, 2 * i + 1):
@@ -449,111 +619,239 @@ class DeviceAlignRunner:
                             effs.append(("kam", row))
                 emit(int(ords[i]), effs)
 
-        # full steps are processed fs_window steps after dispatch: the
-        # referee pack and the planes the host reads travel device->host
-        # in non_blocking copies, so the fetch overlaps the next steps;
+        def defer_pair(t, codes, rlen, quals, titles, i, o):
+            """Moves pair i into retry tier t's buffer (a full buffer
+            steps at once)."""
+            self.n_retried += 1
+            r = ret[t]
+            j = r["n"]
+            r["codes"][2 * j: 2 * j + 2] = codes[2 * i: 2 * i + 2]
+            r["rlen"][2 * j: 2 * j + 2] = rlen[2 * i: 2 * i + 2]
+            if wq:
+                r["quals"][2 * j: 2 * j + 2] = quals[2 * i: 2 * i + 2]
+            if wt:
+                r["titles"][j] = titles[i]
+            if ordered:
+                r["ords"][j] = o
+            r["n"] = j + 1
+            if r["n"] == self.retry_P[t]:
+                flush_retry(t)
+
+        # steps are processed fs_window steps after dispatch: the referee
+        # pack and the planes the host reads travel device->host in
+        # non_blocking copies, so the fetch overlaps the next steps;
         # effects apply in dispatch order
         fs_pending: deque = deque()
         fs_window = 3
 
         def process_step():
-            (handles, codes, rlen, n, lo, titles, quals,
-             ords) = fs_pending.popleft()
+            (handles, b, n, lo, next_tier) = fs_pending.popleft()
+            codes, rlen, quals, titles = (b["codes"], b["rlen"], b["quals"],
+                                          b["titles"])
+            ords = b["ords"]
             ko = {key: _fetched(h) for key, h in handles.items()}
             pk = ko["referee_pack"][:n]
             referee = (pk & 1) != 0
             for bit, key in ((2, "tie"), (4, "ovf"), (8, "t2")):
                 self.referee_reasons[key] += int(((pk & bit) != 0).sum())
+            if next_tier is not None:
+                # overflow pairs climb to the next tier instead
+                ovf = ((pk & 4) != 0) & referee
+                ovf[:lo] = False
+                for i in np.nonzero(ovf)[0]:
+                    defer_pair(next_tier, codes, rlen, quals, titles, i,
+                               int(ords[i]) if ordered else 0)
+                referee &= ~ovf
+                if ordered:
+                    ords = ords.copy()
+                    ords[:n][ovf] = -1
             if thr:
                 thread_effects(ko, referee, codes, rlen, quals, titles, n,
                                lo, ords)
             elif ordered:
                 count_effects(ko, referee, codes, rlen, quals, titles, n,
                               lo, ords)
-            elif self.host is None:
-                self.n_referee += int(referee.sum())
             else:
                 # counting mode: only flagged pairs need host work; the
                 # order of their count adds is irrelevant
-                for i in np.nonzero(referee)[0]:
-                    apply_effect(ref_effect(codes, rlen, quals, titles, i))
+                for i in np.nonzero(referee[lo:])[0] + lo:
+                    for e in referee_pair(codes, rlen, quals, titles, i):
+                        apply_effect(e)
 
-        def full_step(codes, rlen, n, titles=None, quals=None, lo=0):
-            """One step over pairs [lo, n) of the batch (pairs before lo
-            belong to an earlier dispatch of the same batch)."""
-            nonlocal n_ord
-            live = np.zeros(P, dtype=bool)
-            live[lo:n] = True
-            self.n_steps += 1
-            self.n_step_pairs += n - lo
-            if self.with_qual:
-                qm = da.qmask_batch(quals, rlen, cfg.qth, cfg.ksize)
-                self.state, out = self.step(self.state, codes, rlen, live,
-                                            qm)
-            else:
-                self.state, out = self.step(self.state, codes, rlen, live)
-            ords = None
-            if ordered:
-                ords = np.zeros(n, dtype=np.int64)
-                ords[lo:] = np.arange(n_ord, n_ord + n - lo)
-                n_ord += n - lo
-            fs_pending.append(({key: _fetch_async(out[key])
-                                for key in aux_keys}, codes, rlen, n, lo,
-                               titles, quals, ords))
-            while len(fs_pending) > fs_window:
+        def drain_steps(to: int = 0):
+            while len(fs_pending) > to:
                 process_step()
 
-        def step_buf():
-            nonlocal nbuf, buf_codes, buf_rlen, buf_titles, buf_quals
-            if not nbuf:
+        def run_step(step_fn, liveP, b, n, lo, next_tier):
+            """Dispatches one step over pairs [lo, n) of buffer b."""
+            live = np.zeros(liveP, dtype=bool)
+            live[lo:n] = True
+            self.n_steps += 1
+            if self.with_qual:
+                qm = da.qmask_batch(b["quals"], b["rlen"], cfg.qth,
+                                    cfg.ksize)
+                self.state, out = step_fn(self.state, b["codes"], b["rlen"],
+                                          live, qm)
+            else:
+                self.state, out = step_fn(self.state, b["codes"], b["rlen"],
+                                          live)
+            got = self._outputs(out, aux_keys)
+            fs_pending.append(({key: _fetch_async(v)
+                                for key, v in got.items()}, b, n, lo,
+                               next_tier))
+            drain_steps(fs_window)
+
+        def flush_retry(t: int):
+            r = ret[t]
+            if not r["n"]:
                 return
-            full_step(buf_codes, buf_rlen, nbuf, buf_titles, buf_quals)
-            buf_codes, buf_rlen, buf_titles, buf_quals = new_buffers()
-            nbuf = 0
+            Pt = self.retry_P[t]
+            if self.retry_steps[t] is None:
+                self.retry_steps[t] = self._build_step(
+                    self.retry_E[t], with_annot=okam,
+                    with_qual=self.with_qual, P=Pt)
+            ret[t] = new_buffers(Pt)
+            run_step(self.retry_steps[t], Pt, r, r["n"], 0,
+                     t + 1 if t + 1 < ntier else None)
+
+        def drain_ladder():
+            """Resolves every in-flight and deferred pair: tier flushes
+            cascade (a tier's overflow lands in the next tier's buffer)
+            and the last tier's overflow goes to the referee."""
+            drain_steps()
+            for t in range(ntier):
+                flush_retry(t)
+                drain_steps()
+            if ordered and ord_pend:
+                raise RuntimeError(f"{len(ord_pend)} ordinals unresolved "
+                                   f"after the ladder drained")
+
+        def full_step(b, n, lo=0):
+            """One primary step over pairs [lo, n) of buffer b (pairs
+            before lo belong to an earlier dispatch of the same batch)."""
+            nonlocal n_ord
+            self.n_step_pairs += n - lo
+            if ordered:
+                b["ords"][lo:n] = np.arange(n_ord, n_ord + n - lo)
+                n_ord += n - lo
+            run_step(self.step, P, b, n, lo, 0 if ntier else None)
+
+        def step_buf():
+            nonlocal buf
+            if not buf["n"]:
+                return
+            full_step(buf, buf["n"])
+            buf = new_buffers(P)
 
         def copy_survivors(sel, codes, rlen, titles, quals):
             # block-copy survivors into the repack buffer (chunked at
             # full-step boundaries); rows interleave the two mates
-            nonlocal nbuf
             taken = 0
             while taken < len(sel):
-                chunk = sel[taken: taken + (P - nbuf)]
+                nb = buf["n"]
+                chunk = sel[taken: taken + (P - nb)]
                 taken += len(chunk)
                 src = np.stack([2 * chunk, 2 * chunk + 1], axis=1).ravel()
-                dst = slice(2 * nbuf, 2 * (nbuf + len(chunk)))
-                buf_codes[dst] = codes[src]
-                buf_rlen[dst] = rlen[src]
+                dst = slice(2 * nb, 2 * (nb + len(chunk)))
+                buf["codes"][dst] = codes[src]
+                buf["rlen"][dst] = rlen[src]
                 if wq:
-                    buf_quals[dst] = quals[src]
+                    buf["quals"][dst] = quals[src]
                 if wt:
-                    buf_titles[nbuf: nbuf + len(chunk)] = \
+                    buf["titles"][nb: nb + len(chunk)] = \
                         np.asarray(titles, dtype=object)[chunk]
-                nbuf += len(chunk)
-                if nbuf == P:
+                buf["n"] = nb + len(chunk)
+                if buf["n"] == P:
                     step_buf()
 
         # -bu flush cadence: the reference merges batch-local bubble maps
         # into the global DB every reads_per_batch reads (accumBubbles);
         # the .bub bytes depend on that merge order, so the funnel
-        # barriers at the same input-pair boundaries
+        # barriers at the same input-pair boundaries.  On resume every
+        # boundary <= the saved cursor had fired in the writing run
         bflush = max(cfg.reads_per_batch // 2, 1)
-        next_flush = bflush
+        next_flush = (done // bflush + 1) * bflush
         cursor = 0                  # input pairs consumed
+        since = 0                   # input pairs since the last save
+        auto_ck = checkpoint is not None and checkpoint_every is None
+        last_save = time.time()
 
         def batch_flush_barrier():
-            # everything before the boundary lands (referee and bubble
-            # effects) before the batch-local maps merge
+            # everything before the boundary lands (referee, retry and
+            # bubble effects) before the batch-local maps merge; deferred
+            # pairs flush through their tiers here (a partial tier batch
+            # gives the same per-pair results)
             nonlocal next_flush
             step_buf()
-            while fs_pending:
-                process_step()
+            drain_ladder()
             self.bubbles.flush_batch()
             next_flush += bflush
+
+        def ckpt_due() -> bool:
+            if not checkpoint:
+                return False
+            if not auto_ck:
+                return since >= checkpoint_every
+            interval = CKPT_FIRST_S
+            if self._last_ckpt_wall is not None:
+                interval = max(CKPT_WALL_MULT * self._last_ckpt_wall,
+                               CKPT_FIRST_S)
+            return self._agree(time.time() - last_save >= interval)
+
+        def save_ckpt():
+            nonlocal since, last_save
+            # every effect up to the cursor lands first; ordered mode also
+            # steps its repack buffer and drains the ladder, so no pending
+            # effect (or title) needs saving
+            if ordered:
+                step_buf()
+                drain_ladder()
+            else:
+                drain_steps()
+            extra = dict(cfg_P=P, cfg_retry_E=sum(self.retry_E),
+                         cfg_prefilter=int(bool(prefilter)),
+                         cfg_okam=int(okam), cfg_bub=int(bub))
+            if ordered:
+                import pickle
+
+                from ..io.rowsink import RowSink
+
+                if okam:
+                    kr = self.kam_rows
+                    if isinstance(kr, RowSink) and kr.path is not None:
+                        extra["kam_offset"] = kr.byte_offset()
+                        extra["kam_nrows"] = kr.n_written
+                    else:
+                        extra["kam_rows_pkl"] = np.frombuffer(
+                            pickle.dumps(list(kr)), np.uint8)
+                if bub:
+                    bm = self.bubbles
+                    extra["bub_pkl"] = np.frombuffer(pickle.dumps(
+                        (bm.bub_orders, bm.bub_counts, bm._bub_batch)),
+                        np.uint8)
+            if prefilter:
+                extra.update(buf_codes=buf["codes"], buf_rlen=buf["rlen"],
+                             nbuf=buf["n"], n_prefiltered=self.n_prefiltered,
+                             pre_P=Pp)
+                if wq:
+                    extra["buf_quals"] = buf["quals"]
+            for t in range(ntier):
+                pk, nk = (("ret", "nret") if t == 0
+                          else (f"ret{t}", f"nret{t}"))
+                extra[f"{pk}_codes"] = ret[t]["codes"]
+                extra[f"{pk}_rlen"] = ret[t]["rlen"]
+                extra[nk] = ret[t]["n"]
+                extra["n_retried"] = self.n_retried
+                if wq:
+                    extra[f"{pk}_quals"] = ret[t]["quals"]
+            self._save_checkpoint(checkpoint, cursor, extra, defer=True)
+            since = 0
+            last_save = time.time()
 
         pending: deque = deque()
 
         def drain_one():
-            nonlocal cursor
+            nonlocal cursor, since
             codes, rlen, n, titles, quals, handle = pending.popleft()
             idx = np.nonzero(_fetched(handle)[:n])[0]
             self.n_prefiltered += int(n - len(idx))
@@ -573,12 +871,23 @@ class DeviceAlignRunner:
                         break
                     batch_flush_barrier()
             cursor += n
+            since += n
+            if ckpt_due():
+                save_ckpt()
 
         try:
             for rec in batches:
                 codes, rlen, n = rec[0], rec[1], rec[2]
                 titles = rec[3] if wt else None
                 quals = rec[4] if wq else None
+                if cursor + n <= done:
+                    cursor += n
+                    continue
+                if cursor < done:
+                    raise ValueError(
+                        "checkpoint cursor is not aligned to this run's "
+                        "dispatch size: resume with the batch_pairs and "
+                        "prefilter of the checkpointing run")
                 if prefilter:
                     live = np.zeros(Pp, dtype=bool)
                     live[:n] = True
@@ -587,9 +896,12 @@ class DeviceAlignRunner:
                     surv = self.prefilter_step(codes, rlen, live)
                     pending.append((codes, rlen, n, titles, quals,
                                     _fetch_async(surv)))
-                    if len(pending) >= PREFILTER_WINDOW:
+                    if len(pending) >= self.prefilter_window:
                         drain_one()
                     continue
+                b = dict(codes=codes, rlen=rlen, titles=titles, quals=quals,
+                         ords=np.zeros(n, dtype=np.int64) if ordered
+                         else None)
                 lo = 0
                 if bub:
                     # split the batch at flush boundaries (live range
@@ -597,29 +909,191 @@ class DeviceAlignRunner:
                     while next_flush - cursor <= n:
                         rel = next_flush - cursor
                         if rel > lo:
-                            full_step(codes, rlen, rel, titles, quals, lo)
+                            full_step(b, rel, lo)
                             lo = rel
                         batch_flush_barrier()
                 if n > lo:
-                    full_step(codes, rlen, n, titles, quals, lo)
+                    full_step(b, n, lo)
                 cursor += n
+                since += n
+                if ckpt_due():
+                    save_ckpt()
             while pending:
                 drain_one()
             step_buf()
-            while fs_pending:
-                process_step()
-            if ord_pend:
-                raise RuntimeError(f"{len(ord_pend)} ordinals unresolved "
-                                   f"after the last step")
+            drain_ladder()
             if self.bubbles is not None:
                 self.bubbles.flush_batch()
             # batched threading counts live in native CountMaps until
             # here; the outputs read the per-locus dicts
             if self.nthr is not None:
                 self.nthr.drain_counts_into(self.tview.tr_counts)
+            if checkpoint and since:
+                save_ckpt()
         finally:
+            # a deferred write lands (or raises) before the run returns,
+            # also when the run is abandoned by an exception
             if thr_batch_pool is not None:
                 thr_batch_pool.shutdown(wait=True)
+            if checkpoint:
+                self._ckpt_join()
+
+    def _check_resume(self, pre: dict, prefilter: bool, Pp: int) -> None:
+        """Refuses a resume whose configuration differs from the
+        checkpointing run's: the cursor's granularity and the saved
+        buffers mean something only under that configuration."""
+        def require(key, cur, what):
+            if key in pre and int(pre[key]) != int(cur):
+                raise ValueError(
+                    f"checkpoint resume config mismatch: {what} was "
+                    f"{int(pre[key])} in the checkpointing run, now "
+                    f"{int(cur)}")
+
+        require("cfg_P", self.P, "batch_pairs")
+        require("cfg_retry_E", sum(self.retry_E), "retry_expand")
+        require("cfg_prefilter", int(bool(prefilter)), "prefilter")
+        require("cfg_okam", int(self.okam), "okam (.kam output)")
+        require("cfg_bub", int(self.cfg.output_bubbles),
+                "output_bubbles (-bu)")
+        if prefilter:
+            require("pre_P", Pp, "prefilter dispatch size")
+            if "buf_codes" not in pre:
+                raise ValueError("checkpoint was written without "
+                                 "prefilter; resume with prefilter=False")
+        elif "buf_codes" in pre:
+            raise ValueError("checkpoint was written by a prefilter run; "
+                             "resume with prefilter=True")
+        if "ret_codes" in pre and not self.retry_E \
+                and int(pre.get("nret", 0)) > 0:
+            raise ValueError("checkpoint holds pending retry-buffer pairs; "
+                             "resume with the same retry_expand")
+
+    # -- checkpoints --
+
+    def _state_snapshot(self) -> dict:
+        """The device state copied to the host without stalling the
+        steps: each tensor is cloned on a side stream (the main stream
+        waits for the clones only), then copied into pinned memory with a
+        non-blocking copy.  Returns {key: (host tensor, event)} for
+        ``_fetched``."""
+        return _snapshot_async(self.state)
+
+    def _save_checkpoint(self, path: str, cursor: int,
+                         extra: dict | None = None, defer: bool = False):
+        """Persists the count state and the cursor.  ``defer=True`` (the
+        funnel) writes the npz from a background thread once the
+        snapshot's copy lands; the cursor inside always matches its own
+        snapshot."""
+        self._ckpt_join()
+        snap = self._state_snapshot()
+        if not self.lead:
+            return
+        hsnap = self._host_snapshot()
+        # the loop mutates the repack and retry buffers in place later
+        ex = None if extra is None else {
+            k: (np.array(v) if isinstance(v, np.ndarray) else v)
+            for k, v in extra.items()}
+        if not defer:
+            self._ckpt_write(path, cursor, snap, hsnap, ex)
+            return
+        if self._ckpt_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._ckpt_pool = ThreadPoolExecutor(1)
+        self._ckpt_fut = self._ckpt_pool.submit(
+            self._ckpt_write, path, cursor, snap, hsnap, ex)
+
+    def _host_snapshot(self) -> dict:
+        """The host side of a checkpoint: the referee's counts (zeros
+        without an rpgg) and n_referee."""
+        if self.nthr is not None:
+            self.nthr.drain_counts_into(self.tview.tr_counts)
+        if self.host is None:
+            nl = self.drp.nloci
+            return dict(host_counts=np.zeros(self.drp.nslots, np.uint64),
+                        host_nmapread=np.zeros(nl, np.uint64),
+                        host_kmc=np.zeros(nl, np.uint64),
+                        n_referee=self.n_referee)
+        return dict(host_counts=self.host.flat_counts().copy(),
+                    host_nmapread=self.host.nmapread.copy(),
+                    host_kmc=self.host.kmc.copy(),
+                    n_referee=self.n_referee)
+
+    def _ckpt_write(self, path, cursor, snap, hsnap, extra):
+        t0 = time.time()
+        state = {k: _npz_state(k, _fetched(h)) for k, h in snap.items()}
+        np.savez(path + ".tmp.npz", cursor=cursor, **hsnap,
+                 **{f"dev_{k}": v for k, v in state.items()},
+                 **{f"x_{k}": v for k, v in (extra or {}).items()})
+        os.replace(path + ".tmp.npz", path)
+        # the measured save wall sizes the auto cadence
+        self._last_ckpt_wall = time.time() - t0
+
+    def _ckpt_join(self):
+        fut = self._ckpt_fut
+        if fut is not None:
+            self._ckpt_fut = None
+            fut.result()
+
+    def _load_checkpoint(self, path: str) -> tuple[int, dict | None]:
+        """Restores the state of the checkpoint at ``path`` (written by
+        this runner or the JAX package's); returns (pair cursor, extra
+        state or None).  Without the file: (0, None)."""
+        if not os.path.exists(path):
+            return 0, None
+        z = np.load(path)
+        self.state = {k[4:]: _state_tensor(k[4:], z[k], self.device)
+                      for k in z.files if k.startswith("dev_")}
+        flat = z["host_counts"]
+        if self.host is None:
+            if flat.any():
+                raise ValueError("checkpoint holds referee counts but this "
+                                 "runner has no rpgg to restore them into")
+        else:
+            p = 0
+            for li in range(self.rpgg.nloci):
+                cnt = self.rpgg.tr_counts[li]
+                for km in self.rpgg.tr_orders[li]:
+                    cnt[km] = int(flat[p])
+                    p += 1
+            self.host.nmapread = z["host_nmapread"].astype(np.uint64)
+            self.host.kmc = z["host_kmc"].astype(np.uint64)
+        self.n_referee = int(z["n_referee"])
+        extra = {k[2:]: z[k] for k in z.files if k.startswith("x_")}
+        # an okam / -bu mismatch is diagnosed before any side state is
+        # restored (a counting run would otherwise trip on the kam sink)
+        for key, cur, what in (("cfg_okam", int(self.okam),
+                                "okam (.kam output)"),
+                               ("cfg_bub", int(self.cfg.output_bubbles),
+                                "output_bubbles (-bu)")):
+            if key in extra and int(extra[key]) != cur:
+                raise ValueError(
+                    f"checkpoint resume config mismatch: {what} was "
+                    f"{int(extra[key])} in the checkpointing run, now {cur}")
+        # ordered mode: truncate the .kam sink back to the checkpoint's
+        # high-water mark (rows streamed after the save are replayed) and
+        # restore the bubble maps
+        if "kam_offset" in extra and self.lead:
+            from ..io.rowsink import RowSink
+
+            kr = self.kam_rows
+            if not (isinstance(kr, RowSink) and kr.path is not None):
+                raise ValueError(
+                    "checkpoint recorded a streamed .kam high-water mark; "
+                    "bind kam_rows to a RowSink(path, append=True) before "
+                    "resuming")
+            kr.truncate_to(int(extra["kam_offset"]), int(extra["kam_nrows"]))
+        if "kam_rows_pkl" in extra:
+            import pickle
+
+            self.kam_rows = pickle.loads(extra["kam_rows_pkl"].tobytes())
+        if "bub_pkl" in extra:
+            import pickle
+
+            bm = self.bubbles
+            bm.bub_orders, bm.bub_counts, bm._bub_batch = pickle.loads(
+                extra["bub_pkl"].tobytes())
+        return int(z["cursor"]), (extra or None)
 
     # -- okam rows and bubbles --
 
@@ -739,3 +1213,29 @@ class DeviceAlignRunner:
 
     def write_bubbles(self, path, threshold: int = 5):
         self.bubbles.write_bubbles(path, threshold)
+
+
+class Stopped(Exception):
+    """The interruption drill's fault (stop_after_prefilter)."""
+
+
+def stop_after_prefilter(runner: DeviceAlignRunner, n_ok: int) -> None:
+    """An interruption drill: the runner's prefilter dispatch after its
+    first ``n_ok`` raises Stopped (on every rank of a sharded runner at
+    the same one).  Each dispatch drains at once, so the checkpoints
+    before it have landed."""
+    runner.prefilter_window = 1
+    build = runner._build_prefilter
+
+    def counted(Pp):
+        inner, n = build(Pp), [0]
+
+        def step(codes, rlen, live):
+            if n[0] >= n_ok:
+                raise Stopped(f"stopped after {n[0]} prefilter dispatches")
+            n[0] += 1
+            return inner(codes, rlen, live)
+
+        return step
+
+    runner._build_prefilter = counted

@@ -59,8 +59,8 @@ NAN32 = 0xFFFFFFFF
 _I64MAX = (1 << 63) - 1
 _SIGN = -(1 << 63)
 _M32 = 0xFFFFFFFF
-# KC keeps a pair's whole vote in one block's shared memory; the opt-in
-# limit of an H100 block
+# KC keeps a pair's whole vote in one block's shared memory up to the
+# opt-in limit of an H100 block (larger E: a global workspace)
 SMEM_LIMIT = 232448
 KC_THREADS = 256
 
@@ -100,7 +100,7 @@ class DeviceRPGG:
         last entry 0) and ``tre`` (-bu).  Calls with the same flags get
         the same dict."""
         cache = self.__dict__.setdefault("_dev_cache", {})
-        dev = str(device)
+        dev = _device_key(device)
         key = (dev, graph, bait, qc, tre)
         if key not in cache:
             if (dev, "base") not in cache:
@@ -137,7 +137,7 @@ class DeviceRPGG:
         """Drops the device copy of the extra table ``name`` (and every
         cached dict holding it); steps made before still hold theirs."""
         cache = self.__dict__.get("_dev_cache", {})
-        dev = str(device)
+        dev = _device_key(device)
         for key in [k for k, v in cache.items() if k[0] == dev
                     and (k == (dev, name) or (isinstance(v, dict)
                                               and name in v))]:
@@ -264,6 +264,15 @@ class DeviceRPGG:
         return cls(rpgg.nloci, dbi_tab, vv, trfl_tab,
                    tre_tab, offsets, slot, bait_tab, qc,
                    member_tab=member_tab)
+
+
+def _device_key(device) -> str:
+    """One cache key per device: "cuda" and "cuda:<current>" name the
+    same card (a second key would upload every table twice)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
 
 
 def upload_tables(tables: dict, vv: np.ndarray, locus_offsets: np.ndarray,
@@ -487,25 +496,36 @@ def kc_smem_bytes(W: int, E: int) -> int:
             + EV + (KC_THREADS + 64) * 8 + 21 * 16)
 
 
-def check_vote_shape(W: int, E: int) -> None:
-    need = kc_smem_bytes(W, E)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"pair_vote needs {need} B of shared memory for W={W}, E={E}; "
-            f"a block has at most {SMEM_LIMIT} B (lower max_read_len or "
-            f"expand_cap)")
+def check_vote_shape(W: int, E: int) -> str:
+    """KC's mode for a pair of W entries and E expansion slots: "shared"
+    while its arrays fit a block's shared memory, else "large-E" (the
+    same arrays in a global workspace of kc_workspace_stride(W, E) bytes
+    per pair)."""
+    if W < 2 or E < 1:
+        raise ValueError(f"pair_vote needs W >= 2 and E >= 1, got W={W}, "
+                         f"E={E}")
+    return "shared" if kc_smem_bytes(W, E) <= SMEM_LIMIT else "large-E"
+
+
+def kc_workspace_stride(W: int, E: int) -> int:
+    """Bytes of one pair's slice of the large-E workspace (the shared
+    layout, rounded up to 256 B)."""
+    return -(-kc_smem_bytes(W, E) // 256) * 256
 
 
 def pair_vote(kmer, val, use, pair_kf, vv, E: int, cth: int):
     """KC: the per-pair vote.  Same inputs and results as
-    ``pair_vote_plain``; one CUDA block per pair on the card."""
+    ``pair_vote_plain``; one CUDA block per pair on the card, its arrays
+    in shared memory, or with an E too large for that (the retry
+    ladder's upper tiers) in a global workspace (counted as
+    "KC[large-E]")."""
     if kmer.device.type == "cpu":
         return pair_vote_plain(kmer, val, use, pair_kf, vv, E, cth)
     P, NKW = pair_kf.shape[0], kmer.shape[1]
     if kmer.shape[0] != 2 * P or val.shape != kmer.shape \
             or use.shape != kmer.shape:
         raise ValueError("pair_vote: kmer/val/use must be (2P, NKW)")
-    check_vote_shape(2 * NKW, E)
+    mode = check_vote_shape(2 * NKW, E)
     dev = kmer.device
     kmer, val = kmer.contiguous(), val.contiguous()
     use, pair_kf, vv = use.contiguous(), pair_kf.contiguous(), \
@@ -513,11 +533,23 @@ def pair_vote(kmer, val, use, pair_kf, vv, E: int, cth: int):
     dst0 = torch.empty(P, dtype=torch.int64, device=dev)
     vote_pass = torch.empty(P, dtype=torch.bool, device=dev)
     pack = torch.empty(P, dtype=torch.uint8, device=dev)
-    fn = bind(kernel_lib("pair_vote"), "dtk_pair_vote", "ppppiipiiiipppp")
-    check(fn(ptr(kmer), ptr(val), ptr(use), ptr(pair_kf), P, NKW, ptr(vv),
-             vv.shape[0], E, cth, kc_smem_bytes(2 * NKW, E), ptr(dst0),
-             ptr(vote_pass), ptr(pack), stream_of(kmer)), "pair_vote")
-    launched("KC")
+    lib = kernel_lib("pair_vote")
+    if mode == "shared":
+        fn = bind(lib, "dtk_pair_vote", "ppppiipiiiipppp")
+        check(fn(ptr(kmer), ptr(val), ptr(use), ptr(pair_kf), P, NKW,
+                 ptr(vv), vv.shape[0], E, cth, kc_smem_bytes(2 * NKW, E),
+                 ptr(dst0), ptr(vote_pass), ptr(pack), stream_of(kmer)),
+              "pair_vote")
+        launched("KC")
+    else:
+        stride = kc_workspace_stride(2 * NKW, E)
+        ws = torch.empty(max(P, 1) * stride, dtype=torch.uint8, device=dev)
+        fn = bind(lib, "dtk_pair_vote_global", "ppppiipiiipipppp")
+        check(fn(ptr(kmer), ptr(val), ptr(use), ptr(pair_kf), P, NKW,
+                 ptr(vv), vv.shape[0], E, cth, ptr(ws), stride, ptr(dst0),
+                 ptr(vote_pass), ptr(pack), stream_of(kmer)),
+              "pair_vote[large-E]")
+        launched("KC[large-E]")
     return dst0, vote_pass, pack
 
 
@@ -988,24 +1020,29 @@ def query_int64(qlo, qhi) -> np.ndarray:
 
 
 def make_prefilter_step_q(drp: DeviceRPGG, cfg: AlignConfig, P: int,
-                          device=None):
+                          device=None, probe=None):
     """Prefilter over host-sampled queries (kmers_np.sample_subfilter_
     queries / io.native_reader.sample_queries): KB on the membership
-    table, then the decision in torch ops.
+    table, then the decision in torch ops.  ``probe`` (q -> found)
+    replaces KB: the sharded prefilter's collective probe.
 
     Returns step(q (2P, nf) int64, valid (2P, nf) bool, nonshort (2P,)
     bool, live (P,) bool) -> survive (P,) bool on the device.  ``q`` may
     also be given as its u32 (lo, hi) planes, a tuple."""
     dev = resolve_device(device)
-    tabs = drp.tables(dev)
-    ptab = tabs["member"] if "member" in tabs else tabs["dbi"]
+    if probe is None:
+        tabs = drp.tables(dev)
+        ptab = tabs["member"] if "member" in tabs else tabs["dbi"]
+
+        def probe(q):
+            return dt.lookup_bucket(ptab, q)[0]
     nmf = cfg.nm_filter
 
     def step(q, valid, nonshort, live):
         if isinstance(q, tuple):
             q = query_int64(*q)
         q = _as(q, torch.int64, dev)
-        found = dt.lookup_bucket(ptab, q)[0]
+        found = probe(q)
         read_pass = (found & _as(valid, torch.bool, dev)).sum(1) >= nmf
         return (read_pass & _as(nonshort, torch.bool, dev)).view(
             P, 2).all(1) & _as(live, torch.bool, dev)
@@ -1016,7 +1053,8 @@ def make_prefilter_step_q(drp: DeviceRPGG, cfg: AlignConfig, P: int,
 def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
               expand_cap: int = 512, with_annot: bool = False,
               with_bubbles: bool = False, with_qual: bool = False,
-              device=None, capture: dict | None = None):
+              device=None, capture: dict | None = None,
+              probe_fns: dict | None = None):
     """Builds the per-batch step: counting mode, or graph-threading mode
     when ``cfg.threading`` (the JAX make_step(threading=True)).  QC
     (cfg.qc and a QC mask) and bait (cfg.bait and a bait table) add KF;
@@ -1033,7 +1071,9 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
     (threading mode adds "clean", "clean_pair" and "tr_member").  With
     ``capture`` (a dict) each call stores every kernel's arguments under
     its name, so a check can replay one kernel on the step's real
-    inputs."""
+    inputs.  ``probe_fns`` replaces the dbi and trfl probes, as in the JAX
+    make_step: {"dbi": fn(q) -> (found, val, val2), "trfl": fn(q, q_loc)
+    -> (found, val, val2)} (the sharded index's collective probes)."""
     check_ported_config(cfg)
     threading = bool(cfg.threading)
     has_qc = bool(cfg.qc) and drp.qc is not None
@@ -1057,7 +1097,10 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
         live = _as(live, torch.bool, dev)
         ex = extract_kmers(codes, rlen, k)
         kmer, kvalid, nk = ex["kmer"], ex["kvalid"], ex["nk"]
-        found, val, annv = dt.lookup_bucket(tabs["dbi"], kmer)
+        if probe_fns and "dbi" in probe_fns:
+            found, val, annv = probe_fns["dbi"](kmer)
+        else:
+            found, val, annv = dt.lookup_bucket(tabs["dbi"], kmer)
         found = found & kvalid
         pair_nonshort = ex["any_valid"].view(P, 2).all(1) & live
 
@@ -1104,7 +1147,10 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
         need = found & ((val & 1) == 1)
         pq = torch.where(need, kmer, EMPTY)
         pq_loc = torch.where(need, dst0.repeat_interleave(2)[:, None], 0)
-        afound_t, aval_t, _ = dt.lookup_bucket(tabs["trfl"], pq, pq_loc)
+        if probe_fns and "trfl" in probe_fns:
+            afound_t, aval_t, _ = probe_fns["trfl"](pq, pq_loc)
+        else:
+            afound_t, aval_t, _ = dt.lookup_bucket(tabs["trfl"], pq, pq_loc)
 
         # ---- assignTRkmc + accumulation (K7, K8) ----
         kd_args = (found, val, annv, kvalid, afound_t, aval_t, dst0,

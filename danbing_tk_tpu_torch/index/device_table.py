@@ -7,7 +7,9 @@ bytes: per level a (nb, BUCKET * W) u32 row array, slot planes lo, hi,
 empty slots EMPTY in every plane.  The port uploads each level as an
 int32 view of the same rows (``DevTable``) and probes it with kernel KB
 (``csrc/bucket_lookup.cu``): one 8-slot row per level, the first level
-that hits wins.
+that hits wins.  ``lookup_bucket_owned`` (kernel KI,
+``csrc/sharded_lookup.cu``) probes only the row blocks one rank of a
+sharded index owns (parallel/sharded_index.py).
 """
 
 from __future__ import annotations
@@ -338,3 +340,113 @@ def lookup_bucket(tab: DevTable, q: torch.Tensor, q_loc=None):
              ptr(val), ptr(val2), stream_of(qf)), "bucket_lookup")
     launched("KB")
     return found.view(shape), val.view(shape), val2.view(shape)
+
+
+# ---------------------------------------------------------------------------
+# KI: the probe of the row blocks one rank owns (parallel/sharded_index.py)
+# ---------------------------------------------------------------------------
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """u32 values held as int64 -> int32 bit patterns."""
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+def _check_block(block: DevTable, meta) -> None:
+    if len(meta) != len(block.levels):
+        raise ValueError("lookup_bucket_owned: one meta entry per level")
+    for t, (_, nb, off, rows) in zip(block.levels, meta):
+        if t.shape[0] != rows or not 0 <= off <= nb - rows \
+                or nb & (nb - 1):
+            raise ValueError(f"lookup_bucket_owned: a block of {rows} rows "
+                             f"at {off} of {nb} (a power of 2) buckets, "
+                             f"got {t.shape[0]} rows")
+
+
+def lookup_bucket_owned_plain(block: DevTable, meta, q: torch.Tensor,
+                              q_loc=None):
+    """Plain torch version of KI.  ``block``: a DevTable whose levels are
+    one rank's row blocks; ``meta``: per level (salt, nb, off, rows), nb
+    the whole level's bucket count and [off, off + rows) the buckets the
+    block holds.  Returns (found, val, val2) as int32 planes shaped like
+    ``q``: 0 where this rank owns no matching bucket, else KB's answer
+    (found 1; val / val2 as u32 bit patterns), the first hit in level
+    order among the owned levels setting the values (JAX
+    lookup_bucket_sharded)."""
+    _check_block(block, meta)
+    shape = q.shape
+    q = q.reshape(-1)
+    lo = q & _M32
+    hi = (q >> 32) & _M32
+    loc = None
+    if block.composite:
+        loc = q_loc.reshape(-1).long() & _M32
+    W, vp = block.W, 2 + int(block.composite)
+    found = torch.zeros(q.shape, dtype=torch.bool, device=q.device)
+    val = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    val2 = torch.zeros_like(val)
+    for t, (salt, nb, off, rows) in zip(block.levels, meta):
+        b = bucket_index(lo, hi, loc, salt, nb)
+        mine = (b >= off) & (b < off + rows)
+        r = (t[(b - off).clamp(0, rows - 1)].long() & _M32).view(-1, BUCKET,
+                                                                  W)
+        m = (r[..., 0] == lo[:, None]) & (r[..., 1] == hi[:, None])
+        if block.composite:
+            m &= r[..., 2] == loc[:, None]
+        m &= mine[:, None]
+        hit = m.any(dim=-1)
+        new = hit & ~found
+        if block.nval >= 1:
+            val = torch.where(new, torch.where(m, r[..., vp], 0).amax(-1),
+                              val)
+        if block.nval == 2:
+            val2 = torch.where(new, torch.where(m, r[..., vp + 1],
+                                                0).amax(-1), val2)
+        found |= hit
+    return (found.to(torch.int32).view(shape), _as_i32(val).view(shape),
+            _as_i32(val2).view(shape))
+
+
+def lookup_bucket_owned(block: DevTable, meta, q: torch.Tensor, q_loc=None):
+    """KI: the probe of one rank's row blocks (one thread per query).
+    Same contract as lookup_bucket_owned_plain."""
+    if q.device.type == "cpu":
+        return lookup_bucket_owned_plain(block, meta, q, q_loc)
+    _check_block(block, meta)
+    if q.dtype != torch.int64:
+        raise ValueError("queries must be int64 k-mers")
+    if block.composite and q_loc is None:
+        raise ValueError("a composite table needs q_loc")
+    if len(block.levels) > MAX_LEVELS:
+        raise ValueError(f"table has {len(block.levels)} levels "
+                         f"(kernels take <= {MAX_LEVELS})")
+    for t in block.levels:
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("row blocks must be contiguous, on the "
+                             "queries' device")
+    shape = q.shape
+    qf = q.reshape(-1).contiguous()
+    n = qf.numel()
+    lf = None
+    if block.composite:
+        lf = q_loc.reshape(-1).to(torch.int64).contiguous()
+        if lf.numel() != n:
+            raise ValueError("q_loc must match q")
+    out = torch.empty((3, n), dtype=torch.int32, device=q.device)
+    nlev = len(block.levels)
+
+    def arr(ctype, vals):
+        a = (ctype * MAX_LEVELS)(*vals)
+        return ctypes.cast(a, ctypes.c_void_p), a
+
+    tabs, _k1 = arr(ctypes.c_void_p, [t.data_ptr() for t in block.levels])
+    nbs, _k2 = arr(ctypes.c_int64, [m[1] for m in meta])
+    salts, _k3 = arr(ctypes.c_int64, [salt_constant(m[0]) for m in meta])
+    offs, _k4 = arr(ctypes.c_int64, [m[2] for m in meta])
+    rows, _k5 = arr(ctypes.c_int64, [m[3] for m in meta])
+    fn = bind(kernel_lib("sharded_lookup"), "dtk_sharded_lookup",
+              "ppi" + "ppppp" + "iii" + "pppp")
+    check(fn(ptr(qf), None if lf is None else ptr(lf), n, tabs, nbs, salts,
+             offs, rows, nlev, int(block.composite), block.nval, ptr(out[0]),
+             ptr(out[1]), ptr(out[2]), stream_of(qf)), "sharded_lookup")
+    launched("KI")
+    return out[0].view(shape), out[1].view(shape), out[2].view(shape)

@@ -38,11 +38,14 @@ NATIVE_SRCS = {"native": os.path.join(ROOT, "native", "dtk_native.cpp"),
                "thread": os.path.join(ROOT, "native", "dtk_thread.cpp")}
 
 KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
-           "thread_walk", "read_filter", "novel_edges", "bias_correct")
+           "thread_walk", "read_filter", "novel_edges", "bias_correct",
+           "sharded_lookup")
 
-# launches of each kernel (KA-KH: KERNELS in order); its wrapper adds one
+# launches of each kernel (KA-KI: KERNELS in order, and KC's large-E
+# instance, which pair_vote.cu builds beside KC); its wrapper adds one
 # where it launches the kernel, and nowhere else
-LAUNCHES = dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF", "KG", "KH"), 0)
+LAUNCHES = dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF", "KG", "KH",
+                          "KI", "KC[large-E]"), 0)
 
 # no --use_fast_math: KH (bias_correct.cu) must divide and add in IEEE
 # round-to-nearest to give numpy's bytes
@@ -137,7 +140,7 @@ def kernel_lib(name: str) -> ctypes.CDLL:
 
 
 def launched(kernel: str) -> None:
-    """Counts one launch of ``kernel`` ("KA" ... "KH")."""
+    """Counts one launch of ``kernel`` ("KA" ... "KI", "KC[large-E]")."""
     LAUNCHES[kernel] += 1
 
 

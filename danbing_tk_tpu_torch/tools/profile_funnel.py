@@ -1,14 +1,15 @@
 """Where the time goes in the production-size funnel on a card.
 
     python -m danbing_tk_tpu_torch.tools.profile_funnel [--nloci N]
-        [--pairs N] [--out DIR] [--threading | --okam]
+        [--pairs N] [--out DIR] [--threading | --okam | --sharded]
 
 Builds the synthetic scale index (tools/scale_index.py), runs the funnel
 of chip_smoke.py phase 5 (counting), with --threading phase 6 (-gc 85 3
 on reads with 0.5% substitutions, the graph table built too) or with
 --okam phase 7 (.kam rows, -s 2 -b -qc -bu on reads with 0.5%
 substitutions and simmode-2 titles; the tre table, bait table and QC mask
-built too) once to warm up, then once more under torch.profiler (CPU +
+built too) or with --sharded phase 5s(d) (the sharded runner on a world-1
+NCCL group, index sharded, E = 512 -> [4096]) once to warm up, then once more under torch.profiler (CPU +
 CUDA activities).  Prints the host wall, the summed device time per kernel
 name, the device busy time (union of kernel and copy intervals) and the
 idle share (1 - busy / wall), and writes the chrome trace and the
@@ -82,6 +83,7 @@ def main(argv=None):
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--threading", action="store_true")
     mode.add_argument("--okam", action="store_true")
+    mode.add_argument("--sharded", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_funnel needs a CUDA card")
@@ -115,8 +117,17 @@ def main(argv=None):
     P, L = 4096, 160
     rng = np.random.default_rng(
         [args.seed, 3 if args.threading else 5 if args.okam else 1])
-    runner = DeviceAlignRunner(None, cfg, batch_pairs=P, max_read_len=L,
-                               drp=drp, device=dev, thread_view=view)
+    if args.sharded:
+        from ..parallel.runner import ShardedAlignRunner
+
+        runner = ShardedAlignRunner(None, cfg, batch_pairs=P,
+                                    max_read_len=L, expand_cap=512,
+                                    retry_expand=[4096], shard_index=True,
+                                    drp=drp, device=dev)
+    else:
+        runner = DeviceAlignRunner(None, cfg, batch_pairs=P,
+                                   max_read_len=L, drp=drp, device=dev,
+                                   thread_view=view)
     Pd = runner.dispatch_pairs(True)
     nbat = -(-args.pairs // Pd)
     batches = []
@@ -131,7 +142,7 @@ def main(argv=None):
     bub_s = _time_calls(runner, "_add_bubbles_codes")
     merge_s = _time_calls(runner.bubbles, "flush_batch")
     torch.cuda.synchronize()
-    steps0 = runner.n_steps
+    steps0, ret0 = runner.n_steps, runner.n_retried
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -156,6 +167,7 @@ def main(argv=None):
     print(f"funnel pairs={nbat * Pd} wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy:.3f} idle_share={1 - busy / wall_ms:.4f} "
           f"steps={runner.n_steps - steps0} dispatches={nbat} "
+          f"retried={runner.n_retried - ret0} "
           f"engine_call_ms={engine_wait[0] * 1e3:.3f} "
           f"kam_row_ms={kam_s[0] * 1e3:.3f} bubble_insert_ms="
           f"{bub_s[0] * 1e3:.3f} bubble_merge_ms={merge_s[0] * 1e3:.3f}",

@@ -103,15 +103,18 @@ def test_fuzz_referee_matches_host(tmp_path):
 
 
 def test_unported_options_raise():
+    """The runner options still unported (-e, -tb) raise, naming their
+    ROADMAP item; the retry ladder and checkpoints are ported
+    (tests/test_torch_retry.py, tests/test_torch_checkpoint.py)."""
     rpgg = RPGG(os.path.join(GOLDEN, "pan"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceAlignRunner(rpgg, AlignConfig(**KW), retry_expand=4096,
-                          device="cpu")
+    for kw in (dict(extract=1), dict(bait=True, track_bait=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DeviceAlignRunner(rpgg, AlignConfig(**{**KW, **kw}),
+                              retry_expand=4096, device="cpu")
     run = DeviceAlignRunner(rpgg, AlignConfig(**KW), batch_pairs=64,
-                            max_read_len=192, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run.run_file_native(os.path.join(GOLDEN, "reads.fa"),
-                            checkpoint="ck.npz")
+                            max_read_len=192, retry_expand=4096,
+                            device="cpu")
+    assert run.retry_E == [4096]
 
 
 def test_scale_index_cache_and_batches(tmp_path):

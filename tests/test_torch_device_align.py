@@ -177,7 +177,14 @@ def test_unported_modes_raise(models):
 
 
 def test_vote_shape_limit():
-    tda.check_vote_shape(2 * (256 - 21 + 1), 512)   # runner defaults fit
-    with pytest.raises(ValueError, match="shared memory"):
-        tda.check_vote_shape(2 * (256 - 21 + 1), 16384)
+    W = 2 * (256 - 21 + 1)
+    # the runner defaults fit a block's shared memory; a larger E (the
+    # retry ladder's upper tiers) takes KC's global-workspace mode
+    assert tda.check_vote_shape(W, 512) == "shared"
+    assert tda.kc_smem_bytes(W, 16384) > tda.SMEM_LIMIT
+    assert tda.check_vote_shape(W, 16384) == "large-E"
+    assert tda.kc_workspace_stride(W, 16384) % 256 == 0
+    assert tda.kc_workspace_stride(W, 16384) >= tda.kc_smem_bytes(W, 16384)
+    with pytest.raises(ValueError, match="E >= 1"):
+        tda.check_vote_shape(W, 0)
 

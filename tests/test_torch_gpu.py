@@ -318,3 +318,88 @@ def test_golden_pred_cli_on_cuda(cuda, tmp_path):
     pred.write_bias(str(tmp_path / "o.bias"), bias)
     for got, want in zip(outs, ("o.raw", "o.corr", "o.bias")):
         assert open(got, "rb").read() == (tmp_path / want).read_bytes()
+
+
+def test_ki_matches_plain_on_row_blocks(cuda, drp):
+    """KI on D = 4 row-block views of each golden table equals its plain
+    version block by block, and the blocks' sum equals KB on the whole
+    table for every non-EMPTY query (EMPTY queries match empty slots on
+    every level, so only the collective's semantics, not KB's, hold for
+    them)."""
+    from danbing_tk_tpu_torch.parallel.sharded_index import row_blocks
+
+    rng = np.random.default_rng(3)
+    keys = np.array(sorted(RPGG(os.path.join(GOLDEN, "pan")).dbi),
+                    dtype=np.uint64).view(np.int64)
+    q = np.concatenate([keys, rng.integers(0, 1 << 42, 5000),
+                        np.full(64, -1)])
+    qd = torch.from_numpy(q).to(cuda)
+    loc = torch.from_numpy(rng.integers(0, drp.nloci, len(q))).to(cuda)
+    real = qd != -1
+    tabs = drp.tables(cuda)
+    for name in ("dbi", "member", "trfl"):
+        ql = loc if tabs[name].composite else None
+        tot = torch.zeros((3, len(q)), dtype=torch.int64, device=cuda)
+        for block, meta in row_blocks(tabs[name], 4):
+            n0 = build.launch_counts()["KI"]
+            got = dt.lookup_bucket_owned(block, meta, qd, ql)
+            assert build.launch_counts()["KI"] == n0 + 1
+            want = dt.lookup_bucket_owned_plain(block, meta, qd, ql)
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert torch.equal(g, w), name
+                tot[i] += g.long() & 0xFFFFFFFF
+        f, v, v2 = dt.lookup_bucket(tabs[name], qd, ql)
+        assert torch.equal((tot[0] > 0)[real], f[real]), name
+        assert torch.equal(tot[1][real], v[real]), name
+        assert torch.equal(tot[2][real], v2[real]), name
+
+
+def test_kc_large_e_matches_plain(cuda, drp):
+    """KC's large-E mode (E = 4096: the vote's arrays in a global
+    workspace) equals pair_vote_plain on a step's real inputs."""
+    P, L, E = 512, 192, 4096
+    assert da.check_vote_shape(2 * (L - 20), E) == "large-E"
+    # pairs 1024-1535 of the golden reads (the first ~800 pairs hold no
+    # k-mer shared by many loci, so nothing there overflows E = 32)
+    codes, rlen = _reads(P, L, 2048)
+    cap = {}
+    step = da.make_step(drp, AlignConfig(**KW), P, L, expand_cap=32,
+                        device=cuda, capture=cap)
+    step(da.init_state(drp, cuda), codes, rlen, np.ones(P, dtype=bool))
+    args = list(cap["KC"])
+    args[5] = E
+    n0 = build.launch_counts()["KC[large-E]"]
+    got = da.pair_vote(*args)
+    assert build.launch_counts()["KC[large-E]"] == n0 + 1
+    want = da.pair_vote_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the pairs overflow E = 32 and fit E = 4096
+    assert bool((da.pair_vote_plain(*cap["KC"])[2] & 4).any())
+    assert not bool((want[2] & 4).any())
+
+
+def test_sharded_runner_golden_on_cuda(cuda, tmp_path):
+    """The sharded funnel on a world-1 NCCL group, index sharded, with
+    the retry ladder: the golden .trkmc.ar, KI launched."""
+    from danbing_tk_tpu_torch.parallel.runner import ShardedAlignRunner
+
+    build.reset_launch_counts()
+    run = ShardedAlignRunner(RPGG(os.path.join(GOLDEN, "pan")),
+                             AlignConfig(**KW), batch_pairs=64,
+                             max_read_len=192, expand_cap=128,
+                             retry_expand=512, shard_index=True,
+                             device=cuda)
+    run.run_file_native(os.path.join(GOLDEN, "reads.fa"), prefilter=True)
+    run.write_trkmc_ar(tmp_path / "out.trkmc.ar")
+    with open(os.path.join(GOLDEN, "out.trkmc.ar"), "rb") as f:
+        assert (tmp_path / "out.trkmc.ar").read_bytes() == f.read()
+    assert run.n_retried > 0 and build.launch_counts()["KI"] > 0
+
+
+def test_tables_uploaded_once_per_card(cuda, drp):
+    """"cuda" and "cuda:<current>" share one upload of the tables (the
+    sharded runner's mesh names the card with its index)."""
+    idx = torch.device("cuda", torch.cuda.current_device())
+    assert drp.tables(cuda) is drp.tables(idx)
+    assert drp.tables(cuda)["dbi"] is drp.tables(idx)["dbi"]

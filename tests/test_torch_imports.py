@@ -22,7 +22,9 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke
 for m in ("engine.threading", "engine.native_thread", "tools.scale_index",
           "tools.profile_funnel", "tools.ab_assign_count", "analysis.pred",
-          "tools.scale_pred", "tools.ab_bias_correct"):
+          "tools.scale_pred", "tools.ab_bias_correct", "parallel.mesh",
+          "parallel.sharded_index", "parallel.runner", "parallel.multihost",
+          "tools.multihost_worker"):
     assert pkg.__name__ + "." + m in sys.modules, m
 bad = sorted(n for n in sys.modules if n == "jax" or n.startswith("jax.")
              or n == "danbing_tk_tpu" or n.startswith("danbing_tk_tpu."))
@@ -79,10 +81,12 @@ def test_kernels_have_counters_and_notes():
 
     build.reset_launch_counts()
     counts = build.launch_counts()
+    # one count per kernel source, and KC's large-E instance beside KC
     assert counts == dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF",
-                                    "KG", "KH"), 0)
-    assert len(counts) == len(build.KERNELS)
+                                    "KG", "KH", "KI", "KC[large-E]"), 0)
+    assert len(counts) == len(build.KERNELS) + 1
     assert "bias_correct" in build.KERNELS
+    assert "sharded_lookup" in build.KERNELS
     for name in build.KERNELS:
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             src = f.read()

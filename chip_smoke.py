@@ -5,7 +5,7 @@
 
 Phases; any failure exits non-zero (nothing is caught and continued):
   1. environment: torch / CUDA / nvcc versions, the card and its power limit
-  2. build: the nine CUDA kernels (nvcc, in parallel, -Xptxas -v) and the
+  2. build: the ten CUDA kernels (nvcc, in parallel, -Xptxas -v) and the
      native host runtime and threading engine (g++); then the synthetic
      production-size index (danbing_tk_tpu_torch/tools/scale_index.py)
   3. every kernel of the counting step against its plain torch version on
@@ -46,6 +46,14 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      batched native engine through a host view of the loci's graphs (test
      data, built for the pool fragments' loci before the timed run);
      referee'd pairs are counted, not resolved
+ 6c. the error-correction site scorer on the same graph table: B = 8192
+     failure sites (a TR mate's first k-mer that is no out-neighbour of
+     the node before it in its source locus's graph) from phase 6's
+     funnel pairs, scored through make_site_scorer (KJ launched); KJ
+     against its plain version (exact) and both against the host oracle
+     score_site_np on the first 256 sites (same counters and edit
+     decisions); CUDA-event ms, us per site, the probes KJ makes per site
+     beside JAX's 21 + 62k, and the bound of the graph rows they read
   7. okam, bait, QC and bubbles: (a) the golden CLI on cuda with .kam
      output (the default) and -bu, with -fq -b -s 2 and with -qc -s 2, all
      outputs byte-equal, KF and KG launched; (b) after the graph table's
@@ -69,11 +77,12 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      (failing when the temp disk cannot hold 8 samples' inputs and
      outputs), byte-equal to the host oracle, with each span's seconds and
      the device's share of the wall
-  9. the kernels line (JSON): KA-KI and KC's large-E instance; each
+  9. the kernels line (JSON): KA-KJ and KC's large-E instance; each
      kernel's ``launches`` is the sum over its paths' runs (per path in
      ``launches_by_path``: the counting, sharded, threading and okam
-     funnel runs, and for KH the pred file run), the counts set to 0 just
-     before each run and read just after it
+     funnel runs and the site scorer's run, and for KH the pred file
+     run), the counts set to 0 just before each run and read just after
+     it
  10. the last line: {"ok": true, "device": {...}}
 
 Needs a CUDA card; exits 1 without one, or without the package beside it.
@@ -613,6 +622,10 @@ def align_phases(args, dev) -> dict:
         f"stats={trunner.state['stats'].cpu().tolist()} "
         f"launches={tlaunches}")
 
+    # ---- 6c. the error-correction site scorer (KJ) ----
+    results["KJ"], jlaunches = site_scorer_phase(
+        drp, dev, tbatches, src_loci, view, k, RL, kb_bytes)
+
     # ---- 7. okam, bait, QC and bubbles ----
     # (a) the golden CLI on cuda
     build.reset_launch_counts()
@@ -806,8 +819,125 @@ def align_phases(args, dev) -> dict:
         replaces="danbing_tk_tpu/engine/device_align.py:618")
     return dict(results=results, launches=launches, tlaunches=tlaunches,
                 olaunches=olaunches, slaunches=sharded["launches"],
+                jlaunches=jlaunches,
                 golden=(golden_counts, golden_thr_counts,
                         golden_okam_counts))
+
+
+def site_scorer_phase(drp, dev, tbatches, src_loci, view, k, RL, kb_bytes):
+    """Phase 6c: B = 8192 failure sites (the mates of one P = 4096 step)
+    from phase 6's TR pairs, scored on the scale graph table through
+    make_site_scorer (the launches counted), KJ held exactly against its
+    plain version and both against the host oracle score_site_np on the
+    first 256 sites.  Returns KJ's kernels-line entry and the launches."""
+    import numpy as np
+    import torch
+
+    from danbing_tk_tpu_torch.kernels import build
+    from danbing_tk_tpu_torch.ops import correct as cr
+    from danbing_tk_tpu_torch.tools.scale_index import _fwd_kmers
+
+    B, mes = 8192, 2
+    t_phase = t0 = time.time()
+    # a site: a mate's forward k-mers, the first ki >= 1 whose k-mer is no
+    # out-neighbour of k-mer ki - 1, a node of the source locus's graph
+    # (where the threading walk calls error correction), and that locus
+    sites, n_pairs = [], 0
+    for (codes, rlen, _), li in zip(tbatches, src_loci):
+        t = np.flatnonzero(li >= 0)
+        mates = np.stack([2 * t, 2 * t + 1], 1).ravel()
+        if (rlen[mates] != RL).any():
+            fail("phase 6c: a TR mate is not RL bases long")
+        ml = np.repeat(li[t], 2)
+        kms = _fwd_kmers(codes[mates, :RL], k)
+        ul = np.unique(ml)
+        gk = np.concatenate([(np.uint64(d) << np.uint64(42))
+                             | view.graphs[d][0] for d in ul.tolist()])
+        gm = np.concatenate([view.graphs[d][1] for d in ul.tolist()])
+        key = (ml.astype(np.uint64)[:, None] << np.uint64(42)) | kms
+        pos = np.searchsorted(gk, key).clip(max=len(gk) - 1)
+        hit = gk[pos] == key
+        bits = np.where(hit, gm[pos], 0).astype(np.int64)
+        bad = hit[:, :-1] & (((bits[:, :-1] >> (kms[:, 1:] & np.uint64(3))
+                               .astype(np.int64)) & 1) == 0)
+        rows = np.flatnonzero(bad.any(1))[:B - len(sites)]
+        ki = bad.argmax(1) + 1
+        sites += [(kms[r], int(ki[r]), int(ml[r])) for r in rows]
+        n_pairs += rows[-1] // 2 + 1 if len(sites) == B else len(t)
+        if len(sites) == B:
+            break
+    if len(sites) < B:
+        fail(f"phase 6c: {len(sites)} sites from {n_pairs} TR pairs")
+    w_lo, w_hi, nkrem, loc = cr.sites_to_batch(sites, k=k, B=B)
+    w = cr.join_w(w_lo, w_hi)
+    t_sites = time.time() - t0
+
+    # the path: make_site_scorer over the uploaded graph table
+    scorer = cr.make_site_scorer(drp, B, k=k, mes=mes, device=dev)
+    build.reset_launch_counts()
+    t0 = time.time()
+    got = scorer(w, nkrem, loc)
+    torch.cuda.synchronize()
+    t_first = time.time() - t0
+    jlaunches = build.launch_counts()
+    if jlaunches["KJ"] <= 0:
+        fail(f"the site scorer did not launch KJ: {jlaunches}")
+
+    gtab = drp.tables(dev, graph=True)["graph"]
+    args = [torch.from_numpy(a).to(dev) for a in (w, nkrem, loc)]
+
+    def kj():
+        return cr.score_sites(gtab, *args, k, mes)
+
+    def plain():
+        return cr.score_sites_plain(gtab, *args, k, mes)
+
+    want = plain()
+    err = max(max_abs_err(kj(), want), max_abs_err(got, want))
+    torch.cuda.synchronize()
+    if err != 0:
+        fail(f"KJ disagrees with its plain version (max |err| {err})")
+    # the host oracle on the view's arrays
+    gh = got[:256].cpu().numpy()
+    n_edit = 0
+    for i, (kms, ki, d) in enumerate(sites[:256]):
+        node, mask = view.graphs[d]
+
+        def gbits(km, node=node, mask=mask):
+            j = int(np.searchsorted(node, np.uint64(km)))
+            if j < len(node) and int(node[j]) == km:
+                return True, int(mask[j])
+            return False, 0
+
+        ref = cr.score_site_np(gbits, kms, ki, k, mes)
+        edit = cr.get_edit_from_counters(ref, mes)
+        if not np.array_equal(gh[i], ref) \
+                or cr.get_edit_from_counters(gh[i], mes) != edit:
+            fail(f"phase 6c: site {i} differs from the host oracle")
+        n_edit += edit[0] > 0
+    ms = cuda_ms(kj)
+    plain_ms = cuda_ms(plain, n=5, reps=2, warm=1)
+    # the bound: the distinct graph rows of the probes KJ makes (per level
+    # as KB's bound counts them), the sites' k-mers, nkrem and loc in, the
+    # counters out
+    site, q = cr.site_probes(gtab, *args, k, mes)
+    _, rows, reads = kb_bytes(gtab, q, args[2][site])
+    nbytes = rows * 8 * gtab.W * 4 + B * ((k + 3) * 8 + 8 + cr.NCHAINS * 4)
+    bound = nbytes / HBM_BYTES_PER_MS
+    log(f"[6c] KJ site_scorer match=True max_abs_err={err} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
+        f"us_per_site={1e3 * ms / B:.4f} (host engine ~1.1 ms per corrected "
+        f"read, PERF.md) sites={B} from {n_pairs} TR pairs (found in "
+        f"{t_sites:.1f}s) mes={mes} probes={len(q)} "
+        f"probes_per_site={len(q) / B:.2f} (JAX: 21 + 62k = "
+        f"{21 + 62 * k}) distinct_rows={rows} row_reads={reads} "
+        f"bytes={nbytes} nonzero_sites={int(got.any(1).sum())} "
+        f"oracle_sites=256 with_edit={n_edit} first_call_s={t_first:.3f} "
+        f"launches={jlaunches['KJ']} phase_s={time.time() - t_phase:.1f}")
+    return dict(match=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=None,
+                source="danbing_tk_tpu_torch/csrc/site_scorer.cu",
+                replaces="danbing_tk_tpu/ops/correct_jax.py:268"), jlaunches
 
 
 def sharded_phase(args, dev, ctx) -> dict:
@@ -1270,9 +1400,10 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "KC": "KC pair_vote", "KC[large-E]": "KC pair_vote[large-E]",
              "KD": "KD assign_count", "KE": "KE thread_walk",
              "KF": "KF read_filter", "KG": "KG novel_edges",
-             "KI": "KI sharded_lookup"}
+             "KI": "KI sharded_lookup", "KJ": "KJ site_scorer"}
     paths = {"counting": res["launches"], "sharded": res["slaunches"],
-             "threading": res["tlaunches"], "okam": res["olaunches"]}
+             "threading": res["tlaunches"], "okam": res["olaunches"],
+             "site_scorer": res["jlaunches"]}
     kern = [dict(name=names[t], route="cuda",
                  launches=sum(c[t] for c in paths.values()),
                  launches_by_path={p: c[t] for p, c in paths.items()},

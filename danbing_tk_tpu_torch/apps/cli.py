@@ -14,8 +14,10 @@ checkpoints (--checkpoint, --checkpoint-every),
     align --device --native-io [--prefilter] -gc T C [-a|-ae] [-s 2] \
         -qs PAN -fa READS -on OUT
 
-and raises NotImplementedError, naming the ROADMAP item, for any mode it
-does not run yet (-e, -tb, -t).  A run resumed from its checkpoint keeps
+(``--device --prefilter`` without ``--native-io`` runs the same native
+reader path, as the JAX CLI does) and raises NotImplementedError, naming
+the ROADMAP item, for any mode it does not run yet (-e, -tb, -t, and
+``--device`` with neither flag, or no ``--device``).  A run resumed from its checkpoint keeps
 the partial .kam, which the checkpoint truncates back to its high-water
 mark.
 
@@ -51,11 +53,13 @@ def _cmd_align(args):
         qth=args.qth,
         reads_per_batch=int(300000 * args.r),
     )
-    if not (args.device and args.native_io):
+    if (args.native_io or args.prefilter) and not args.device:
+        raise ValueError("--native-io/--prefilter need --device")
+    if not (args.device and (args.native_io or args.prefilter)):
         raise NotImplementedError(
             "the port runs the device engine over the native reader only "
-            "(--device --native-io); the Python-ingest and host-only "
-            "paths are not ported yet (ROADMAP: port queue)")
+            "(--device with --native-io or --prefilter); the Python-ingest "
+            "and host-only paths are not ported yet (ROADMAP: port queue)")
     if args.t:
         raise NotImplementedError("-t (trimmed TR k-mer DB) is not "
                                   "ported yet (ROADMAP: port queue)")

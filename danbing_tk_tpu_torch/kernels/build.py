@@ -39,13 +39,13 @@ NATIVE_SRCS = {"native": os.path.join(ROOT, "native", "dtk_native.cpp"),
 
 KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
            "thread_walk", "read_filter", "novel_edges", "bias_correct",
-           "sharded_lookup")
+           "sharded_lookup", "site_scorer")
 
-# launches of each kernel (KA-KI: KERNELS in order, and KC's large-E
+# launches of each kernel (KA-KJ: KERNELS in order, and KC's large-E
 # instance, which pair_vote.cu builds beside KC); its wrapper adds one
 # where it launches the kernel, and nowhere else
 LAUNCHES = dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF", "KG", "KH",
-                          "KI", "KC[large-E]"), 0)
+                          "KI", "KJ", "KC[large-E]"), 0)
 
 # no --use_fast_math: KH (bias_correct.cu) must divide and add in IEEE
 # round-to-nearest to give numpy's bytes
@@ -140,7 +140,7 @@ def kernel_lib(name: str) -> ctypes.CDLL:
 
 
 def launched(kernel: str) -> None:
-    """Counts one launch of ``kernel`` ("KA" ... "KI", "KC[large-E]")."""
+    """Counts one launch of ``kernel`` ("KA" ... "KJ", "KC[large-E]")."""
     LAUNCHES[kernel] += 1
 
 

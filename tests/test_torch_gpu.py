@@ -159,6 +159,68 @@ def test_kb_graph_kd_ke_match_plain_on_step_inputs(cuda, drp_graph):
         assert torch.equal(sk[key], sp[key]), key
 
 
+def _golden_sites(rp, rng, n, k=21):
+    """n failure sites [(kmers, ki, locus)] of golden-panel walks with a
+    substitution at ki, a NAN64 hole at ki + 2, a truncation or a NAN64
+    node (tests/test_torch_correct.py makes the same kinds)."""
+    from danbing_tk_tpu_torch.ops.correct import NAN64
+
+    rmask = (1 << (2 * (k - 1))) - 1
+    graphs = rp.load_graphs()
+    out = []
+    while len(out) < n:
+        li = int(rng.integers(0, rp.nloci))
+        g = graphs[li]
+        if not g:
+            continue
+        nodes = list(g)
+        cur = int(nodes[int(rng.integers(0, len(nodes)))])
+        kmers = [cur]
+        while len(kmers) < 60 and g.get(cur, 0):
+            bits, b = g[cur], int(rng.integers(0, 4))
+            while not (bits >> b) & 1:
+                b = (b + 1) % 4
+            cur = ((cur & rmask) << 2) | b
+            kmers.append(cur)
+        if len(kmers) < 13:
+            continue
+        ki, mode = int(rng.integers(1, len(kmers) - 3)), len(out) % 4
+        if mode == 0:
+            kmers[ki] ^= int(rng.integers(1, 4))
+        elif mode == 1:
+            kmers[ki + 2] = NAN64
+        elif mode == 2:
+            kmers = kmers[: ki + int(rng.integers(1, 4))]
+        else:
+            kmers[ki - 1] = NAN64
+        out.append((kmers, ki, li))
+    return out
+
+
+@pytest.mark.parametrize("mes", [2, 1])
+def test_kj_matches_plain(cuda, drp_graph, mes):
+    """KJ equals score_sites_plain on golden-panel sites with pad rows,
+    NAN64 holes and nodes, at mes 2 and 1; one launch per call."""
+    from danbing_tk_tpu_torch.ops import correct as cr
+
+    rp = RPGG(os.path.join(GOLDEN, "pan"))
+    B, k = 512, 21
+    sites = _golden_sites(rp, np.random.default_rng(mes), B - 37, k)
+    w_lo, w_hi, nkrem, loc = cr.sites_to_batch(sites, k=k, B=B)
+    gtab = drp_graph.tables(cuda, graph=True)["graph"]
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (cr.join_w(w_lo, w_hi), nkrem, loc)]
+    n0 = build.launch_counts()["KJ"]
+    got = cr.score_sites(gtab, *args, k, mes)
+    assert build.launch_counts()["KJ"] == n0 + 1
+    want = cr.score_sites_plain(gtab, *args, k, mes)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert bool(got[:B - 37].any()) and not bool(got[B - 37:].any())
+    scorer = cr.make_site_scorer(drp_graph, B, k=k, mes=mes)
+    assert torch.equal(scorer(cr.join_w(w_lo, w_hi), nkrem, loc), want)
+    assert build.launch_counts()["KJ"] == n0 + 2
+
+
 def test_golden_threading_on_cuda(cuda, tmp_path):
     build.reset_launch_counts()
     run = DeviceAlignRunner(RPGG(os.path.join(GOLDEN, "pan")),

@@ -24,7 +24,7 @@ for m in ("engine.threading", "engine.native_thread", "tools.scale_index",
           "tools.profile_funnel", "tools.ab_assign_count", "analysis.pred",
           "tools.scale_pred", "tools.ab_bias_correct", "parallel.mesh",
           "parallel.sharded_index", "parallel.runner", "parallel.multihost",
-          "tools.multihost_worker"):
+          "tools.multihost_worker", "ops.correct"):
     assert pkg.__name__ + "." + m in sys.modules, m
 bad = sorted(n for n in sys.modules if n == "jax" or n.startswith("jax.")
              or n == "danbing_tk_tpu" or n.startswith("danbing_tk_tpu."))
@@ -54,8 +54,19 @@ def test_cli_raises_without_card(monkeypatch, tmp_path):
     for extra in (["-e", "1"], ["-b", "-tb"], ["-t", "1"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(argv + extra + ["--torch-device", "cpu"])
+    # --device --prefilter without --native-io runs the native reader path,
+    # as the JAX CLI does; --native-io without --device is refused, and
+    # --device with neither flag is not ported
+    cli.main([a for a in argv if a != "--native-io"]
+             + ["-kf", "4", "1", "--torch-device", "cpu"])
+    with open(tmp_path / "o.trkmc.ar", "rb") as f, \
+            open(os.path.join(GOLDEN, "out.trkmc.ar"), "rb") as g:
+        assert f.read() == g.read()
+    with pytest.raises(ValueError, match="need --device"):
+        cli.main([a for a in argv if a != "--device"]
+                 + ["--torch-device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([a for a in argv if a != "--native-io"]
+        cli.main([a for a in argv if a not in ("--native-io", "--prefilter")]
                  + ["--torch-device", "cpu"])
     # pred, with or without the JAX CLI's --jax, needs the card too
     from danbing_tk_tpu_torch.tools.scale_pred import write_golden_cohort
@@ -83,10 +94,12 @@ def test_kernels_have_counters_and_notes():
     counts = build.launch_counts()
     # one count per kernel source, and KC's large-E instance beside KC
     assert counts == dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF",
-                                    "KG", "KH", "KI", "KC[large-E]"), 0)
+                                    "KG", "KH", "KI", "KJ", "KC[large-E]"),
+                                   0)
     assert len(counts) == len(build.KERNELS) + 1
     assert "bias_correct" in build.KERNELS
     assert "sharded_lookup" in build.KERNELS
+    assert "site_scorer" in build.KERNELS
     for name in build.KERNELS:
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             src = f.read()

@@ -13,7 +13,8 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      k = 21, E = 512, prefilter dispatch 4P), on the production-size
      index: KA, KB (dbi, member, trfl), KC and KD; exact equality
      required; CUDA-event times of kernel and plain version (median of
-     10 windows of 10 back-to-back calls)
+     10 windows of 10 back-to-back calls); KC's live entries and live
+     events per pair (mean, p99, max)
   4. golden end to end on cuda through the CLI: ``align --device
      --native-io --prefilter -ka`` (.trkmc.ar byte-equal) and the
      threading run ``-s 2 -gc 50 3 -a -on`` (.aln and .tr.kmers
@@ -31,8 +32,9 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      shapes, each block against its plain version and the blocks' sum
      against KB (non-EMPTY queries), CUDA-event times; (c) KC's large-E
      mode (E = 4096, P = _tier_P(4096) = 2048 overflow pairs of the TR
-     pool, the vote's arrays in a global workspace) against
-     pair_vote_plain; (d) phase 5's batches through ShardedAlignRunner
+     pool; 512 threads a pair, the tables in shared memory) against
+     pair_vote_plain, with what sets its work (live entries and events
+     per pair); (d) phase 5's batches through ShardedAlignRunner
      (shard_index, E = 512 -> [4096]): reads/s, retried pairs, the
      referee share beside phase 5's, the collectives' ms per step, peak
      memory; KI and KC[large-E] launched
@@ -137,6 +139,17 @@ def cuda_ms(fn, n: int = 10, reps: int = 10, warm: int = 3) -> float:
         ts.append(e0.elapsed_time(e1) / reps)
     ts.sort()
     return ts[len(ts) // 2]
+
+
+def vote_work_line(kc_args, E: int) -> str:
+    """What sets KC's work on these inputs: live entries and live events
+    per pair (tools/ab_vote_probe.vote_work)."""
+    from danbing_tk_tpu_torch.tools.ab_vote_probe import vote_work
+
+    kmer, val, use, _, vv = kc_args[:5]
+    w = vote_work(kmer, use, val, vv, E)
+    return " ".join(f"live_{k}/pair mean={v['mean']:.2f} p99={v['p99']:.0f} "
+                    f"max={v['max']:.0f}" for k, v in w.items())
 
 
 def max_abs_err(a, b) -> int:
@@ -370,7 +383,10 @@ def align_phases(args, dev) -> dict:
     kc = compare("KC pair_vote", lambda: da.pair_vote(*kc_args),
                  lambda: da.pair_vote_plain(*kc_args),
                  B * NKW * 17 + P * (1 + 10),
-                 f"P={P} W={2 * NKW} E={E} launches/step=1")
+                 f"P={P} W={2 * NKW} E={E} mode="
+                 f"{da.check_vote_shape(2 * NKW, E)} smem_bytes="
+                 f"{da.kc_smem_bytes(2 * NKW, E)} launches/step=1")
+    log(f"[3] KC work: {vote_work_line(kc_args, E)}")
     kd_args = cap["KD"]
     st_k = da.init_state(drp, dev)
     st_p = da.init_state(drp, dev)
@@ -1135,18 +1151,19 @@ def sharded_phase(args, dev, ctx) -> dict:
     if err:
         fail(f"KC[large-E] disagrees with pair_vote_plain (max |err| {err})")
     n_ovf4 = int(((got[2] & 4) != 0).sum())
-    kcl_ms = cuda_ms(lambda: da.pair_vote(*kc_args), n=5, reps=3, warm=1)
+    kcl_ms = cuda_ms(lambda: da.pair_vote(*kc_args))
     kcl_plain = cuda_ms(lambda: da.pair_vote_plain(*kc_args), n=3, reps=1,
                         warm=1)
     NKW = L - k + 1
     kcl_bound = (2 * Pt * NKW * 17 + Pt * 11) / HBM_BYTES_PER_MS
-    ws = Pt * da.kc_workspace_stride(2 * NKW, E4)
     log(f"[5s-c] KC pair_vote[large-E] P={Pt} W={2 * NKW} E={E4} "
         f"match=True max_abs_err=0 ms={kcl_ms:.4f} plain_ms={kcl_plain:.4f} "
-        f"bound_ms={kcl_bound:.4f} workspace_bytes={ws} "
-        f"(kc_smem_bytes={da.kc_smem_bytes(2 * NKW, E4)} > "
-        f"{da.SMEM_LIMIT}) overflow_pairs_from={n_batches} TR batches, "
-        f"still overflowing at E={E4}: {n_ovf4}")
+        f"bound_ms={kcl_bound:.4f} mode={mode} (512 threads a pair) "
+        f"smem_bytes={da.kc_smem_bytes(2 * NKW, E4)} (<= "
+        f"{da.SMEM_LIMIT - da.KC_STATIC_BYTES}; no workspace) "
+        f"overflow_pairs_from={n_batches} TR batches, still overflowing at "
+        f"E={E4}: {n_ovf4}")
+    log(f"[5s-c] KC work: {vote_work_line(kc_args, E4)}")
     kcl = dict(match=True, max_abs_err=0, ms=kcl_ms, plain_ms=kcl_plain,
                bound_ms=kcl_bound, bound_by="bytes", library_ms=None)
     del kc_args, parts, got, kcap, step

@@ -8,9 +8,9 @@ Pipeline per batch of P read pairs (2P reads, L columns):
    -> KA  extract_kmers: canonical int64 k-mers      (ops/kmers.py)
    -> KB  lookup_bucket on the kmerDBi table         (index/device_table.py)
    -> subfilter / kfilter                            (torch ops)
-   -> KC  pair_vote: per-pair dedupe sort, split CSR expansion, event sort
-          by (locus, -nm), segment totals, top / tie census, test1/test2,
-          referee bits, dst0                         (csrc/pair_vote.cu)
+   -> KC  pair_vote: per-pair run table by k-mer, split CSR expansion of
+          the vv-listed runs, per-locus totals, top / tie census,
+          test1/test2, referee bits, dst0           (csrc/pair_vote.cu)
    -> KF  read_filter (with -qc or -b): the QC mask, dev_pair, and the
           bait filter's per-read sorted k-mer counts probed against the
           (kmer, dst0) bait table             (csrc/read_filter.cu)
@@ -43,6 +43,8 @@ u32 as int32 bit patterns; stats: int64) is updated in place.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -59,10 +61,12 @@ NAN32 = 0xFFFFFFFF
 _I64MAX = (1 << 63) - 1
 _SIGN = -(1 << 63)
 _M32 = 0xFFFFFFFF
-# KC keeps a pair's whole vote in one block's shared memory up to the
-# opt-in limit of an H100 block (larger E: a global workspace)
+# KC keeps a pair's tables in one block's shared memory up to the opt-in
+# limit of an H100 block, less its static shared memory (larger E: a
+# global workspace); the main path's mode leaves room for four blocks an SM
 SMEM_LIMIT = 232448
-KC_THREADS = 256
+KC_STATIC_BYTES = 1024
+KC_SHARED_BYTES = SMEM_LIMIT // 4
 
 # ---------------------------------------------------------------------------
 # Host-side table construction from the RPGG (copied from the JAX module)
@@ -485,40 +489,71 @@ def pair_vote_plain(kmer, val, use, pair_kf, vv, E: int, cth: int):
     return dst0, vote_pass, pack
 
 
+def _r16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
 def kc_smem_bytes(W: int, E: int) -> int:
-    """Dynamic shared memory KC needs for a pair of W entries and E
-    expansion slots (csrc/pair_vote.cu lays out the same arrays)."""
-    WP = 1 << max(W - 1, 1).bit_length()
+    """Bytes of one pair's tables in KC for W entries and E expansion
+    slots (csrc/pair_vote.cu kc_layout lays them out; the wrapper checks
+    the two agree): a k-mer table of CE = 1.5 W and a locus table of
+    CL = 1.125 (W + E) 16-byte records (each rounded up to 32 records),
+    the distinct-locus list (W + E u32) and the odd-run arrays (28 W)."""
     EV = W + E
-    EVP = 1 << max(EV - 1, 1).bit_length()
-    # the kernel rounds each of its 21 arrays up to 16 B
-    return (WP * 16 + (W + 1) * 20 + EV * 24 + EVP * 20 + (EV + 1) * 4
-            + EV + (KC_THREADS + 64) * 8 + 21 * 16)
+    ce = (3 * W // 2 + 31) // 32 * 32
+    cl = (EV + EV // 8 + 31) // 32 * 32
+    return (16 * ce + 16 * cl + _r16(4 * EV) + 2 * _r16(8 * W)
+            + 3 * _r16(4 * W))
 
 
 def check_vote_shape(W: int, E: int) -> str:
-    """KC's mode for a pair of W entries and E expansion slots: "shared"
-    while its arrays fit a block's shared memory, else "large-E" (the
-    same arrays in a global workspace of kc_workspace_stride(W, E) bytes
-    per pair)."""
+    """KC's mode for a pair of W entries and E expansion slots, from the
+    shape alone: "shared" (128 threads a pair) while the tables leave room
+    for four blocks an SM, "large-E" (512 threads, the retry tier's
+    instance) while they fit one block's shared memory, else "global"
+    (512 threads, the tables in a global workspace of
+    kc_workspace_stride(W, E) bytes a pair; counted as KC[large-E] too)."""
     if W < 2 or E < 1:
         raise ValueError(f"pair_vote needs W >= 2 and E >= 1, got W={W}, "
                          f"E={E}")
-    return "shared" if kc_smem_bytes(W, E) <= SMEM_LIMIT else "large-E"
+    if W >= 1 << 16 or (W + E) * W >= 1 << 32:
+        # the per-run counts are u16 halves, the per-locus sums u32 halves
+        raise ValueError(f"pair_vote: W={W}, E={E} is past its counters")
+    b = kc_smem_bytes(W, E)
+    if b <= KC_SHARED_BYTES:
+        return "shared"
+    return "large-E" if b <= SMEM_LIMIT - KC_STATIC_BYTES else "global"
 
 
 def kc_workspace_stride(W: int, E: int) -> int:
-    """Bytes of one pair's slice of the large-E workspace (the shared
+    """Bytes of one pair's slice of the global-mode workspace (the shared
     layout, rounded up to 256 B)."""
     return -(-kc_smem_bytes(W, E) // 256) * 256
 
 
+_KC_MODES = {"shared": 0, "large-E": 1, "global": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _kc_layout_checked(NKW: int, E: int) -> int:
+    """kc_smem_bytes(2 NKW, E), once checked against the kernel's own
+    layout (csrc/pair_vote.cu dtk_pair_vote_bytes)."""
+    nbytes = kc_smem_bytes(2 * NKW, E)
+    need = bind(kernel_lib("pair_vote"), "dtk_pair_vote_bytes", "ii")
+    need.restype = ctypes.c_int64
+    if need(NKW, E) != nbytes:
+        raise RuntimeError("pair_vote: kc_smem_bytes disagrees with "
+                           "csrc/pair_vote.cu's layout")
+    return nbytes
+
+
 def pair_vote(kmer, val, use, pair_kf, vv, E: int, cth: int):
     """KC: the per-pair vote.  Same inputs and results as
-    ``pair_vote_plain``; one CUDA block per pair on the card, its arrays
-    in shared memory, or with an E too large for that (the retry
-    ladder's upper tiers) in a global workspace (counted as
-    "KC[large-E]")."""
+    ``pair_vote_plain``; one CUDA block per pair on the card, its tables
+    in shared memory, or with an E too large for that in a global
+    workspace.  The mode comes from the shape (check_vote_shape); the
+    main path's E counts as "KC", the retry tier's and any larger E
+    as "KC[large-E]"."""
     if kmer.device.type == "cpu":
         return pair_vote_plain(kmer, val, use, pair_kf, vv, E, cth)
     P, NKW = pair_kf.shape[0], kmer.shape[1]
@@ -534,22 +569,18 @@ def pair_vote(kmer, val, use, pair_kf, vv, E: int, cth: int):
     vote_pass = torch.empty(P, dtype=torch.bool, device=dev)
     pack = torch.empty(P, dtype=torch.uint8, device=dev)
     lib = kernel_lib("pair_vote")
-    if mode == "shared":
-        fn = bind(lib, "dtk_pair_vote", "ppppiipiiiipppp")
-        check(fn(ptr(kmer), ptr(val), ptr(use), ptr(pair_kf), P, NKW,
-                 ptr(vv), vv.shape[0], E, cth, kc_smem_bytes(2 * NKW, E),
-                 ptr(dst0), ptr(vote_pass), ptr(pack), stream_of(kmer)),
-              "pair_vote")
-        launched("KC")
-    else:
+    nbytes = _kc_layout_checked(NKW, E)
+    ws, stride = None, 0
+    if mode == "global":
         stride = kc_workspace_stride(2 * NKW, E)
         ws = torch.empty(max(P, 1) * stride, dtype=torch.uint8, device=dev)
-        fn = bind(lib, "dtk_pair_vote_global", "ppppiipiiipipppp")
-        check(fn(ptr(kmer), ptr(val), ptr(use), ptr(pair_kf), P, NKW,
-                 ptr(vv), vv.shape[0], E, cth, ptr(ws), stride, ptr(dst0),
-                 ptr(vote_pass), ptr(pack), stream_of(kmer)),
-              "pair_vote[large-E]")
-        launched("KC[large-E]")
+    fn = bind(lib, "dtk_pair_vote", "ppppiipiiiiipipppp")
+    check(fn(ptr(kmer), ptr(val), ptr(use), ptr(pair_kf), P, NKW, ptr(vv),
+             vv.shape[0], E, cth, _KC_MODES[mode], nbytes,
+             None if ws is None else ptr(ws), stride, ptr(dst0),
+             ptr(vote_pass), ptr(pack), stream_of(kmer)),
+          f"pair_vote[{mode}]")
+    launched("KC" if mode == "shared" else "KC[large-E]")
     return dst0, vote_pass, pack
 
 

@@ -42,7 +42,8 @@ KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
            "sharded_lookup", "site_scorer")
 
 # launches of each kernel (KA-KJ: KERNELS in order, and KC's large-E
-# instance, which pair_vote.cu builds beside KC); its wrapper adds one
+# instances, which pair_vote.cu builds beside KC: the retry tier's, and the
+# global-workspace mode past a block's shared memory); its wrapper adds one
 # where it launches the kernel, and nowhere else
 LAUNCHES = dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF", "KG", "KH",
                           "KI", "KJ", "KC[large-E]"), 0)

@@ -178,11 +178,13 @@ def test_unported_modes_raise(models):
 
 def test_vote_shape_limit():
     W = 2 * (256 - 21 + 1)
-    # the runner defaults fit a block's shared memory; a larger E (the
-    # retry ladder's upper tiers) takes KC's global-workspace mode
+    # the runner defaults take KC's main instance; the retry ladder's
+    # E = 4096 tier still fits a block's shared memory (its large-E
+    # instance); a larger E takes KC's global-workspace mode
     assert tda.check_vote_shape(W, 512) == "shared"
+    assert tda.check_vote_shape(W, 4096) == "large-E"
     assert tda.kc_smem_bytes(W, 16384) > tda.SMEM_LIMIT
-    assert tda.check_vote_shape(W, 16384) == "large-E"
+    assert tda.check_vote_shape(W, 16384) == "global"
     assert tda.kc_workspace_stride(W, 16384) % 256 == 0
     assert tda.kc_workspace_stride(W, 16384) >= tda.kc_smem_bytes(W, 16384)
     with pytest.raises(ValueError, match="E >= 1"):

@@ -20,6 +20,7 @@ from danbing_tk_tpu_torch.engine.host_align import AlignConfig, RPGG
 from danbing_tk_tpu_torch.index import device_table as dt
 from danbing_tk_tpu_torch.kernels import build
 from danbing_tk_tpu_torch.ops import kmers as km
+from test_torch_pair_vote import vote_cases
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 KW = dict(ksize=21, cth=20, n_filter=4, nm_filter=1, okam=False)
@@ -417,8 +418,9 @@ def test_ki_matches_plain_on_row_blocks(cuda, drp):
 
 
 def test_kc_large_e_matches_plain(cuda, drp):
-    """KC's large-E mode (E = 4096: the vote's arrays in a global
-    workspace) equals pair_vote_plain on a step's real inputs."""
+    """KC's large-E mode (E = 4096, the retry tier: 512 threads a pair,
+    the tables still in shared memory) equals pair_vote_plain on a step's
+    real inputs."""
     P, L, E = 512, 192, 4096
     assert da.check_vote_shape(2 * (L - 20), E) == "large-E"
     # pairs 1024-1535 of the golden reads (the first ~800 pairs hold no
@@ -439,6 +441,72 @@ def test_kc_large_e_matches_plain(cuda, drp):
     # the pairs overflow E = 32 and fit E = 4096
     assert bool((da.pair_vote_plain(*cap["KC"])[2] & 4).any())
     assert not bool((want[2] & 4).any())
+
+
+@pytest.mark.parametrize("NKW", [140, 7])
+@pytest.mark.parametrize("E", [512, 4096, 12000])
+def test_kc_adversarial_matches_plain(cuda, NKW, E):
+    """KC in each of its modes (E = 512: the main instance; E = 4096: the
+    retry tier's shared-memory instance; E = 12000: past a block's shared
+    memory, the global workspace) equals pair_vote_plain on the seeded
+    adversarial pairs of tests/test_torch_pair_vote.py: empty and
+    pair_kf-false pairs, all entries one k-mer, designed ties, vv runs
+    totalling E and E + 1 and one longer than E, dead NAN32 loci, values
+    varying within a run, EMPTY and INT64_MAX k-mers."""
+    mode = da.check_vote_shape(2 * NKW, E)
+    assert mode == {512: "shared", 4096: "large-E", 12000: "global"}[E]
+    kmer, val, use, kf, vv = [
+        torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+        for a in vote_cases(E + NKW, 9 * 64, NKW, E)]
+    cth = 20 if NKW == 140 else 2
+    key = "KC" if mode == "shared" else "KC[large-E]"
+    n0 = build.launch_counts()[key]
+    got = da.pair_vote(kmer, val, use, kf, vv, E, cth)
+    assert build.launch_counts()[key] == n0 + 1
+    want = da.pair_vote_plain(kmer, val, use, kf, vv, E, cth)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), mode
+
+
+@pytest.mark.parametrize("composite,nval", [(False, 2), (False, 0),
+                                            (True, 1), (False, 1),
+                                            (True, 2), (True, 0)])
+def test_kb_edge_cases_match_plain(cuda, composite, nval):
+    """KB on a dense seeded table of each row width (W = 4: dbi-like and
+    composite; W = 2: the member table; W = 3 and 5: the scalar path):
+    first- and second-level hits, misses through every level, EMPTY
+    queries, and for a composite table keys with a wrong locus."""
+    rng = np.random.default_rng(11 + 2 * composite + nval)
+    n = 20000
+    keys = np.unique(rng.integers(0, 1 << 62, n)).astype(np.uint64)
+    n = len(keys)
+    loci = rng.integers(0, 50, n).astype(np.uint32) if composite else None
+    vals = rng.integers(0, 1 << 32, n).astype(np.uint32) if nval else None
+    vals2 = rng.integers(0, 1 << 32, n).astype(np.uint32) \
+        if nval == 2 else None
+    tab = dt.build_bucket_table(keys, vals, loci, lam=7.0, vals2=vals2)
+    assert len(tab.levels) >= 2
+    dtab = dt.DevTable.upload(tab, cuda)
+    q = np.concatenate([keys.view(np.int64), rng.integers(0, 1 << 62, 5000),
+                        np.full(64, -1)])
+    qd = torch.from_numpy(q).to(cuda)
+    ql = None
+    if composite:
+        lq = np.concatenate([loci, rng.integers(0, 50, 5064)]).astype(
+            np.int64)
+        lq[: n // 10] += 1                       # a wrong locus: a miss
+        ql = torch.from_numpy(lq).to(cuda)
+    n0 = build.launch_counts()["KB"]
+    got = dt.lookup_bucket(dtab, qd, ql)
+    assert build.launch_counts()["KB"] == n0 + 1
+    want = dt.lookup_bucket_plain(dtab, qd, ql)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    first = dt.DevTable(dtab.levels[:1], dtab.salts[:1], dtab.composite,
+                        dtab.nval)
+    f0 = dt.lookup_bucket_plain(first, qd, ql)[0]
+    assert bool((want[0] & ~f0).any())            # second-level hits
+    assert bool((~want[0][n:n + 5000]).any())     # misses
 
 
 def test_sharded_runner_golden_on_cuda(cuda, tmp_path):

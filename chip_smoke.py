@@ -30,14 +30,16 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      --checkpoint, all byte-equal; (b) KI on D = 4 row-block views of the
      scale index's dbi, trfl and member tables at the main path's query
      shapes, each block against its plain version and the blocks' sum
-     against KB (non-EMPTY queries), CUDA-event times; (c) KC's large-E
+     against KB (non-EMPTY queries), CUDA-event times, and KI at D = 1
+     (every row owned) against KB on the same queries, timed in turns
+     beside it; (c) KC's large-E
      mode (E = 4096, P = _tier_P(4096) = 2048 overflow pairs of the TR
      pool; 512 threads a pair, the tables in shared memory) against
      pair_vote_plain, with what sets its work (live entries and events
      per pair); (d) phase 5's batches through ShardedAlignRunner
      (shard_index, E = 512 -> [4096]): reads/s, retried pairs, the
      referee share beside phase 5's, the collectives' ms per step, peak
-     memory; KI and KC[large-E] launched
+     memory; KI and KC[large-E] launched, KI's launches by table
   6. the production-size threading funnel (-gc 85 3): the index's graph
      table (the fa2kmers -g rule over the loci's sequences), built and
      uploaded only now, so the counting phases never hold it; the
@@ -398,10 +400,12 @@ def align_phases(args, dev) -> dict:
             fail(f"KD state {key} disagrees with the plain version")
     n_counted = int((st_k["counts"][:-1].long() & 0xFFFFFFFF).sum())
     n_slots = touched(st_k["counts"])
+    kd_blocks, kd_warps = da.assign_count_grid(P)
     kd = compare("KD assign_count", lambda: da.assign_count(st_k, *kd_args),
                  lambda: da.assign_count_plain(st_p, *kd_args),
                  B * NKW * 27 + B * (9 * 4 + 8) + P * 9 + n_slots * 8,
                  f"reads={B} counted_kmers={n_counted} slots={n_slots} "
+                 f"grid: blocks={kd_blocks} warps={kd_warps} "
                  f"launches/step=1")
     results = {
         "KA": dict(ka, source="danbing_tk_tpu_torch/csrc/kmers.cu",
@@ -554,7 +558,8 @@ def align_phases(args, dev) -> dict:
             lambda: da.assign_count(st_k, *kdt_args),
             lambda: da.assign_count_plain(st_p, *kdt_args),
             B * NKW * 36 + B * (9 * 4 + 8) + P * 9,
-            f"reads={B} writes tr_member + slot planes, no counts", phase=6)
+            f"reads={B} writes tr_member + slot planes, no counts "
+            f"grid: blocks={kd_blocks} warps={kd_warps}", phase=6)
     for key in ("counts", "nmapread", "kmc"):
         if st_k[key].any() or st_p[key].any():
             fail(f"KD in threading mode touched state {key}")
@@ -763,7 +768,8 @@ def align_phases(args, dev) -> dict:
                   lambda: da.assign_count_plain(st_p, *kda_args),
                   B * NKW * 28 + B * (9 * 4 + 8) + P * 10 + n_slots_a * 8,
                   f"reads={B} writes the ann plane, bf_pair in, slots="
-                  f"{n_slots_a} launches/step=1", phase=7)
+                  f"{n_slots_a} grid: blocks={kd_blocks} warps={kd_warps} "
+                  f"launches/step=1", phase=7)
     results["KF"] = dict(
         kf, source="danbing_tk_tpu_torch/csrc/read_filter.cu",
         replaces="danbing_tk_tpu/engine/device_align.py:990")
@@ -829,7 +835,8 @@ def align_phases(args, dev) -> dict:
 
     results["KI"] = dict(sharded["KI"],
                          source="danbing_tk_tpu_torch/csrc/sharded_lookup.cu",
-                         replaces="danbing_tk_tpu/parallel/sharded_index.py:53")
+                         replaces="danbing_tk_tpu/parallel/sharded_index.py:53",
+                         by_table=sharded["ki_all"])
     results["KC[large-E]"] = dict(
         sharded["KCL"], source="danbing_tk_tpu_torch/csrc/pair_vote.cu",
         replaces="danbing_tk_tpu/engine/device_align.py:618")
@@ -1113,9 +1120,38 @@ def sharded_phase(args, dev, ctx) -> dict:
             f"{int(real.sum())} non-EMPTY of {q.numel()} queries) "
             f"slowest_block={d_} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={bound:.4f} bytes={nbytes} owned_rows={rows}")
+        # D = 1 (the funnel's world-1 shape: every row owned) beside KB on
+        # the same queries: KI must give KB's answer, as int32 planes
+        blk1, meta1 = si.row_blocks(tab, 1)[0]
+        got1 = dt.lookup_bucket_owned(blk1, meta1, q, loc)
+        err1 = max(max_abs_err(got1, dt.lookup_bucket_owned_plain(
+            blk1, meta1, q, loc)), max_abs_err(
+            tuple(x.reshape(-1) for x in (got1[0] != 0,
+                                          got1[1].long() & 0xFFFFFFFF,
+                                          got1[2].long() & 0xFFFFFFFF)),
+            (f, v, v2)))
+        if err1:
+            fail(f"KI[{tname}] D=1 disagrees with its plain version or KB "
+                 f"(max |err| {err1})")
+        ki1, kb1 = [], []
+        for _ in range(3):                  # KI, KB, KB, KI, ...
+            ki1.append(cuda_ms(lambda: dt.lookup_bucket_owned(
+                blk1, meta1, q, loc)))
+            kb1 += [cuda_ms(lambda: dt.lookup_bucket(tab, q, loc))
+                    for _ in range(2)]
+            ki1.append(cuda_ms(lambda: dt.lookup_bucket_owned(
+                blk1, meta1, q, loc)))
+        ms1, kb_ms1 = float(np.median(ki1)), float(np.median(kb1))
+        nbytes1, rows1 = ki_bytes(meta1, blk1, q, loc)
+        log(f"[5s-b] KI sharded_lookup[{tname}] D=1 match=True "
+            f"max_abs_err=0 vs_KB_max_abs_err=0 ms={ms1:.4f} KB_ms="
+            f"{kb_ms1:.4f} (same queries, alternating) bound_ms="
+            f"{nbytes1 / HBM_BYTES_PER_MS:.4f} owned_rows={rows1}")
         ki_res[tname] = dict(match=True, max_abs_err=0, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound,
-                             bound_by="bytes", library_ms=None)
+                             bound_by="bytes", library_ms=None,
+                             d1_ms=ms1, d1_kb_ms=kb_ms1,
+                             d1_bound_ms=nbytes1 / HBM_BYTES_PER_MS)
 
     # ---- (c) KC large-E on overflow pairs of the TR pool ----
     E4 = 4096
@@ -1220,6 +1256,16 @@ def sharded_phase(args, dev, ctx) -> dict:
         f"gather) K15_finalize_merge_ms={k15_ms:.4f} (counts, {nslots} "
         f"slots, bound_ms={k15_bound:.4f}) memory_held_before={held} "
         f"max_memory_allocated={peak} stats={stats} launches={sl}")
+    # KI's launches by table: each step (tier steps too) probes dbi and
+    # trfl once, each prefilter dispatch the member table once
+    ki_n = dict(dbi=srunner.n_steps, trfl=srunner.n_steps,
+                member=sl["KI"] - 2 * srunner.n_steps)
+    for tname, r_ in ki_res.items():
+        r_["sharded_launches"] = ki_n[tname]
+        log(f"[5s-d] KI[{tname}] launches={ki_n[tname]} (of {sl['KI']}) "
+            f"D=4 slowest block ms={r_['ms']:.4f} bound_ms="
+            f"{r_['bound_ms']:.4f}; D=1 ms={r_['d1_ms']:.4f} bound_ms="
+            f"{r_['d1_bound_ms']:.4f} KB_ms={r_['d1_kb_ms']:.4f}")
     del srunner
     dist.destroy_process_group()
     return dict(KI=ki_res["dbi"], KCL=kcl, launches=sl, ki_all=ki_res)

@@ -5,25 +5,43 @@
 // the chip's 1/D row block of every level with a bucket-range mask, then
 // psum_scatter the int32 found/val/val2 planes).  The collectives stay in
 // torch.distributed (parallel/sharded_index.py); this kernel is the
-// middle step.  One thread per gathered query: per level it hashes with
-// the FULL level's bucket count (the block's own row count would send
-// every probe to the wrong row), skips the level unless the bucket lies in
-// [off, off + rows), and compares the 8 slots of the local row
-// b - off.  The probe stops at the first owned hit in level order, which
-// sets val/val2 (JAX probes every level, as shard_map runs them data-
-// parallel, and keeps the first hit's values: the same answer).
-// found/val/val2 come out as int32 planes, zero where this rank owns no
-// matching bucket, so the sum over ranks is the whole table's answer (a
-// real key lives in one bucket of one level, which exactly one rank
-// owns).
+// middle step.  Per level a query hashes with the FULL level's bucket
+// count (the block's own row count would send every probe to the wrong
+// row), skips the level unless the bucket lies in [off, off + rows), and
+// compares the 8 slots of the local row b - off.  The probe stops at the
+// first owned hit in level order, which sets val/val2 (JAX probes every
+// level, as shard_map runs them data-parallel, and keeps the first hit's
+// values: the same answer); an unowned level is skipped, not a miss that
+// ends the probe.  found/val/val2 come out as int32 planes, zero where
+// this rank owns no matching bucket, so the sum over ranks is the whole
+// table's answer (a real key lives in one bucket of one level, which
+// exactly one rank owns).
 //
 // Bound on the H100: bytes.  Each gathered query is read once (8 B, 16
-// with a locus), each owned (query, level) up to the query's first hit
-// reads one 8-slot row (128 B at W = 4) from a random place, and three
-// int32 planes are written.  The design reads rows through the read-only
-// cache and writes coalesced outputs; the row compare is bucket.cuh's,
-// shared with KB, KF and KG.
-#include "bucket.cuh"
+// with a locus), each owned (query, level) up to the query's first owned
+// hit reads one 8-slot row (128 B at W = 4) from a random place, and three
+// int32 planes are written; what the card gives for random rows is set by
+// how many are in flight.  The first design ran one thread per query that
+// compared its row with up to 32 dependent scalar loads: at D = 1 (every
+// row owned, the sharded funnel at world 1) it took twice KB's time on the
+// same queries.  Now the launch is chosen from the block's shape:
+//   * a block that holds every row of a non-composite table launches KB's
+//     group probe (group_probe.cuh: 8 lanes a query, one coalesced row
+//     load, repeated queries probed once), with int32 planes;
+//   * a block of 1/D of the rows keeps a lane a query, which skips an
+//     unowned level without a load (at D = 4 three lanes in four own no
+//     level-0 bucket, and 8-lane groups over the few owned queries left
+//     rounds of mostly idle groups), and reads an owned W = 4 or W = 2 row
+//     with 8 independent vector loads marked evict-first (__ldcs: a random
+//     row is read once), so every owned lane's row is in flight at once
+//     (on an H100, the same rows through group_probe.cuh's dtk_slot_match,
+//     which loads with __ldg, took 17% longer at D = 4);
+//   * a composite table (trfl) keeps bucket.cuh's scalar compare at every
+//     D: its queries are mostly (EMPTY, 0), one hot row that stays in L1,
+//     where the compare's short-circuit loads beat 8 vector loads a lane
+//     (on an H100, the D = 4 block that owns that row takes a third longer
+//     with vector loads, and the group probe at D = 1 is slower too).
+#include "group_probe.cuh"
 
 // A rank's row block of each level: the block's rows, the full level's
 // bucket mask and salt, and the block's first bucket and row count.
@@ -36,28 +54,68 @@ struct DtkBlock {
     int n;
 };
 
-__global__ void sharded_lookup_kernel(const int64_t* __restrict__ q,
-                                      const int64_t* __restrict__ qloc,
-                                      int64_t n, DtkBlock bl, int W,
-                                      int composite, int nval,
-                                      int32_t* __restrict__ found,
-                                      int32_t* __restrict__ val,
-                                      int32_t* __restrict__ val2) {
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+// A block that owns every row of a non-composite table: KB's group probe.
+template <int VW>
+__global__ void __launch_bounds__(DTK_PROBE_THREADS)
+whole_lookup_kernel(const int64_t* __restrict__ q,
+                    const int64_t* __restrict__ qloc, int64_t n,
+                    DtkLevels lv, int W, int composite, int nval,
+                    int32_t* __restrict__ found, int32_t* __restrict__ val,
+                    int32_t* __restrict__ val2) {
+    __shared__ uint8_t ulane[DTK_PROBE_THREADS / 32][32];
+    const int64_t base =
+        (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * 32;
+    if (base >= n) return;                       // whole warps
+    dtk_group_probe<VW>(q, qloc, n, base, lv, W, composite, nval, found, val,
+                        val2, ulane[threadIdx.x >> 5]);
+}
+
+// A lane a query over its owned levels: VW = 4 (lo, hi, val, val2) or 2
+// (lo, hi) rows as vector loads, VW = 0 with the scalar compare (any W,
+// composite rows).
+template <int VW>
+__global__ void __launch_bounds__(DTK_PROBE_THREADS)
+owned_lookup_kernel(const int64_t* __restrict__ q,
+                    const int64_t* __restrict__ qloc, int64_t n,
+                    DtkBlock lv, int W, int composite, int nval,
+                    int32_t* __restrict__ found, int32_t* __restrict__ val,
+                    int32_t* __restrict__ val2) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const uint64_t key = (uint64_t)q[i];
     const uint32_t lo = (uint32_t)key, hi = (uint32_t)(key >> 32);
     const uint32_t loc = composite ? (uint32_t)qloc[i] : 0u;
-    bool f = false;
-    uint32_t a = 0, b2 = 0;
-    for (int l = 0; l < bl.n && !f; ++l) {
-        const int64_t b = dtk_bucket(bl.salt[l], bl.mask[l], composite, lo,
+    uint32_t f = 0, a = 0, b2 = 0;
+    for (int l = 0; l < lv.n && !f; ++l) {
+        const int64_t b = dtk_bucket(lv.salt[l], lv.mask[l], composite, lo,
                                      hi, loc);
-        if (b < bl.off[l] || b >= bl.off[l] + bl.rows[l]) continue;
-        f = dtk_row_match(bl.t[l] + (size_t)(b - bl.off[l]) * 8 * W, W,
-                          composite, nval, lo, hi, loc, &a, &b2);
+        if (b < lv.off[l] || b >= lv.off[l] + lv.rows[l]) continue;
+        const uint32_t* row = lv.t[l] + (size_t)(b - lv.off[l]) * 8 * W;
+        if constexpr (VW == 0) {
+            f = dtk_row_match(row, W, composite, nval, lo, hi, loc, &a, &b2);
+        } else {
+#pragma unroll
+            for (int s = 0; s < 8; ++s) {
+                bool m;
+                uint32_t va = 0, vb = 0;
+                if constexpr (VW == 4) {
+                    const uint4 x = __ldcs((const uint4*)(row + s * 4));
+                    m = x.x == lo && x.y == hi;
+                    va = nval >= 1 ? x.z : 0u;
+                    vb = nval == 2 ? x.w : 0u;
+                } else {
+                    const uint2 x = __ldcs((const uint2*)(row + s * 2));
+                    m = x.x == lo && x.y == hi;
+                }
+                if (m) {
+                    f = 1;
+                    a = max(a, va);
+                    b2 = max(b2, vb);
+                }
+            }
+        }
     }
-    found[i] = f;
+    found[i] = (int32_t)f;
     val[i] = (int32_t)a;
     val2[i] = (int32_t)b2;
 }
@@ -72,20 +130,45 @@ DTK_EXPORT int dtk_sharded_lookup(const void* q, const void* qloc, int64_t n,
     if (nlev > DTK_MAXLEV) return (int)cudaErrorInvalidValue;
     DtkBlock bl;
     bl.n = (int)nlev;
+    bool whole = true;                   // the block owns every row
     for (int l = 0; l < bl.n; ++l) {
+        const int64_t nb = ((const int64_t*)nbs)[l];
         bl.t[l] = ((const uint32_t* const*)tabs)[l];
-        bl.mask[l] = (uint32_t)(((const int64_t*)nbs)[l] - 1);
+        bl.mask[l] = (uint32_t)(nb - 1);
         bl.salt[l] = (uint32_t)((const int64_t*)salts)[l];
         bl.off[l] = ((const int64_t*)offs)[l];
         bl.rows[l] = ((const int64_t*)rows)[l];
+        whole = whole && bl.off[l] == 0 && bl.rows[l] == nb;
     }
     const int W = 2 + (int)composite + (int)nval;
-    const int threads = 256;
-    if (n > 0)
-        sharded_lookup_kernel<<<dtk_grid(n, threads), threads, 0,
-                                (cudaStream_t)stream>>>(
-            (const int64_t*)q, (const int64_t*)qloc, n, bl, W,
-            (int)composite, (int)nval, (int32_t*)found, (int32_t*)val,
-            (int32_t*)val2);
+    // the vector loads need every level's rows aligned to a slot
+    const int VW = dtk_vector_width(bl, W);
+    const unsigned blocks =
+        (unsigned)((n + DTK_PROBE_THREADS - 1) / DTK_PROBE_THREADS);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (n > 0) {
+        const int64_t* qq = (const int64_t*)q;
+        const int64_t* ql = (const int64_t*)qloc;
+        int32_t *f = (int32_t*)found, *v = (int32_t*)val,
+                *v2 = (int32_t*)val2;
+#define DTK_KI_LAUNCH(K, L, V)                                             \
+    K<V><<<blocks, DTK_PROBE_THREADS, 0, st>>>(qq, ql, n, L, W,            \
+                                              (int)composite, (int)nval,  \
+                                              f, v, v2)
+        if (whole && !composite) {
+            DtkLevels lv;
+            dtk_levels(&lv, tabs, nbs, salts, nlev);
+            if (VW == 4) DTK_KI_LAUNCH(whole_lookup_kernel, lv, 4);
+            else if (VW == 2) DTK_KI_LAUNCH(whole_lookup_kernel, lv, 2);
+            else DTK_KI_LAUNCH(whole_lookup_kernel, lv, 0);
+        } else if (!composite && VW == 4) {
+            DTK_KI_LAUNCH(owned_lookup_kernel, bl, 4);
+        } else if (!composite && VW == 2) {
+            DTK_KI_LAUNCH(owned_lookup_kernel, bl, 2);
+        } else {
+            DTK_KI_LAUNCH(owned_lookup_kernel, bl, 0);
+        }
+#undef DTK_KI_LAUNCH
+    }
     return (int)cudaGetLastError();
 }

@@ -707,11 +707,20 @@ def assign_count_plain(state, found, val, annv, kvalid, afound_t, aval_t,
     return out
 
 
+def assign_count_grid(P: int) -> tuple:
+    """KD's launch for P pairs on the card: (blocks, warps), one warp a
+    read (builds the kernel library)."""
+    per = bind(kernel_lib("assign_count"), "dtk_assign_count_block_warps",
+               "")()
+    return -(-2 * P // per), 2 * P
+
+
 def assign_count(state, found, val, annv, kvalid, afound_t, aval_t,
                  dst0, dev_pair, kf, nk, loff, nloci: int, nm_tr: int,
                  threading: bool = False, bf_pair=None, annot: bool = False):
-    """KD: annotation, the sequential assignTRkmc scan per read and the
-    count scatter (u32 atomics).  Same contract as assign_count_plain."""
+    """KD: annotation, the assignTRkmc scan per read (a warp a read, as a
+    warp scan over chunks of 32 positions) and the count scatter (u32
+    atomics).  Same contract as assign_count_plain."""
     if found.device.type == "cpu":
         return assign_count_plain(state, found, val, annv, kvalid,
                                   afound_t, aval_t, dst0, dev_pair, kf, nk,

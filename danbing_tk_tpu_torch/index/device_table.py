@@ -407,8 +407,10 @@ def lookup_bucket_owned_plain(block: DevTable, meta, q: torch.Tensor,
 
 
 def lookup_bucket_owned(block: DevTable, meta, q: torch.Tensor, q_loc=None):
-    """KI: the probe of one rank's row blocks (one thread per query).
-    Same contract as lookup_bucket_owned_plain."""
+    """KI: the probe of one rank's row blocks (KB's group probe when the
+    block holds every row of a non-composite table, else a lane a query
+    over the owned levels only).  Same contract as
+    lookup_bucket_owned_plain."""
     if q.device.type == "cpu":
         return lookup_bucket_owned_plain(block, meta, q, q_loc)
     _check_block(block, meta)
@@ -416,13 +418,11 @@ def lookup_bucket_owned(block: DevTable, meta, q: torch.Tensor, q_loc=None):
         raise ValueError("queries must be int64 k-mers")
     if block.composite and q_loc is None:
         raise ValueError("a composite table needs q_loc")
-    if len(block.levels) > MAX_LEVELS:
-        raise ValueError(f"table has {len(block.levels)} levels "
-                         f"(kernels take <= {MAX_LEVELS})")
     for t in block.levels:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("row blocks must be contiguous, on the "
                              "queries' device")
+    args = owned_args(block, meta)
     shape = q.shape
     qf = q.reshape(-1).contiguous()
     n = qf.numel()
@@ -431,22 +431,31 @@ def lookup_bucket_owned(block: DevTable, meta, q: torch.Tensor, q_loc=None):
         lf = q_loc.reshape(-1).to(torch.int64).contiguous()
         if lf.numel() != n:
             raise ValueError("q_loc must match q")
-    out = torch.empty((3, n), dtype=torch.int32, device=q.device)
-    nlev = len(block.levels)
-
-    def arr(ctype, vals):
-        a = (ctype * MAX_LEVELS)(*vals)
-        return ctypes.cast(a, ctypes.c_void_p), a
-
-    tabs, _k1 = arr(ctypes.c_void_p, [t.data_ptr() for t in block.levels])
-    nbs, _k2 = arr(ctypes.c_int64, [m[1] for m in meta])
-    salts, _k3 = arr(ctypes.c_int64, [salt_constant(m[0]) for m in meta])
-    offs, _k4 = arr(ctypes.c_int64, [m[2] for m in meta])
-    rows, _k5 = arr(ctypes.c_int64, [m[3] for m in meta])
+    out = torch.empty(3 * n, dtype=torch.int32, device=q.device)
+    o = out.data_ptr()
     fn = bind(kernel_lib("sharded_lookup"), "dtk_sharded_lookup",
               "ppi" + "ppppp" + "iii" + "pppp")
-    check(fn(ptr(qf), None if lf is None else ptr(lf), n, tabs, nbs, salts,
-             offs, rows, nlev, int(block.composite), block.nval, ptr(out[0]),
-             ptr(out[1]), ptr(out[2]), stream_of(qf)), "sharded_lookup")
+    check(fn(qf.data_ptr(), None if lf is None else lf.data_ptr(), n, *args,
+             int(block.composite), block.nval, o, o + 4 * n, o + 8 * n,
+             stream_of(qf)), "sharded_lookup")
     launched("KI")
-    return out[0].view(shape), out[1].view(shape), out[2].view(shape)
+    return out.view(3, *shape).unbind(0)
+
+
+def owned_args(block: DevTable, meta) -> tuple:
+    """A rank's row blocks as dtk_sharded_lookup takes them (as
+    level_args, with KI's meta): the row pointers, the whole levels'
+    bucket counts, salt constants, the blocks' first buckets and row
+    counts, each a ctypes array cast to a pointer, and the level count."""
+    if len(block.levels) > MAX_LEVELS:
+        raise ValueError(f"table has {len(block.levels)} levels "
+                         f"(kernels take <= {MAX_LEVELS})")
+
+    def arr(ctype, vals):
+        return ctypes.cast((ctype * MAX_LEVELS)(*vals), ctypes.c_void_p)
+
+    return (arr(ctypes.c_void_p, [t.data_ptr() for t in block.levels]),
+            arr(ctypes.c_int64, [m[1] for m in meta]),
+            arr(ctypes.c_int64, [salt_constant(m[0]) for m in meta]),
+            arr(ctypes.c_int64, [m[2] for m in meta]),
+            arr(ctypes.c_int64, [m[3] for m in meta]), len(block.levels))

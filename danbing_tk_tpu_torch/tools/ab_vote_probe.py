@@ -1,10 +1,11 @@
-"""Same-call A/B of KC (the pair vote) and KB (the bucket probe) against
-another checkout's.
+"""Same-call A/B of KC (the pair vote), KB (the bucket probe) and KI (the
+sharded owned-row probe) against another checkout's.
 
     python -m danbing_tk_tpu_torch.tools.ab_vote_probe --parent DIR
-        [--nloci N] [--pairs N] [--seed S] [--no-graph]
+        [--nloci N] [--pairs N] [--seed S] [--no-graph] [--no-vote]
 
-Builds ``DIR/danbing_tk_tpu_torch/csrc/{pair_vote,bucket_lookup}.cu``
+Builds ``DIR/danbing_tk_tpu_torch/csrc/{pair_vote,bucket_lookup,
+sharded_lookup}.cu``
 (another checkout, e.g. the parent commit unpacked with ``git archive``;
 its KC takes the layout of one 256-thread block per pair, in shared
 memory up to a block's limit, else in a global workspace) beside this
@@ -17,10 +18,17 @@ counting step's inputs at P = 4096, L = 160, k = 21, E = 512 and times:
   batches as ``chip_smoke.py`` phase 5s-c draws them);
 * KB on the step's dbi and trfl probes, the prefilter's member probe
   (4P pairs, 5% from the TR pool) and, unless ``--no-graph``, the
-  threading step's graph probe.
+  threading step's graph probe;
+* KI on the same dbi, trfl and member queries, on each of the D = 4 row
+  blocks of the table and on the one block of D = 1 (every row owned:
+  the sharded funnel at world 1).
+
+``--no-vote`` leaves KC out.
 
 Each input set is first run through both builds, which must give the same
-bytes.  Both sides are the same bare ctypes call (no wrapper), each time is
+bytes.  Both sides are the same bare ctypes call (no wrapper; KB's and KI's
+arguments are built once per input set, so a window of their short
+launches times the card, not the host), each time is
 the median over 10 CUDA-event windows of 20 back-to-back launches divided
 by 20 (5 windows of 3 for the parent's E = 4096), in ``--pairs``
 alternating pairs (parent first in even pairs).  Prints the card, both
@@ -33,7 +41,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 
 import numpy as np
 import torch
@@ -43,7 +50,8 @@ from ..engine.host_align import AlignConfig
 from ..index import device_table as dt
 from ..io.native_reader import sample_queries
 from ..kernels import build
-from .ab_assign_count import _ms_per_launch
+from ..parallel.sharded_index import row_blocks
+from .ab_assign_count import ab_pairs, card_name
 from .scale_index import build_scale_graph, build_scale_rpgg, \
     sample_read_batch
 
@@ -110,19 +118,18 @@ def main(argv=None):
     ap.add_argument("--pairs", type=int, default=6)
     ap.add_argument("--seed", type=int, default=9)
     ap.add_argument("--no-graph", action="store_true")
+    ap.add_argument("--no-vote", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("ab_vote_probe needs a CUDA card")
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = card_name()
     print(f"card: {smi}", flush=True)
     libs, regs = {}, {}
     for side, root in (("parent", os.path.join(
             args.parent, "danbing_tk_tpu_torch", "csrc")),
             ("change", build.CSRC)):
-        for name in ("pair_vote", "bucket_lookup"):
+        for name in ("pair_vote", "bucket_lookup", "sharded_lookup"):
             libs[side, name], regs[side, name] = build.build_ab(
                 os.path.join(root, f"{name}.cu"), f"{side}_{name}")
             print(f"{side} {name} ptxas: {regs[side, name]}", flush=True)
@@ -146,10 +153,12 @@ def main(argv=None):
     probes = {"dbi": cap["KB_dbi"] + (None,), "trfl": cap["KB_trfl"],
               "member": (tabs["member"], torch.from_numpy(
                   da.query_int64(qlo, qhi)).to(dev), None)}
-    vote_sets = {512: list(cap["KC"][:5])}
-    vote_sets[4096] = overflow_pairs(
-        drp, seqs, cfg, P, L, RL, 2048,
-        np.random.default_rng([args.seed, 6]), dev)
+    vote_sets = {}
+    if not args.no_vote:
+        vote_sets[512] = list(cap["KC"][:5])
+        vote_sets[4096] = overflow_pairs(
+            drp, seqs, cfg, P, L, RL, 2048,
+            np.random.default_rng([args.seed, 6]), dev)
     if not args.no_graph:
         drp.graph_tab, _ = build_scale_graph(seqs, verbose=False)
         tcfg = AlignConfig(ksize=k, cth=20, n_filter=4, nm_filter=1,
@@ -189,13 +198,35 @@ def main(argv=None):
                                                  stride, *tail)
         build.check(err, f"{side} pair_vote")
 
-    def probe_call(side, tab, q, loc, outs):
-        err = build.bind(libs[side, "bucket_lookup"], "dtk_bucket_lookup",
-                         "ppipppiiipppp")(
-            build.ptr(q), None if loc is None else build.ptr(loc),
-            q.numel(), *dt.level_args(tab), int(tab.composite), tab.nval,
-            *[build.ptr(t) for t in outs], build.stream_of(q))
-        build.check(err, f"{side} bucket_lookup")
+    def probe_call(tab, q, loc, outs):
+        """KB's launch on both sides, its arguments built once."""
+        args = {s: (build.bind(libs[s, "bucket_lookup"], "dtk_bucket_lookup",
+                               "ppipppiiipppp"),
+                    (q.data_ptr(), None if loc is None else loc.data_ptr(),
+                     q.numel(), *dt.level_args(tab), int(tab.composite),
+                     tab.nval, *[t.data_ptr() for t in outs[s]],
+                     build.stream_of(q))) for s in ("parent", "change")}
+
+        def call(side):
+            fn, a = args[side]
+            build.check(fn(*a), f"{side} bucket_lookup")
+        return call
+
+    def owned_call(blk, meta, q, loc, outs):
+        """KI's launch on both sides, its arguments built once."""
+        la = dt.owned_args(blk, meta)
+        args = {s: (build.bind(libs[s, "sharded_lookup"],
+                               "dtk_sharded_lookup",
+                               "ppi" + "ppppp" + "iii" + "pppp"),
+                    (q.data_ptr(), None if loc is None else loc.data_ptr(),
+                     q.numel(), *la, int(blk.composite), blk.nval,
+                     *[t.data_ptr() for t in outs[s]], build.stream_of(q)))
+                for s in ("parent", "change")}
+
+        def call(side):
+            fn, a = args[side]
+            build.check(fn(*a), f"{side} sharded_lookup")
+        return call
 
     parent_ws: dict = {}
     cases = []
@@ -223,8 +254,21 @@ def main(argv=None):
                     for dt_ in (torch.bool, torch.int64, torch.int64)]
                 for s in ("parent", "change")}
         cases.append((f"KB {name} queries={qf.numel()}", outs,
-                      lambda s, tab=tab, qf=qf, lf=lf, outs=outs:
-                      probe_call(s, tab, qf, lf, outs[s]), (10, 20)))
+                      probe_call(tab, qf, lf, outs), (10, 20)))
+    for name in ("dbi", "trfl", "member"):
+        tab, q, loc = probes[name]
+        qf = q.reshape(-1).contiguous()
+        lf = None if loc is None else loc.reshape(-1).to(
+            torch.int64).contiguous()
+        for D in (1, 4):
+            for d_, (blk, meta) in enumerate(row_blocks(tab, D)):
+                outs = {s: [torch.empty(qf.numel(), dtype=torch.int32,
+                                        device=dev) for _ in range(3)]
+                        for s in ("parent", "change")}
+                cases.append((f"KI {name} D={D} block={d_} "
+                              f"queries={qf.numel()}", outs,
+                              owned_call(blk, meta, qf, lf, outs),
+                              (10, 20)))
 
     for name, outs, call, (n, reps) in cases:
         for side in ("parent", "change"):
@@ -233,23 +277,7 @@ def main(argv=None):
         for a, b in zip(outs["parent"], outs["change"]):
             if not torch.equal(a, b):
                 raise RuntimeError(f"{name}: the two builds disagree")
-        ms = {"parent": [], "change": []}
-        for i in range(args.pairs):
-            order = ("parent", "change") if i % 2 == 0 else \
-                ("change", "parent")
-            for side in order:
-                ms[side].append(_ms_per_launch(lambda s=side: call(s),
-                                               reps=reps, n=n))
-            print(f"{name} pair {i} {order[0]} first: "
-                  f"parent={ms['parent'][-1]:.4f} "
-                  f"change={ms['change'][-1]:.4f}", flush=True)
-        wins = sum(c < p for p, c in zip(ms["parent"], ms["change"]))
-        for side, v in ms.items():
-            q1, med, q3 = np.percentile(v, [25, 50, 75])
-            print(f"{name} {side}: median={med:.4f} ms q1={q1:.4f} "
-                  f"q3={q3:.4f}", flush=True)
-        print(f"{name}: change faster in {wins} of {args.pairs} pairs; "
-              f"card {smi}", flush=True)
+        ab_pairs(name, call, args.pairs, smi, reps=reps, n=n)
 
 
 if __name__ == "__main__":

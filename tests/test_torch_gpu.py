@@ -20,6 +20,7 @@ from danbing_tk_tpu_torch.engine.host_align import AlignConfig, RPGG
 from danbing_tk_tpu_torch.index import device_table as dt
 from danbing_tk_tpu_torch.kernels import build
 from danbing_tk_tpu_torch.ops import kmers as km
+from test_torch_assign_count import kd_cases, kd_run
 from test_torch_pair_vote import vote_cases
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -533,3 +534,107 @@ def test_tables_uploaded_once_per_card(cuda, drp):
     idx = torch.device("cuda", torch.cuda.current_device())
     assert drp.tables(cuda) is drp.tables(idx)
     assert drp.tables(cuda)["dbi"] is drp.tables(idx)["dbi"]
+
+
+@pytest.mark.parametrize("NKW", [1, 31, 33, 140, 172, 300])
+@pytest.mark.parametrize("mode", ["counting", "annot", "threading",
+                                  "no_bait"])
+def test_kd_adversarial_matches_plain(cuda, NKW, mode):
+    """KD in each instance equals assign_count_plain on the seeded
+    adversarial reads of tests/test_torch_assign_count.py (no known
+    position, alternating annotations, nt 1-3 after bs 1 and 2, ntr at
+    nm_tr - 1 and nm_tr, kf == 1 and bait-filtered pairs, dev_pair false,
+    dst0 = nloci and NAN32, one slot over a read, counts at the u32 wrap):
+    the nine fields, counts / nmapread / kmc, and the ann, tr_member and
+    slot planes; NKW 1 to 300 covers a partial chunk, reads shorter than
+    a warp and reads past the register chunks."""
+    case = kd_cases(7, 256, NKW)
+    kw = dict(threading=mode == "threading", annot=mode == "annot",
+              bait=mode != "no_bait")
+    n0 = build.launch_counts()["KD"]
+    got, gst = kd_run(case, cuda, **kw)
+    assert build.launch_counts()["KD"] == n0 + 1
+    want, wst = kd_run(case, "cpu", **kw)
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key].cpu(), want[key]), key
+    for key in wst:
+        assert torch.equal(gst[key].cpu(), wst[key]), key
+    if mode != "threading":
+        assert not torch.equal(wst["counts"],
+                               torch.from_numpy(case["counts"]))
+
+
+def _ki_table(rng, composite, nval, n=20000):
+    keys = np.unique(rng.integers(0, 1 << 62, n)).astype(np.uint64)
+    loci = rng.integers(0, 50, len(keys)).astype(np.uint32) \
+        if composite else None
+    vals = rng.integers(0, 1 << 32, len(keys)).astype(np.uint32) \
+        if nval else None
+    vals2 = rng.integers(0, 1 << 32, len(keys)).astype(np.uint32) \
+        if nval == 2 else None
+    return keys, loci, dt.build_bucket_table(keys, vals, loci, lam=7.0,
+                                             vals2=vals2)
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("composite,nval", [(False, 2), (True, 1),
+                                            (False, 0)])
+def test_ki_edge_cases_match_plain(cuda, D, composite, nval):
+    """KI on each of D row blocks of a dense seeded table (W = 4 dbi-like,
+    the composite trfl layout, the W = 2 member table) equals
+    lookup_bucket_owned_plain, and the blocks' sum equals KB for every
+    non-EMPTY query: first- and second-level keys (among them keys whose
+    level-0 bucket one rank owns and whose level-1 hit another owns),
+    misses, EMPTY queries, wrong loci, and tiles of one repeated query."""
+    from danbing_tk_tpu_torch.parallel.sharded_index import row_blocks
+
+    rng = np.random.default_rng(21 + D + 2 * composite + nval)
+    keys, loci, tab = _ki_table(rng, composite, nval)
+    n = len(keys)
+    assert len(tab.levels) >= 2
+    dtab = dt.DevTable.upload(tab, cuda)
+    # 64 copies of one key and 64 EMPTY queries fill 32-query tiles
+    q = np.concatenate([keys.view(np.int64), rng.integers(0, 1 << 62, 5000),
+                        np.full(32, -1), np.full(64, keys[7].view(np.int64)),
+                        np.full(64, -1)])
+    qd = torch.from_numpy(q).to(cuda)
+    ql = None
+    if composite:
+        lq = np.concatenate([loci, rng.integers(0, 50, len(q) - n)]).astype(
+            np.int64)
+        lq[: n // 10] += 1                        # a wrong locus: a miss
+        lq[-128:-64] = loci[7]
+        ql = torch.from_numpy(lq).to(cuda)
+    real = qd != -1
+    tot = torch.zeros((3, len(q)), dtype=torch.int64, device=cuda)
+    owners = []
+    for block, meta in row_blocks(dtab, D):
+        n0 = build.launch_counts()["KI"]
+        got = dt.lookup_bucket_owned(block, meta, qd, ql)
+        assert build.launch_counts()["KI"] == n0 + 1
+        want = dt.lookup_bucket_owned_plain(block, meta, qd, ql)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        for i, g in enumerate(got):
+            tot[i] += g.long() & 0xFFFFFFFF
+        owners.append(got[0].bool())
+    f, v, v2 = dt.lookup_bucket(dtab, qd, ql)
+    assert torch.equal((tot[0] > 0)[real], f[real])
+    assert torch.equal(tot[1][real], v[real])
+    assert torch.equal(tot[2][real], v2[real])
+    # second-level hits whose level-0 bucket lies in another block
+    first = dt.DevTable(dtab.levels[:1], dtab.salts[:1], dtab.composite,
+                        dtab.nval)
+    lv2 = f & ~dt.lookup_bucket_plain(first, qd, ql)[0]
+    assert bool(lv2.any())
+    if D > 1:
+        lo, hi = qd & 0xFFFFFFFF, (qd >> 32) & 0xFFFFFFFF
+        lc = None if ql is None else ql & 0xFFFFFFFF
+        b0 = dt.bucket_index(lo, hi, lc, dtab.salts[0],
+                             dtab.levels[0].shape[0])
+        rows0 = dtab.levels[0].shape[0] // D
+        cross = torch.zeros_like(lv2)
+        for d_, own in enumerate(owners):
+            cross |= lv2 & own & (b0 // rows0 != d_)
+        assert bool(cross.any())

@@ -11,7 +11,8 @@ Phases; any failure exits non-zero (nothing is caught and continued):
   3. every kernel of the counting step against its plain torch version on
      the same inputs at the main path's shapes (P = 4096 pairs, L = 160,
      k = 21, E = 512, prefilter dispatch 4P), on the production-size
-     index: KA, KB (dbi, member, trfl), KC and KD; exact equality
+     index: KA (the counting instance the step launches, and the
+     all-planes instance), KB (dbi, member, trfl), KC and KD; exact equality
      required; CUDA-event times of kernel and plain version (median of
      10 windows of 10 back-to-back calls); KC's live entries and live
      events per pair (mean, p99, max)
@@ -63,7 +64,8 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      outputs byte-equal, KF and KG launched; (b) after the graph table's
      device copy is dropped, the index's tre table (the fa2kmers tre
      rule), a bait table of 64 of each locus's own k-mers and a QC mask
-     failing 5% of the loci; KF, KG and KD with the ann plane against
+     failing 5% of the loci; KF (bait, and its QC-only instance), KG and
+     KD with the ann plane against
      their plain versions as in phase 3, on TR pairs with 0.5%
      substitutions; (c) >= 1M pairs through the okam funnel (-s 2 -b -qc
      -bu, simmode-2 titles, 5% TR pool with 0.5% substitutions): .kam
@@ -362,12 +364,23 @@ def align_phases(args, dev) -> dict:
                 + R // 2 * 2 + 8 * (n_slots + 1)), walked, counted
 
     B = 2 * P
-    ka_c, ka_r, _ = cap["KA"]
-    ka = compare("KA extract_kmers",
-                 lambda: km.extract_kmers(ka_c, ka_r, k),
-                 lambda: km.extract_kmers_plain(ka_c, ka_r, k),
-                 B * L + 4 * B + B * NKW * 17 + B * (NKW - 1) * 9 + 5 * B,
-                 f"shape=({B},{L}) launches/step=1")
+    # KA's counting instance (what the counting step launches: kmer,
+    # kvalid, nk, any_valid) and its all-planes instance (nc for
+    # threading, the edges for bubbles)
+    ka_c, ka_r, _, ka_nc, ka_edges = cap["KA"]
+    if ka_nc or ka_edges:
+        fail(f"the counting step asked KA for nc={ka_nc} edges={ka_edges}")
+    ka = compare("KA extract_kmers[counting]",
+                 lambda: km.extract_kmers(ka_c, ka_r, k, False, False),
+                 lambda: km.extract_kmers_plain(ka_c, ka_r, k, False, False),
+                 B * L + 4 * B + B * NKW * 9 + 5 * B,
+                 f"shape=({B},{L}) launch={km.kmers_launch(B, L)} "
+                 f"launches/step=1")
+    compare("KA extract_kmers[all-planes]",
+            lambda: km.extract_kmers(ka_c, ka_r, k),
+            lambda: km.extract_kmers_plain(ka_c, ka_r, k),
+            B * L + 4 * B + B * NKW * 17 + B * (NKW - 1) * 9 + 5 * B,
+            f"shape=({B},{L}) launches/step=1 with -bu and threading")
     kb = {}
     mtab = tabs["member"]
     for tname, (tab, q, loc) in (
@@ -735,8 +748,14 @@ def align_phases(args, dev) -> dict:
                  + P * (10 + 1 + 11),
                  f"pairs={P} dev_pairs={int(dp.sum())} bait_filtered="
                  f"{int(bfp.sum())} qc_dropped={int(qd.sum())} run_starts="
-                 f"{bq.numel()} distinct_bait_rows={brows} launches/step=1",
+                 f"{bq.numel()} distinct_bait_rows={brows} launch="
+                 f"{da.read_filter_launch(P, NKW, True)} launches/step=1",
                  phase=7)
+    kfq_args = kf_args[:6] + (None,) + kf_args[7:]
+    compare("KF read_filter[qc-only]", lambda: da.read_filter(*kfq_args),
+            lambda: da.read_filter_plain(*kfq_args), P * (11 + 11),
+            f"pairs={P} launch={da.read_filter_launch(P, NKW, False)} "
+            f"launches/step=1 with -qc and no -b", phase=7)
     kg_args = ocap["KG"]
     edge_, evalid_, si__, ei__, rm_, counted_, dst0g, tre_ = kg_args
     NE = edge_.shape[1]

@@ -1,6 +1,7 @@
 // The cooperative bucket-table probe of KB (bucket_lookup.cu), which KI
 // (sharded_lookup.cu) also launches for a row block that holds every row
-// of a non-composite table (D = 1, the sharded funnel at world 1).
+// of a non-composite table (D = 1, the sharded funnel at world 1); KF
+// (read_filter.cu) probes in the same layout with its group max.
 //
 // A row of 8 slots (8 * W u32: 128 B at W = 4, 64 B for the member
 // table's W = 2) lands in a random place, so what bounds a probe is how

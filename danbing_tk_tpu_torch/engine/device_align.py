@@ -5,15 +5,18 @@ kernels on the card and their plain torch versions on the CPU.
 Pipeline per batch of P read pairs (2P reads, L columns):
 
   codes (2P, L) u8
-   -> KA  extract_kmers: canonical int64 k-mers      (ops/kmers.py)
+   -> KA  extract_kmers: canonical int64 k-mers, and only where the
+          mode reads them the forward k-mers (threading) and the
+          (k+1)-mer edges (bubbles)                 (ops/kmers.py)
    -> KB  lookup_bucket on the kmerDBi table         (index/device_table.py)
    -> subfilter / kfilter                            (torch ops)
    -> KC  pair_vote: per-pair run table by k-mer, split CSR expansion of
           the vv-listed runs, per-locus totals, top / tie census,
           test1/test2, referee bits, dst0           (csrc/pair_vote.cu)
    -> KF  read_filter (with -qc or -b): the QC mask, dev_pair, and the
-          bait filter's per-read sorted k-mer counts probed against the
-          (kmer, dst0) bait table             (csrc/read_filter.cu)
+          bait filter's per-read k-mer counts (a shared-memory hash
+          table) probed against the (kmer, dst0) bait table
+                                                     (csrc/read_filter.cu)
    -> KB  lookup_bucket on the (kmer, dst0) trfl table for vv k-mers
    -> KD  assign_count: annotation (and the .kam ann plane with
           with_annot), the assignTRkmc scan, count atomics
@@ -915,9 +918,33 @@ def read_filter_plain(kmer, qmask, dst0, vote_pass, pack, qc, bait,
     return dev_pair, qc_drop, bf.int(), bf.view(P, 2).any(1)
 
 
+KF_WARPS = 8              # warps a block, 2 a pair (csrc/read_filter.cu)
+SMEM_MAX = 232448         # a block's shared memory on the H100
+
+
+def read_filter_launch(P: int, NKW: int, bait: bool) -> tuple:
+    """KF's launch for P pairs of NKW k-mer positions a read
+    (csrc/read_filter.cu kf_table_slots, kf_block_warps): (blocks,
+    threads, dynamic shared bytes).  With a bait table, a warp a read, a
+    pair's mates in adjacent warps, and per warp the staged row (8 B a
+    position) and a table of TS u32 words, TS the power of two >= 1.25 NKW
+    + 1 (at least 32); fewer warps a block where eight pass a block's
+    shared memory.  QC only: a thread a pair."""
+    if not bait:
+        return -(-P // 256), 256, 0
+    ts = 32
+    while ts < NKW + NKW // 4 + 1:
+        ts *= 2
+    w = KF_WARPS
+    while w > 2 and w * (8 * NKW + 4 * ts) > SMEM_MAX:
+        w //= 2
+    return -(-P // (w // 2)), 32 * w, w * (8 * NKW + 4 * ts)
+
+
 def read_filter(kmer, qmask, dst0, vote_pass, pack, qc, bait, nloci: int):
-    """KF: QC mask and bait filter, one CUDA block per pair.  Same
-    contract as read_filter_plain; needs qc or bait."""
+    """KF: QC mask and bait filter (read_filter_launch: a warp a read with
+    a bait table, a thread a pair without).  Same contract as
+    read_filter_plain; needs qc or bait."""
     if kmer.device.type == "cpu":
         return read_filter_plain(kmer, qmask, dst0, vote_pass, pack, qc,
                                  bait, nloci)
@@ -940,6 +967,10 @@ def read_filter(kmer, qmask, dst0, vote_pass, pack, qc, bait, nloci: int):
         raise ValueError("read_filter: qc must be (nloci + 1,) uint8")
     if bait is not None and (not bait.composite or bait.nval != 1):
         raise ValueError("read_filter: bait is a composite 1-value table")
+    if bait is not None and (NKW > 0xFFFF or read_filter_launch(
+            P, NKW, True)[2] > SMEM_MAX):
+        raise ValueError(f"read_filter: NKW={NKW} k-mers a read pass the "
+                         f"tables a block's shared memory holds")
     dev = kmer.device
     kmer, dst0 = kmer.contiguous(), dst0.contiguous()
     vote_pass, pack = vote_pass.contiguous(), pack.contiguous()
@@ -1135,7 +1166,9 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
         codes = _as(codes, torch.uint8, dev)
         rlen = _as(rlen, torch.int32, dev)
         live = _as(live, torch.bool, dev)
-        ex = extract_kmers(codes, rlen, k)
+        # KA writes only what this mode reads: nc for threading, the
+        # edges for bubbles
+        ex = extract_kmers(codes, rlen, k, nc=threading, edges=has_tre)
         kmer, kvalid, nk = ex["kmer"], ex["kvalid"], ex["nk"]
         if probe_fns and "dbi" in probe_fns:
             found, val, annv = probe_fns["dbi"](kmer)
@@ -1198,7 +1231,8 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
                    threading, bf_pair, bool(with_annot))
         if capture is not None:
             capture.update(
-                KA=(codes, rlen, k), KB_dbi=(tabs["dbi"], kmer),
+                KA=(codes, rlen, k, threading, has_tre),
+                KB_dbi=(tabs["dbi"], kmer),
                 KC=(kmer, val, use, pair_kf, tabs["vv"], E, cth),
                 KB_trfl=(tabs["trfl"], pq, pq_loc), KD=kd_args)
         a = assign_count(state, *kd_args)

@@ -36,8 +36,19 @@ def pack_reads(seqs: list, L: int):
     return codes, rlen
 
 
-def extract_kmers_plain(codes: torch.Tensor, rlen: torch.Tensor, k: int):
-    """Plain torch version of KA (same outputs as ``extract_kmers``)."""
+def _planes(out: dict, nc: bool, edges: bool) -> dict:
+    """The planes a caller asked for: kmer, kvalid, nk and any_valid,
+    with ``nc`` the forward k-mers and with ``edges`` edge and evalid."""
+    drop = ({"nc"} if not nc else set()) | \
+        ({"edge", "evalid"} if not edges else set())
+    return {key: v for key, v in out.items() if key not in drop}
+
+
+def extract_kmers_plain(codes: torch.Tensor, rlen: torch.Tensor, k: int,
+                        nc: bool = True, edges: bool = True):
+    """Plain torch version of KA (same outputs as ``extract_kmers`` for
+    the same flags; it computes every plane and returns those asked
+    for)."""
     B, L = codes.shape
     n, ne = L - k + 1, L - k
     valid = codes != 255
@@ -53,7 +64,7 @@ def extract_kmers_plain(codes: torch.Tensor, rlen: torch.Tensor, k: int):
         fwd |= b << (2 * (k - 1 - j))
         rc |= (3 - b) << (2 * j)
     kmer = torch.where(wvalid, torch.minimum(fwd, rc), EMPTY)
-    nc = torch.where(wvalid, fwd, EMPTY)
+    fc = torch.where(wvalid, fwd, EMPTY)
     b_next = c[:, k:k + ne]
     ef = (fwd[:, :ne] << 2) | b_next
     er = rc[:, :ne] | ((3 - b_next) << (2 * k))
@@ -61,28 +72,47 @@ def extract_kmers_plain(codes: torch.Tensor, rlen: torch.Tensor, k: int):
     pos_e = torch.arange(ne, device=codes.device)
     evalid = ((cbad[:, k + 1:] - cbad[:, :-(k + 1)]) == 0) \
         & (pos_e + k + 1 <= rl)
-    return dict(
-        kmer=kmer, kvalid=wvalid, nc=nc,
+    return _planes(dict(
+        kmer=kmer, kvalid=wvalid, nc=fc,
         edge=torch.where(evalid, e, EMPTY), evalid=evalid,
         nk=torch.clamp(rlen.int() - (k - 1), min=0),
         any_valid=wvalid.any(dim=1),
-    )
+    ), nc, edges)
 
 
-def extract_kmers(codes: torch.Tensor, rlen: torch.Tensor, k: int):
+KA_WARPS = 8          # reads a block (csrc/kmers.cu KA_WARPS)
+
+
+def kmers_launch(B: int, L: int) -> tuple:
+    """KA's launch for B reads of L codes (csrc/kmers.cu): (blocks,
+    threads, dynamic shared bytes), one warp a read.  Each warp packs its
+    read into 2-bit forward and reverse-complement words and an N bitmask
+    over Lp = L rounded up to 32, with a spare word each (csrc/kmers.cu
+    ka_words)."""
+    n16 = -(-L // 32) * 2
+    return -(-B // KA_WARPS), 32 * KA_WARPS, \
+        KA_WARPS * 4 * (2 * (n16 + 2) + n16 // 2 + 1)
+
+
+def extract_kmers(codes: torch.Tensor, rlen: torch.Tensor, k: int,
+                  nc: bool = True, edges: bool = True):
     """Canonical k-mers + (k+1)-mer edges for a read batch.
 
     Returns a dict of
       kmer   (B, L-k+1) int64  canonical k-mer, EMPTY where invalid
       kvalid (B, L-k+1) bool
-      nc     (B, L-k+1) int64  forward (non-canonical) k-mer, EMPTY-masked
-      edge   (B, L-k)   int64  canonical (k+1)-mer edge, EMPTY-masked
-      evalid (B, L-k)   bool
       nk     (B,)       int32  number of k-mer positions (rlen-k+1, >= 0)
       any_valid (B,)    bool   read has >= 1 valid k-mer
+    and, with ``nc``,
+      nc     (B, L-k+1) int64  forward (non-canonical) k-mer, EMPTY-masked
+    and, with ``edges``,
+      edge   (B, L-k)   int64  canonical (k+1)-mer edge, EMPTY-masked
+      evalid (B, L-k)   bool
+    The kernel writes only the planes asked for (one template instance
+    per plane set): the counting step needs neither nc nor the edges.
     """
     if codes.device.type == "cpu":
-        return extract_kmers_plain(codes, rlen, k)
+        return extract_kmers_plain(codes, rlen, k, nc, edges)
     if codes.dtype != torch.uint8 or codes.dim() != 2:
         raise ValueError("codes must be a (B, L) uint8 tensor")
     if not 1 <= k <= 31 or codes.shape[1] < k:
@@ -92,18 +122,20 @@ def extract_kmers(codes: torch.Tensor, rlen: torch.Tensor, k: int):
     B, L = codes.shape
     n, ne = L - k + 1, L - k
     dev = codes.device
-    kmer = torch.empty((B, n), dtype=torch.int64, device=dev)
-    nc = torch.empty_like(kmer)
-    kvalid = torch.empty((B, n), dtype=torch.bool, device=dev)
-    edge = torch.empty((B, ne), dtype=torch.int64, device=dev)
-    evalid = torch.empty((B, ne), dtype=torch.bool, device=dev)
-    nk = torch.empty(B, dtype=torch.int32, device=dev)
-    any_valid = torch.zeros(B, dtype=torch.bool, device=dev)
+    out = dict(kmer=torch.empty((B, n), dtype=torch.int64, device=dev),
+               kvalid=torch.empty((B, n), dtype=torch.bool, device=dev),
+               nk=torch.empty(B, dtype=torch.int32, device=dev),
+               any_valid=torch.empty(B, dtype=torch.bool, device=dev))
+    if nc:
+        out["nc"] = torch.empty((B, n), dtype=torch.int64, device=dev)
+    if edges:
+        out["edge"] = torch.empty((B, ne), dtype=torch.int64, device=dev)
+        out["evalid"] = torch.empty((B, ne), dtype=torch.bool, device=dev)
     fn = bind(kernel_lib("kmers"), "dtk_extract_kmers", "ppiiippppppp")
-    check(fn(ptr(codes), ptr(rlen), B, L, k, ptr(kmer), ptr(nc),
-             ptr(kvalid), ptr(edge), ptr(evalid), ptr(nk), ptr(any_valid),
-             stream_of(codes)), "extract_kmers")
+    opt = [ptr(out[key]) if key in out else None
+           for key in ("nc", "edge", "evalid")]
+    check(fn(ptr(codes), ptr(rlen), B, L, k, ptr(out["kmer"]), opt[0],
+             ptr(out["kvalid"]), opt[1], opt[2], ptr(out["nk"]),
+             ptr(out["any_valid"]), stream_of(codes)), "extract_kmers")
     launched("KA")
-    return dict(kmer=kmer, kvalid=kvalid, nc=nc, edge=edge, evalid=evalid,
-                nk=nk, any_valid=any_valid)
-
+    return out

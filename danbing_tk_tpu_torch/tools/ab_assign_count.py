@@ -73,15 +73,17 @@ def _ms_per_launch(fn, reps: int = 20, n: int = 10) -> float:
 
 
 def ab_pairs(name: str, call, pairs: int, smi: str, reps: int = 20,
-             n: int = 10) -> dict:
+             n: int = 10, per: int = 1) -> dict:
     """Times call("parent") and call("change") in ``pairs`` alternating
-    pairs; prints each pair, both medians and quartiles and the wins, and
+    pairs (ms per call, divided by ``per``: the launches one call makes);
+    prints each pair, both medians and quartiles and the wins, and
     returns {side: [ms, ...]}."""
     ms = {"parent": [], "change": []}
     for i in range(pairs):
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
         for side in order:
-            ms[side].append(_ms_per_launch(lambda s=side: call(s), reps, n))
+            ms[side].append(
+                _ms_per_launch(lambda s=side: call(s), reps, n) / per)
         print(f"{name} pair {i} {order[0]} first: "
               f"parent={ms['parent'][-1]:.4f} change={ms['change'][-1]:.4f}",
               flush=True)

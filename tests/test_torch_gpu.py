@@ -21,6 +21,8 @@ from danbing_tk_tpu_torch.index import device_table as dt
 from danbing_tk_tpu_torch.kernels import build
 from danbing_tk_tpu_torch.ops import kmers as km
 from test_torch_assign_count import kd_cases, kd_run
+from test_torch_kmers_filter_cases import (FLAGS, KF_MODES, ka_cases,
+                                           kf_args, kf_cases)
 from test_torch_pair_vote import vote_cases
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -62,6 +64,48 @@ def test_ka_matches_plain(cuda, k):
     assert build.launch_counts()["KA"] == n0 + 1
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("L", [150, 157, 160, 192, 256])
+@pytest.mark.parametrize("k", [1, 21, 31])
+def test_ka_adversarial_matches_plain(cuda, L, k):
+    """KA in each plane set (nc and edges on or off) equals the plain
+    version on the seeded adversarial reads of
+    tests/test_torch_kmers_filter_cases.py (N runs at both ends, rlen 0 to
+    L, bases past rlen), rows off a 16-B boundary (L = 150, 157) and an
+    odd read count, so the planes' rows start off their pair boundary."""
+    codes, rlen = ka_cases(11, 257, L, k)
+    c = torch.from_numpy(codes).to(cuda)
+    r = torch.from_numpy(rlen).to(cuda)
+    for flags in FLAGS:
+        n0 = build.launch_counts()["KA"]
+        got = km.extract_kmers(c, r, k, **flags)
+        assert build.launch_counts()["KA"] == n0 + 1
+        want = km.extract_kmers_plain(c, r, k, **flags)
+        assert set(got) == set(want)
+        for key in want:
+            assert torch.equal(got[key], want[key]), (key, flags)
+
+
+@pytest.mark.parametrize("NKW", [1, 2, 131, 140, 300, 2000])
+@pytest.mark.parametrize("mode", range(len(KF_MODES)))
+def test_kf_adversarial_matches_plain(cuda, NKW, mode):
+    """KF (bait with and without QC and the quality mask, QC alone)
+    equals read_filter_plain on the seeded adversarial pairs of
+    tests/test_torch_kmers_filter_cases.py: one k-mer a read, k-mers at
+    256 and 257 positions (the u8 wrap at NKW >= 257), mask holes, EMPTY
+    and fully masked reads, dst0 = nloci, non-dev pairs; NKW = 2000 takes
+    the four-warp blocks."""
+    case = kf_cases(13, 101, NKW)
+    a = kf_args(case, cuda, **KF_MODES[mode])
+    n0 = build.launch_counts()["KF"]
+    got = da.read_filter(*a)
+    assert build.launch_counts()["KF"] == n0 + 1
+    want = da.read_filter_plain(*a)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if KF_MODES[mode]["bait"] and NKW > 2:
+        assert want[3].any()
 
 
 def test_kb_matches_plain(cuda, drp):

@@ -44,8 +44,11 @@ Phases; any failure exits non-zero (nothing is caught and continued):
   6. the production-size threading funnel (-gc 85 3): the index's graph
      table (the fa2kmers -g rule over the loci's sequences), built and
      uploaded only now, so the counting phases never hold it; the
-     threading step's KB (graph), KD (threading mode) and KE against their
-     plain versions as in phase 3, on TR pairs with 0.5% substitutions;
+     threading step's KD (threading mode) and KE (the graph probe, the
+     walk and the count scatter in one launch) against their plain
+     versions as in phase 3, on TR pairs with 0.5% substitutions, and KB
+     on the graph table at the walk's (nc, dst0) queries (the step no
+     longer launches it);
      then >= 1M pairs, 5% from the TR pool with 0.5% substitutions, through
      prefilter, full step and KE; pairs whose walk is not clean go to the
      batched native engine through a host view of the loci's graphs (test
@@ -307,25 +310,34 @@ def align_phases(args, dev) -> dict:
         return dict(match=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by="bytes", library_ms=None)
 
-    def kb_bytes(tab, q, loc=None):
+    def kb_bytes(tab, q, loc=None, stop=False):
         """Bytes this data makes KB move: each distinct row it reads (its
         level-0 row for every query, its level-l row for a query that
         missed levels < l), read once; plus 8 B per query (16 with a
-        locus) in and 17 B out.  Returns (bytes, distinct rows, row
-        reads)."""
+        locus) in and 17 B out.  With ``stop`` (KG's and KE's probe) a
+        query reads level l only after a miss on a full row at every
+        level < l: a level passes on only a full bucket's overflow.
+        Returns (bytes, distinct rows, row reads)."""
         qf = q.reshape(-1)
         lf = None if loc is None else loc.reshape(-1).long() & 0xFFFFFFFF
         lo, hi = qf & 0xFFFFFFFF, (qf >> 32) & 0xFFFFFFFF
         rows = reads = 0
-        found = torch.zeros(qf.numel(), dtype=torch.bool, device=q.device)
+        need = torch.ones(qf.numel(), dtype=torch.bool, device=q.device)
         for lv, (t, salt) in enumerate(zip(tab.levels, tab.salts)):
-            m = ~found
-            b = dt.bucket_index(lo[m], hi[m], None if lf is None else lf[m],
-                                salt, t.shape[0])
+            b = dt.bucket_index(lo[need], hi[need],
+                                None if lf is None else lf[need], salt,
+                                t.shape[0])
             rows += int(torch.unique(b).numel())
-            reads += int(m.sum())
+            reads += int(need.sum())
             sub = dt.DevTable([t], [salt], tab.composite, tab.nval)
-            found |= dt.lookup_bucket_plain(sub, qf, lf)[0]
+            hit = dt.lookup_bucket_plain(sub, qf, lf)[0]
+            if stop:
+                full = torch.zeros_like(need)
+                r = t[b].view(-1, 8, tab.W)
+                full[need] = ((r[..., 0] & r[..., 1]) != -1).all(-1)
+                need &= ~hit & full
+            else:
+                need &= ~hit
         return (rows * 8 * tab.W * 4
                 + q.numel() * (8 + 8 * (loc is not None) + 17)), rows, reads
 
@@ -334,34 +346,44 @@ def align_phases(args, dev) -> dict:
         is read and written once, 8 B."""
         return int((counts[:-1] != 0).sum())
 
-    def ke_bytes(nc, gfound, gmask, kvalid, nk, dev_pair, tr_member, slot,
+    def ke_bytes(graph, nc, dst0, kvalid, nk, dev_pair, tr_member, slot,
                  clean_pair, n_slots):
         """Bytes this data makes KE move.  A mate of a device-resolved
         pair is walked up to its first failure and the position after it
         (its nc for the edge check), or over all its in-read positions
-        when clean: 18 B each (nc, gfound, gmask, kvalid); other mates
-        need none (dev_pair alone decides them).  A pair that walks clean
-        reads tr_member (1 B) at each in-read position and the slot (8 B)
-        at each TR member.  Plus nk and dev_pair in, clean and clean_pair
-        out, and 8 B per distinct slot written, trash slot included.
-        Returns (bytes, walked positions, counted positions)."""
+        when clean: 9 B each (nc, kvalid); its valid positions up to the
+        failure are probed, and the distinct graph rows they read at the
+        levels they need (the level stop) are read once.  Other mates need
+        none (dev_pair alone decides them).  A pair that walks clean reads
+        tr_member (1 B) at each in-read position and the slot (8 B) at
+        each TR member.  Plus nk and dev_pair in, dst0 for each walked
+        mate, clean and clean_pair out, and 8 B per distinct slot written,
+        trash slot included.  Returns (bytes, walked positions, counted
+        positions, distinct graph rows)."""
         R, NKW = nc.shape
-        nin = nk.long().clamp(max=NKW)
+        nin = nk.long().clamp(0, NKW)
         inr = torch.arange(NKW, device=nc.device) < nin[:, None]
+        loc = dst0.repeat_interleave(2)[:, None].expand(-1, NKW)
+        gfound, gmask, _ = dt.lookup_bucket_plain(graph, nc, loc)
         bad = ~kvalid | ~gfound
         bad[:, 1:] |= nc[:, 1:] == nc[:, :-1]
         bad[:, :-1] |= (((gmask[:, :-1] >> (nc[:, 1:] & 3)) & 1) == 0) \
             & inr[:, 1:]
         bad &= inr
-        upto = torch.minimum(torch.where(bad.any(1), bad.int().argmax(1) + 2,
-                                         nin), nin)
-        walked = int(torch.where(dev_pair.repeat_interleave(2), upto,
-                                 0).sum())
+        first = torch.where(bad.any(1), bad.int().argmax(1), nin)
+        walk_r = dev_pair.repeat_interleave(2) & (nk > 0)
+        upto = torch.minimum(first + 2, nin)
+        walked = int(torch.where(walk_r, upto, 0).sum())
+        probed = (walk_r[:, None] & kvalid & inr
+                  & (torch.arange(NKW, device=nc.device)
+                     <= first[:, None]))
+        _, rows, _ = kb_bytes(graph, nc[probed], loc[probed], stop=True)
         thr_r = (dev_pair & clean_pair).repeat_interleave(2)
         members = int(torch.where(thr_r, nin, 0).sum())
         counted = int(((tr_member != 0) & inr & thr_r[:, None]).sum())
-        return (18 * walked + members + 8 * counted + R * (4 + 1)
-                + R // 2 * 2 + 8 * (n_slots + 1)), walked, counted
+        return (9 * walked + rows * 8 * graph.W * 4 + members + 8 * counted
+                + R * (4 + 1) + 8 * int(walk_r.sum()) + R // 2 * 2
+                + 8 * (n_slots + 1)), walked, counted, rows
 
     B = 2 * P
     # KA's counting instance (what the counting step launches: kmer,
@@ -558,13 +580,17 @@ def align_phases(args, dev) -> dict:
     torch.cuda.synchronize()
     n_vote = int(tout["vote_pass"].sum())
     n_clean = int(tout["clean_pair"].sum())
-    tab, q, loc = tcap["KB_graph"]
+    # KB on the graph table at the walk's (nc, dst0) queries, all of them:
+    # the threading step no longer launches it (KE probes the table
+    # itself), but KB is still held on the 8.86 GB table
+    tab, q, tdst0 = tcap["KE"][:3]
+    loc = tdst0.repeat_interleave(2)[:, None].expand(-1, q.shape[1])
     nbytes, rows, reads = kb_bytes(tab, q, loc)
     kb["graph"] = compare(
         "KB bucket_lookup[graph]", lambda: dt.lookup_bucket(tab, q, loc),
         lambda: dt.lookup_bucket_plain(tab, q, loc), nbytes,
         f"queries={q.numel()} distinct_rows={rows} row_reads={reads} "
-        f"launches/step=1 (threading)", phase=6)
+        f"launches/step=0 (KE probes the graph table itself)", phase=6)
     kdt_args = tcap["KD"]
     st_k, st_p = da.init_state(drp, dev), da.init_state(drp, dev)
     compare("KD assign_count[threading]",
@@ -578,20 +604,24 @@ def align_phases(args, dev) -> dict:
             fail(f"KD in threading mode touched state {key}")
     ke_args = tcap["KE"]
     st_k, st_p = da.init_state(drp, dev), da.init_state(drp, dev)
-    _, ke_pair = da.thread_walk(st_k, *ke_args)
-    da.thread_walk_plain(st_p, *ke_args)
+    _, ke_pair = da.thread_walk_graph(st_k, *ke_args)
+    da.thread_walk_graph_plain(st_p, *ke_args)
     torch.cuda.synchronize()
     if not torch.equal(st_k["counts"], st_p["counts"]):
         fail("KE counts disagree with the plain version")
     n_thr_counted = int((st_k["counts"][:-1].long() & 0xFFFFFFFF).sum())
     n_thr_slots = touched(st_k["counts"])
-    ke_b, ke_walked, ke_counted = ke_bytes(*ke_args, ke_pair, n_thr_slots)
-    ke = compare("KE thread_walk", lambda: da.thread_walk(st_k, *ke_args),
-                 lambda: da.thread_walk_plain(st_p, *ke_args), ke_b,
+    ke_b, ke_walked, ke_counted, ke_rows = ke_bytes(*ke_args, ke_pair,
+                                                    n_thr_slots)
+    ke = compare("KE thread_walk",
+                 lambda: da.thread_walk_graph(st_k, *ke_args),
+                 lambda: da.thread_walk_graph_plain(st_p, *ke_args), ke_b,
                  f"pairs={P} vote_pass={n_vote} clean_pairs={n_clean} "
-                 f"walked_positions={ke_walked} counted_kmers={n_thr_counted} "
-                 f"counted_positions={ke_counted} slots={n_thr_slots} "
-                 f"launches/step=1", phase=6)
+                 f"walked_positions={ke_walked} graph_rows={ke_rows} "
+                 f"counted_kmers={n_thr_counted} "
+                 f"counted_positions={ke_counted} slots={n_thr_slots} grid: "
+                 f"blocks,warps={da.thread_walk_grid(P)} launches/step=1",
+                 phase=6)
     results["KE"] = dict(
         ke, source="danbing_tk_tpu_torch/csrc/thread_walk.cu",
         replaces="danbing_tk_tpu/engine/device_align.py:1145")
@@ -764,7 +794,7 @@ def align_phases(args, dev) -> dict:
             & ((rm_ == 0) & counted_.repeat_interleave(2))[:, None])
     tq = edge_[need]
     tloc = dst0g.repeat_interleave(2)[:, None].expand_as(edge_)[need]
-    _, trows, _ = kb_bytes(tre_, tq, tloc)
+    _, trows, _ = kb_bytes(tre_, tq, tloc, stop=True)
     n_novel = int(da.unpack_bits(da.novel_edges_plain(*kg_args), NE).sum())
     kg = compare("KG novel_edges", lambda: da.novel_edges(*kg_args),
                  lambda: da.novel_edges_plain(*kg_args),

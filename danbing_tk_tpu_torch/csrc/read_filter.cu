@@ -44,7 +44,7 @@
 // counting stays in shared memory; what is left are the random 128-B bait
 // rows, one a distinct k-mer of a read (most miss, and stop at level 0),
 // whose latency the warps in flight, two rows a lane, cover.
-#include "group_probe.cuh"
+#include "tile_probe.cuh"
 
 constexpr int KF_WARPS = 8;              // device_align.py KF_WARPS
 constexpr int KF_SMEM_MAX = 232448;      // a block's shared memory
@@ -107,29 +107,6 @@ __device__ __forceinline__ void kf_insert(const uint64_t* skey,
         }
         s = (s + 1) & mask;
     }
-}
-
-// Slot s of key's row at level l (a composite row: lo, hi, locus, value):
-// whether it matches, whether it holds a key (an empty slot is all ones),
-// and its value.
-template <int VW>
-__device__ __forceinline__ uint32_t kf_slot(const DtkLevels& lv, int l,
-                                            uint64_t key, uint32_t loc,
-                                            int s, bool* m, bool* occ) {
-    const uint32_t lo = (uint32_t)key, hi = (uint32_t)(key >> 32);
-    const uint32_t* sl =
-        lv.t[l] +
-        ((size_t)dtk_bucket(lv.salt[l], lv.mask[l], 1, lo, hi, loc) * 8 + s) *
-            4;
-    uint4 x;
-    if constexpr (VW == 4) {
-        x = __ldg((const uint4*)sl);
-    } else {
-        x = make_uint4(__ldg(sl), __ldg(sl + 1), __ldg(sl + 2), __ldg(sl + 3));
-    }
-    *m = x.x == lo && x.y == hi && x.z == loc;
-    *occ = (x.x & x.y) != DTK_NAN32;
-    return *m ? x.w : 0u;
 }
 
 template <bool kQc, bool kQmask, int VW>
@@ -246,8 +223,9 @@ read_filter_kernel(int64_t P, int NKW, int TS,
                 hit_[j] = occ[j] = false;
                 x[j] = 0;
                 if (need[j])
-                    x[j] = kf_slot<VW>(bait, l, key[j], loc, s, &hit_[j],
-                                       &occ[j]);
+                    dtk_stop_slot<VW>(bait, l, (uint32_t)key[j],
+                                      (uint32_t)(key[j] >> 32), loc, s,
+                                      &hit_[j], &occ[j], &x[j]);
             }
 #pragma unroll
             for (int j = 0; j < KF_KEYS; ++j) {

@@ -1,115 +1,186 @@
-// KE thread_walk: the threading DFA walk of the graph-threading step and
-// its TR-member count scatter.
+// KE thread_walk: the threading step's graph probe, its DFA walk and its
+// TR-member count scatter, in one launch.
 //
-// Replaces K12, danbing_tk_tpu/engine/device_align.py:1145-1181: a mate is
-// "clean" when its whole forward (non-canonical) k-mer stream follows
-// out-edges of its locus graph from position 0 (every in-read position a
-// valid k-mer that is a graph node at dst0, no homopolymer stall
-// nc[j] == nc[j-1], every transition's edge bit (gmask[j] >> (nc[j+1] & 3))
-// set) with nk > 0 on a device-resolved pair; such walks are exactly
-// isThreadFeasible's no-correction path.  Both mates clean make the pair
-// device-threaded: each in-read TR-member position adds 1 to counts[slot]
-// (u32 atomics, out-of-range slots dropped); every other position of the
-// (2P, NKW) plane adds to the trash slot counts[nslots], as the JAX
-// scatter's mode="drop" row does, so the state stays byte-equal.  The
-// graph probe itself is KB on the graph table at (nc, dst0).  The TPU
-// evaluated the walk as full-plane masks and all-reductions; here one warp
-// walks one mate and a warp vote ends it.
+// Replaces K12, danbing_tk_tpu/engine/device_align.py:1145-1181: the graph
+// table probed at every (forward k-mer nc, dst0) position of the (2P, NKW)
+// plane (gfound, gmask), then a mate is "clean" when its whole forward
+// k-mer stream follows out-edges of its locus graph from position 0 (every
+// in-read position a valid k-mer that is a graph node at dst0, no
+// homopolymer stall nc[j] == nc[j-1], every transition's edge bit
+// (gmask[j] >> (nc[j+1] & 3)) set) with nk > 0 on a device-resolved pair;
+// such walks are exactly isThreadFeasible's no-correction path.  Both
+// mates clean make the pair device-threaded: each in-read TR-member
+// position adds 1 to counts[slot] (u32, out-of-range slots dropped); every
+// other position of the plane adds to the trash slot counts[nslots], as
+// the JAX scatter's mode="drop" row does, so the state stays byte-equal.
+// The TPU probed every position and evaluated the walk as full-plane masks
+// and all-reductions.
 //
-// One block of 64 threads per pair: warp w walks mate 2p + w with lanes
-// striding the positions, votes with __any_sync, the two warps meet in
-// shared memory, then scatter.  The trash count is summed per block into
-// one atomic.
+// What a verdict needs is each device-resolved mate's positions up to its
+// first failure, so the probe is folded into the walk and reads nothing
+// else.  A warp takes a mate (8 warps, 4 pairs, a block); a mate of a pair
+// that is not dev_pair (or with nk <= 0) reads dev_pair and nk and is not
+// clean.  Otherwise the walk goes in chunks of 32 positions, lane i at
+// position 32c + i:
+//   1. one coalesced load each of nc and kvalid (the next chunk's are
+//      loaded before this chunk's probe, so they are in flight with it);
+//      the previous and next positions' nc come by __shfl (the chunk's
+//      last lane takes the next chunk's first, the first lane the carry);
+//   2. a ballot of the failures that need no probe (an N, a homopolymer
+//      stall) gives the first one; the in-read positions before it are
+//      probed on the graph table through tile_probe.cuh (compacted, 8
+//      lanes a key with a uint4 slot a lane, a key stops at a row with an
+//      empty slot); the probe's value is the edge mask.  A k-mer repeated
+//      in a chunk is probed again: finding repeats (__match_any_sync) on
+//      every chunk cost more than it saved, on the golden panel's tandem
+//      repeats too;
+//   3. a missing node or edge bit is a failure too; a warp vote ends the
+//      walk at the first chunk with a failure.
+// The pair's two warps meet in shared memory.  A clean pair adds its TR
+// members with KD's slot aggregation (lanes of one slot in a chunk add
+// once, __match_any_sync); a member at slot == nslots and every other
+// position of the plane go to the trash count, summed per block into one
+// atomic.
 //
-// Bound on the H100: bytes.  Each position reads nc (8 B), gfound (1 B),
-// gmask (8 B), kvalid (1 B), tr_member (1 B) and slot (8 B) once; a
-// counted k-mer costs one 32 B atomic sector in a table of up to 0.5 GB.
-// Lanes read neighbouring positions, so the plane reads coalesce.
-#include "common.cuh"
+// Bound on the H100: bytes.  9 B (nc, kvalid) per position a walk reads,
+// the distinct graph rows its probes read at the levels they need (random
+// 128-B rows of a table far past L2), and for a clean pair 1 B of
+// tr_member per in-read position, 8 B of slot per TR member and a 32-B
+// atomic sector per slot it adds to; plus nk, dev_pair and dst0 in, clean
+// and clean_pair out.
+#include "tile_probe.cuh"
 
-constexpr int KE_THREADS = 64;
+constexpr int KE_WARPS = 8;       // mates (4 pairs) a block
+constexpr int KE_KEYS = 2;        // keys a probe group takes a pass
+constexpr int KE_MIN_BLOCKS = 8;  // 32 registers: a P = 4096 step resident
 
-__global__ void thread_walk_kernel(int64_t P, int NKW,
-                                   const int64_t* __restrict__ nc,
-                                   const uint8_t* __restrict__ gfound,
-                                   const int64_t* __restrict__ gmask,
-                                   const uint8_t* __restrict__ kvalid,
-                                   const int32_t* __restrict__ nk,
-                                   const uint8_t* __restrict__ dev_pair,
-                                   const uint8_t* __restrict__ tr_member,
-                                   const int64_t* __restrict__ slot,
-                                   int64_t nslots,
-                                   unsigned int* __restrict__ counts,
-                                   uint8_t* __restrict__ clean_out,
-                                   uint8_t* __restrict__ clean_pair_out) {
-    __shared__ int s_clean[2];
-    __shared__ unsigned int s_trash[2];
-    const int64_t p = blockIdx.x;
+template <int VW>
+__global__ void __launch_bounds__(KE_WARPS * 32, KE_MIN_BLOCKS)
+thread_walk_graph_kernel(int64_t P, int NKW,
+                         const int64_t* __restrict__ nc,
+                         const int64_t* __restrict__ dst0,
+                         const uint8_t* __restrict__ kvalid,
+                         const int32_t* __restrict__ nk,
+                         const uint8_t* __restrict__ dev_pair,
+                         const uint8_t* __restrict__ tr_member,
+                         const int64_t* __restrict__ slot, int64_t nslots,
+                         DtkLevels graph, unsigned int* __restrict__ counts,
+                         uint8_t* __restrict__ clean_out,
+                         uint8_t* __restrict__ clean_pair_out) {
+    __shared__ DtkTile s_tile[KE_WARPS];
+    __shared__ int s_clean[KE_WARPS];
+    __shared__ unsigned int s_trash[KE_WARPS];
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int64_t r = 2 * p + w;
-    const int64_t row = r * NKW;
-    const int n = nk[r];
-    const int nin = n < NKW ? n : NKW;   // in-read positions
-    const bool dev = dev_pair[p] != 0;
-
-    bool bad = false;
-    for (int j = lane; j < nin; j += 32) {
-        const int64_t o = row + j;
-        if (!kvalid[o] || !gfound[o]) bad = true;
-        if (j > 0 && nc[o] == nc[o - 1]) bad = true;
-        if (j + 1 < nin) {
-            const uint32_t nb = (uint32_t)(nc[o + 1] & 3);
-            if (!(((uint64_t)gmask[o] >> nb) & 1u)) bad = true;
+    const int64_t r = (int64_t)blockIdx.x * KE_WARPS + w;
+    const bool active = r < 2 * P;              // warp-uniform; pairs whole
+    const int64_t p = r >> 1, row = r * NKW;
+    int n = 0;
+    bool clean = false;
+    if (active) {
+        n = nk[r];
+        if (dev_pair[p] != 0 && n > 0) {
+            const int nin = n < NKW ? n : NKW;
+            const uint32_t loc = (uint32_t)dst0[p];
+            bool ok = true;
+            int64_t carry = 0;                  // nc at the chunk's start - 1
+            bool inr = lane < nin;
+            int64_t x = inr ? nc[row + lane] : 0;
+            bool kv = inr && kvalid[row + lane] != 0;
+            for (int c0 = 0; c0 < nin && ok; c0 += 32) {
+                const int j = c0 + lane;
+                // the next chunk's loads, in flight with this chunk's probe
+                const bool inr_n = j + 32 < nin;
+                const int64_t xn = inr_n ? nc[row + j + 32] : 0;
+                const bool kv_n = inr_n && kvalid[row + j + 32] != 0;
+                int64_t prv = __shfl_up_sync(DTK_FULL, x, 1);
+                if (lane == 0) prv = carry;
+                int64_t nxt = __shfl_down_sync(DTK_FULL, x, 1);
+                const int64_t xn0 = __shfl_sync(DTK_FULL, xn, 0);
+                if (lane == 31) nxt = xn0;
+                carry = __shfl_sync(DTK_FULL, x, 31);
+                const bool cheap = inr && (!kv || (j > 0 && x == prv));
+                const unsigned cb = __ballot_sync(DTK_FULL, cheap);
+                const int fc = cb ? __ffs(cb) - 1 : 32;
+                const bool on = inr && lane < fc;
+                uint32_t gm;
+                const bool gf = dtk_tile_probe<VW, KE_KEYS, true, false>(
+                    graph, on, (uint64_t)x, loc, &s_tile[w], &gm);
+                const bool bad =
+                    cheap || (on && (!gf || (j + 1 < nin &&
+                                             !((gm >> (nxt & 3)) & 1u))));
+                ok = !__any_sync(DTK_FULL, bad);
+                x = xn;
+                kv = kv_n;
+                inr = inr_n;
+            }
+            clean = ok;
         }
-    }
-    const bool clean = !__any_sync(0xffffffffu, bad) && n > 0 && dev;
-    if (lane == 0) {
-        s_clean[w] = clean;
-        clean_out[r] = clean;
+        if (lane == 0) {
+            s_clean[w] = clean;
+            clean_out[r] = clean;
+        }
     }
     __syncthreads();
-    const bool pair_clean = s_clean[0] && s_clean[1];
-    if (threadIdx.x == 0) clean_pair_out[p] = pair_clean;
-    const bool thr_dev = dev && pair_clean;
-
     unsigned int trash = 0;
-    if (thr_dev) {
-        for (int j = lane; j < NKW; j += 32) {
-            const int64_t o = row + j;
-            if (j < n && tr_member[o]) {
-                const int64_t s = slot[o];
-                if (s >= 0 && s <= nslots) atomicAdd(counts + s, 1u);
-            } else {
-                ++trash;
+    if (active) {
+        const int mw = w & ~1;
+        const bool pair_clean = s_clean[mw] && s_clean[mw + 1];
+        if (lane == 0 && w == mw) clean_pair_out[p] = pair_clean;
+        if (pair_clean) {                       // dev_pair, n > 0
+            const int nin = n < NKW ? n : NKW;
+            trash = (unsigned int)(NKW - nin);  // past the read
+            for (int c0 = 0; c0 < nin; c0 += 32) {
+                const int j = c0 + lane;
+                const bool mem = j < nin && tr_member[row + j] != 0;
+                const int64_t s = mem ? slot[row + j] : 0;
+                const bool add = mem && s >= 0 && s < nslots;
+                const unsigned am = __ballot_sync(DTK_FULL, add);
+                if (add) {
+                    const unsigned peers = __match_any_sync(am, (unsigned)s);
+                    if (lane == __ffs(peers) - 1)
+                        atomicAdd(counts + s, (unsigned int)__popc(peers));
+                }
+                trash += __popc(
+                    __ballot_sync(DTK_FULL, j < nin && (!mem || s == nslots)));
             }
+        } else {
+            trash = (unsigned int)NKW;
         }
-    } else if (lane == 0) {
-        trash = (unsigned int)NKW;
     }
-    for (int off = 16; off; off >>= 1)
-        trash += __shfl_down_sync(0xffffffffu, trash, off);
     if (lane == 0) s_trash[w] = trash;
     __syncthreads();
     if (threadIdx.x == 0) {
-        const unsigned int t = s_trash[0] + s_trash[1];
+        unsigned int t = 0;
+        for (int k = 0; k < KE_WARPS; ++k) t += s_trash[k];
         if (t) atomicAdd(counts + nslots, t);
     }
 }
 
-DTK_EXPORT int dtk_thread_walk(int64_t P, int64_t NKW, const void* nc,
-                               const void* gfound, const void* gmask,
-                               const void* kvalid, const void* nk,
-                               const void* dev_pair, const void* tr_member,
-                               const void* slot, int64_t nslots,
-                               void* counts, void* clean, void* clean_pair,
-                               void* stream) {
-    if (P > 0)
-        thread_walk_kernel<<<(unsigned int)P, KE_THREADS, 0,
-                             (cudaStream_t)stream>>>(
-            P, (int)NKW, (const int64_t*)nc, (const uint8_t*)gfound,
-            (const int64_t*)gmask, (const uint8_t*)kvalid,
-            (const int32_t*)nk, (const uint8_t*)dev_pair,
-            (const uint8_t*)tr_member, (const int64_t*)slot, nslots,
-            (unsigned int*)counts, (uint8_t*)clean, (uint8_t*)clean_pair);
+// Mates (warps) a block of thread_walk_graph_kernel: the launch is
+// ceil(2P / this) blocks, one warp a mate.
+DTK_EXPORT int dtk_thread_walk_block_warps() { return KE_WARPS; }
+
+DTK_EXPORT int dtk_thread_walk_graph(int64_t P, int64_t NKW, const void* nc,
+                                     const void* dst0, const void* kvalid,
+                                     const void* nk, const void* dev_pair,
+                                     const void* tr_member, const void* slot,
+                                     int64_t nslots, const void* gtabs,
+                                     const void* gnbs, const void* gsalts,
+                                     int64_t gnlev, void* counts, void* clean,
+                                     void* clean_pair, void* stream) {
+    DtkLevels graph;
+    if (!dtk_levels(&graph, gtabs, gnbs, gsalts, gnlev))
+        return (int)cudaErrorInvalidValue;
+    if (P <= 0) return (int)cudaGetLastError();
+    auto kernel = dtk_vector_width(graph, 4) == 4
+                      ? thread_walk_graph_kernel<4>
+                      : thread_walk_graph_kernel<0>;
+    kernel<<<dtk_grid(2 * P, KE_WARPS), KE_WARPS * 32, 0,
+             (cudaStream_t)stream>>>(
+        P, (int)NKW, (const int64_t*)nc, (const int64_t*)dst0,
+        (const uint8_t*)kvalid, (const int32_t*)nk,
+        (const uint8_t*)dev_pair, (const uint8_t*)tr_member,
+        (const int64_t*)slot, nslots, graph, (unsigned int*)counts,
+        (uint8_t*)clean, (uint8_t*)clean_pair);
     return (int)cudaGetLastError();
 }

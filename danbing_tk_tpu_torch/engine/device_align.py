@@ -25,11 +25,12 @@ Pipeline per batch of P read pairs (2P reads, L columns):
           in-segment (k+1)-mer edges, bit-packed  (csrc/novel_edges.cu)
 
 In graph-threading mode (cfg.threading) KD stops at the tr_member and slot
-planes, and two launches follow:
+planes, and one launch follows:
 
-   -> KB  lookup_bucket on the (nc kmer, dst0) graph table
-   -> KE  thread_walk: the clean-walk DFA per mate and the TR-member count
-          atomics of pairs whose both mates walk clean (csrc/thread_walk.cu)
+   -> KE  thread_walk_graph: the (nc kmer, dst0) graph-table probe and the
+          clean-walk DFA per mate, up to its first failure, and the
+          TR-member count atomics of pairs whose both mates walk clean
+                                                     (csrc/thread_walk.cu)
 
 Decision equivalence with the reference is the JAX module's: ties,
 test2-only passes and expansion overflows are flagged for the host referee
@@ -815,36 +816,61 @@ def thread_walk_plain(state, nc, gfound, gmask, kvalid, nk, dev_pair,
     return clean, clean_pair
 
 
-def thread_walk(state, nc, gfound, gmask, kvalid, nk, dev_pair, tr_member,
-                slot):
-    """KE: the threading DFA walk and its count scatter (u32 atomics), one
-    block per pair.  Same contract as thread_walk_plain."""
+def thread_walk_graph_plain(state, graph, nc, dst0, kvalid, nk, dev_pair,
+                            tr_member, slot):
+    """Plain torch version of KE: KB's plain version on the graph table
+    (a DevTable) at (nc, dst0) (dst0 (P,) int64), then thread_walk_plain
+    on its (gfound, gmask).  Same state update and returns as
+    thread_walk_plain."""
+    loc = dst0.repeat_interleave(2)[:, None].expand(-1, nc.shape[1])
+    gfound, gmask, _ = dt.lookup_bucket_plain(graph, nc, loc)
+    return thread_walk_plain(state, nc, gfound, gmask, kvalid, nk, dev_pair,
+                             tr_member, slot)
+
+
+def thread_walk_grid(P: int) -> tuple:
+    """KE's launch for P pairs on the card: (blocks, warps), one warp a
+    mate (builds the kernel library)."""
+    per = bind(kernel_lib("thread_walk"), "dtk_thread_walk_block_warps",
+               "")()
+    return -(-2 * P // per), 2 * P
+
+
+def thread_walk_graph(state, graph, nc, dst0, kvalid, nk, dev_pair,
+                      tr_member, slot):
+    """KE: the graph probe at (nc, dst0), the threading DFA walk up to each
+    mate's first failure and the count scatter (u32 atomics), a warp a
+    mate.  Same contract as thread_walk_graph_plain."""
     if nc.device.type == "cpu":
-        return thread_walk_plain(state, nc, gfound, gmask, kvalid, nk,
-                                 dev_pair, tr_member, slot)
+        return thread_walk_graph_plain(state, graph, nc, dst0, kvalid, nk,
+                                       dev_pair, tr_member, slot)
     R, NKW = nc.shape
     P = R // 2
-    for t, dtype in ((nc, torch.int64), (gfound, torch.bool),
-                     (gmask, torch.int64), (kvalid, torch.bool),
+    for t, dtype in ((nc, torch.int64), (kvalid, torch.bool),
                      (tr_member, torch.uint8), (slot, torch.int64)):
         if t.dtype != dtype or t.shape != (R, NKW):
-            raise ValueError(f"thread_walk: planes must be (2P, NKW), "
+            raise ValueError(f"thread_walk_graph: planes must be (2P, NKW), "
                              f"got {t.dtype} {tuple(t.shape)}")
-    if dev_pair.shape != (P,) or nk.shape != (R,):
-        raise ValueError("thread_walk: dev_pair (P,) and nk (2P,)")
+    if dev_pair.shape != (P,) or nk.shape != (R,) or dst0.shape != (P,) \
+            or dst0.dtype != torch.int64:
+        raise ValueError("thread_walk_graph: dev_pair (P,), dst0 (P,) int64 "
+                         "and nk (2P,)")
+    if not graph.composite or graph.nval != 1:
+        raise ValueError("thread_walk_graph: graph is a composite 1-value "
+                         "table")
     if state["counts"].dtype != torch.int32:
         raise ValueError("state['counts'] must be int32")
-    args = [x.contiguous() for x in (nc, gfound, gmask, kvalid)]
+    args = [x.contiguous() for x in (nc, dst0, kvalid)]
     nk = nk.to(torch.int32).contiguous()
     rest = [x.contiguous() for x in (dev_pair, tr_member, slot)]
     clean = torch.empty(R, dtype=torch.bool, device=nc.device)
     clean_pair = torch.empty(P, dtype=torch.bool, device=nc.device)
-    fn = bind(kernel_lib("thread_walk"), "dtk_thread_walk",
-              "ii" + "p" * 8 + "i" + "p" * 4)
+    fn = bind(kernel_lib("thread_walk"), "dtk_thread_walk_graph",
+              "ii" + "p" * 7 + "i" + "pppi" + "pppp")
     check(fn(P, NKW, *[ptr(a) for a in args], ptr(nk),
              *[ptr(a) for a in rest], state["counts"].shape[0] - 1,
-             ptr(state["counts"]), ptr(clean), ptr(clean_pair),
-             stream_of(nc)), "thread_walk")
+             *dt.level_args(graph), ptr(state["counts"]), ptr(clean),
+             ptr(clean_pair), stream_of(nc)), "thread_walk_graph")
     launched("KE")
     return clean, clean_pair
 
@@ -1154,7 +1180,6 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
     tabs = drp.tables(dev, graph=threading, bait=has_bait, qc=has_qc,
                       tre=has_tre)
     k, cth = cfg.ksize, int(cfg.cth)
-    NKW = L - k + 1
     E = int(expand_cap)
     nloci = drp.nloci
     nf, nmf = cfg.n_filter, cfg.nm_filter
@@ -1241,19 +1266,15 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
         nmate = torch.where(counted, 2 - rm_p.sum(1), 0)
         thr_out = {}
         if threading:
-            # ---- DFA walk (K12): graph probe at (nc, dst0), then KE;
-            # device-threaded pairs replace the assign-mode "counted"
-            # after nmate was taken from it, as in the JAX step ----
-            g_loc = dst0.repeat_interleave(2)[:, None].expand(-1, NKW)
-            gfound, gmask, _ = dt.lookup_bucket(tabs["graph"], ex["nc"],
-                                                g_loc)
+            # ---- DFA walk (K12): KE probes the graph table at (nc, dst0)
+            # as it walks; device-threaded pairs replace the assign-mode
+            # "counted" after nmate was taken from it, as in the JAX step
             tr_member = a.pop("tr_member")
-            ke_args = (ex["nc"], gfound, gmask, kvalid, nk, dev_pair,
+            ke_args = (tabs["graph"], ex["nc"], dst0, kvalid, nk, dev_pair,
                        tr_member, a.pop("slot"))
             if capture is not None:
-                capture.update(KB_graph=(tabs["graph"], ex["nc"], g_loc),
-                               KE=ke_args)
-            clean, clean_pair = thread_walk(state, *ke_args)
+                capture["KE"] = ke_args
+            clean, clean_pair = thread_walk_graph(state, *ke_args)
             counted = dev_pair & clean_pair
             nmate = torch.where(counted, nmate, 0)
             thr_out = dict(clean=clean, clean_pair=clean_pair,

@@ -170,7 +170,11 @@ def main(argv=None):
         da.make_step(drp, tcfg, P, L, expand_cap=E, device=dev,
                      capture=tcap)(da.init_state(drp, dev), tc, tr,
                                    np.ones(P, dtype=bool))
-        probes["graph"] = tcap["KB_graph"]
+        # KE probes the graph table itself; KB's graph case takes its
+        # (nc, dst0) queries
+        gtab, nc, tdst0 = tcap["KE"][:3]
+        probes["graph"] = (gtab, nc, tdst0.repeat_interleave(2)[:, None]
+                           .expand(-1, nc.shape[1]))
     torch.cuda.synchronize()
 
     def vote_call(side, E_, inp, outs):

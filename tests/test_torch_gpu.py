@@ -24,6 +24,8 @@ from test_torch_assign_count import kd_cases, kd_run
 from test_torch_kmers_filter_cases import (FLAGS, KF_MODES, ka_cases,
                                            kf_args, kf_cases)
 from test_torch_pair_vote import vote_cases
+from test_torch_walk_edges_cases import (ke_args, ke_cases, ke_state,
+                                         kg_args, kg_cases)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 KW = dict(ksize=21, cth=20, n_filter=4, nm_filter=1, okam=False)
@@ -185,8 +187,12 @@ def test_kb_graph_kd_ke_match_plain_on_step_inputs(cuda, drp_graph):
     step = da.make_step(drp_graph, AlignConfig(**THR), P, L, device=cuda,
                         capture=cap)
     step(da.init_state(drp_graph, cuda), codes, rlen, np.arange(P) < n)
-    for g, w in zip(dt.lookup_bucket(*cap["KB_graph"]),
-                    dt.lookup_bucket_plain(*cap["KB_graph"])):
+    # KB on the graph table at the walk's (nc, dst0), which the step's KE
+    # probes itself
+    graph, nc, dst0 = cap["KE"][:3]
+    loc = dst0.repeat_interleave(2)[:, None].expand(-1, nc.shape[1])
+    for g, w in zip(dt.lookup_bucket(graph, nc, loc),
+                    dt.lookup_bucket_plain(graph, nc, loc)):
         assert torch.equal(g, w)
     sk, sp = da.init_state(drp_graph, cuda), da.init_state(drp_graph, cuda)
     got = da.assign_count(sk, *cap["KD"])
@@ -195,8 +201,8 @@ def test_kb_graph_kd_ke_match_plain_on_step_inputs(cuda, drp_graph):
     for key in want:
         assert torch.equal(got[key], want[key]), key
     n0 = build.launch_counts()["KE"]
-    got = da.thread_walk(sk, *cap["KE"])
-    want = da.thread_walk_plain(sp, *cap["KE"])
+    got = da.thread_walk_graph(sk, *cap["KE"])
+    want = da.thread_walk_graph_plain(sp, *cap["KE"])
     assert build.launch_counts()["KE"] == n0 + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -682,3 +688,38 @@ def test_ki_edge_cases_match_plain(cuda, D, composite, nval):
         for d_, own in enumerate(owners):
             cross |= lv2 & own & (b0 // rows0 != d_)
         assert bool(cross.any())
+
+
+@pytest.mark.parametrize("NKW", [1, 31, 33, 140, 300])
+def test_ke_adversarial_matches_plain(cuda, NKW):
+    """KE (the graph probe, the walk to each mate's first failure and the
+    count scatter) equals thread_walk_graph_plain on the seeded adversarial
+    mates of tests/test_torch_walk_edges_cases.py (failures at chunk edges,
+    stalls, missing edge bits, nk 0 and past NKW, tandem repeats, slots out
+    of range and in runs) on a two-level graph table, and launches once."""
+    case = ke_cases(13, 300, NKW)
+    sk, sp = ke_state(case, cuda), ke_state(case, cuda)
+    n0 = build.launch_counts()["KE"]
+    got = da.thread_walk_graph(sk, *ke_args(case, cuda))
+    assert build.launch_counts()["KE"] == n0 + 1
+    want = da.thread_walk_graph_plain(sp, *ke_args(case, cuda))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(sk["counts"], sp["counts"])
+    if NKW > 1:
+        assert bool(got[1].any()) and not bool(got[1].all())
+
+
+@pytest.mark.parametrize("NE", [1, 129, 130, 135, 139])
+def test_kg_adversarial_matches_plain(cuda, NE):
+    """KG equals novel_edges_plain on the seeded adversarial reads of
+    tests/test_torch_walk_edges_cases.py (empty and clipped segments,
+    rm and counted off, evalid holes, edges repeated in a tile) on a
+    two-level tre table, and launches once."""
+    case = kg_cases(13, 300, NE)
+    n0 = build.launch_counts()["KG"]
+    got = da.novel_edges(*kg_args(case, cuda))
+    assert build.launch_counts()["KG"] == n0 + 1
+    want = da.novel_edges_plain(*kg_args(case, cuda))
+    assert torch.equal(got, want)
+    assert bool(want.any())

@@ -234,7 +234,7 @@ def test_thread_walk_plain_on_handmade_mates():
                              True, False, True, True, False]
     t = torch.from_numpy
     state = {"counts": torch.zeros(nslots + 1, dtype=torch.int32)}
-    clean, clean_pair = tda.thread_walk(
+    clean, clean_pair = tda.thread_walk_plain(
         state, t(nc), t(gfound), t(gmask), t(kvalid), t(nk), t(dev_pair),
         t(tr_member), t(slot))
     assert clean.numpy().tolist() == want.tolist()

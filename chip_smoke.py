@@ -23,7 +23,13 @@ Phases; any failure exits non-zero (nothing is caught and continued):
   5. the production-size counting funnel: >= 1M read pairs (5% from the
      TR pool, 95% random background, 150 bp in L = 160 rows) through the
      host-sampled prefilter, survivor repack and the full step; flagged
-     pairs are counted, not resolved
+     pairs are resolved by the pooled native referee over the flat host
+     view of the index (engine/flat_rpgg.py, built from the device tables
+     before the run: its build seconds, the referee's seconds and the
+     resolved pairs are printed, resolved = flagged); then the first 256
+     flagged pairs through the native referee and the Python HostAligner
+     on two fresh copies of the view (okam): counts, stats and .kam rows
+     equal
  5s. the sharded funnel on a world-1 NCCL group: (a) the golden funnel
      through ShardedAlignRunner (index sharded, E = 128 -> 512,
      checkpoints every 64 pairs), a run stopped after three prefilter
@@ -38,9 +44,10 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      pool; 512 threads a pair, the tables in shared memory) against
      pair_vote_plain, with what sets its work (live entries and events
      per pair); (d) phase 5's batches through ShardedAlignRunner
-     (shard_index, E = 512 -> [4096]): reads/s, retried pairs, the
-     referee share beside phase 5's, the collectives' ms per step, peak
-     memory; KI and KC[large-E] launched, KI's launches by table
+     (shard_index, E = 512 -> [4096]) over a fresh copy of phase 5's flat
+     view: reads/s, retried pairs, the referee share beside phase 5's and
+     its resolved pairs, the collectives' ms per step, peak memory; KI and
+     KC[large-E] launched, KI's launches by table
   6. the production-size threading funnel (-gc 85 3): the index's graph
      table (the fa2kmers -g rule over the loci's sequences), built and
      uploaded only now, so the counting phases never hold it; the
@@ -53,15 +60,18 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      prefilter, full step and KE; pairs whose walk is not clean go to the
      batched native engine through a host view of the loci's graphs (test
      data, built for the pool fragments' loci before the timed run);
-     referee'd pairs are counted, not resolved
+     referee'd pairs are counted, not resolved: no host view carries the
+     locus graphs at scale, in either package
  6c. the error-correction site scorer on the same graph table: B = 8192
      failure sites (a TR mate's first k-mer that is no out-neighbour of
      the node before it in its source locus's graph) from phase 6's
      funnel pairs, scored through make_site_scorer (KJ launched); KJ
      against its plain version (exact) and both against the host oracle
      score_site_np on the first 256 sites (same counters and edit
-     decisions); CUDA-event ms, us per site, the probes KJ makes per site
-     beside JAX's 21 + 62k, and the bound of the graph rows they read
+     decisions); CUDA-event ms, us per site, the probes the counters need
+     per site beside JAX's 21 + 62k and those KJ's lookahead makes, and
+     the bound of the graph rows the needed probes read under the level
+     stop
   7. okam, bait, QC and bubbles: (a) the golden CLI on cuda with .kam
      output (the default) and -bu, with -fq -b -s 2 and with -qc -s 2, all
      outputs byte-equal, KF and KG launched; (b) after the graph table's
@@ -73,7 +83,8 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      substitutions; (c) >= 1M pairs through the okam funnel (-s 2 -b -qc
      -bu, simmode-2 titles, 5% TR pool with 0.5% substitutions): .kam
      rows, bubble maps at the reference's flush cadence; referee'd pairs
-     are counted, not resolved
+     resolved by the Python HostAligner (-bu has no native referee) over
+     phase 5's flat view renewed with the tre sets, bait maps and QC mask
   8. pred (danbing-tk's bias correction), once phases 2-7 have released
      the card: (a) the golden cohort (the six non-empty
      tests/golden/out*.trkmc.ar, pan.tr.ksi, invariant k-mers from the
@@ -244,6 +255,7 @@ def align_phases(args, dev) -> dict:
 
     from danbing_tk_tpu_torch.engine import device_align as da
     from danbing_tk_tpu_torch.engine.align_runner import DeviceAlignRunner
+    from danbing_tk_tpu_torch.engine.flat_rpgg import FlatRPGG
     from danbing_tk_tpu_torch.engine.host_align import AlignConfig
     from danbing_tk_tpu_torch.index import device_table as dt
     from danbing_tk_tpu_torch.io.native_reader import sample_queries
@@ -511,8 +523,24 @@ def align_phases(args, dev) -> dict:
         f"{time.time() - t0:.1f}s, launches {golden_thr_counts}")
 
     # ---- 5. production-size funnel ----
-    runner = DeviceAlignRunner(None, cfg, batch_pairs=P, max_read_len=L,
+    # the referee's host view: the flat arrays of the device tables
+    t0 = time.time()
+    flat = FlatRPGG.from_device_tables(drp)
+    t_flat = time.time() - t0
+    runner = DeviceAlignRunner(flat, cfg, batch_pairs=P, max_read_len=L,
                                expand_cap=E, drp=drp, device=dev)
+    if type(runner.referee).__name__ != "ParallelReferee":
+        fail(f"phase 5's referee is {type(runner.referee).__name__}, not "
+             f"the pooled native engine")
+    flagged = []                    # the first 256 referee calls' inputs
+    submit = runner.referee.submit
+
+    def record(*a):
+        if len(flagged) < 256:
+            flagged.append(a)
+        submit(*a)
+
+    runner.referee.submit = record
     Pd = runner.dispatch_pairs(True)
     nbat = -(-args.pairs // Pd)
     t0 = time.time()
@@ -537,6 +565,16 @@ def align_phases(args, dev) -> dict:
         fail(f"funnel bookkeeping disagrees: nmapread {int(nmap.sum())} "
              f"vs stats {stats}, pairs {npairs}")
     ref_share = runner.n_referee / max(runner.n_step_pairs, 1)
+    if runner.n_resolved != runner.n_referee or not runner.n_referee:
+        fail(f"phase 5 resolved {runner.n_resolved} of {runner.n_referee} "
+             f"referee'd pairs")
+    log(f"[5] referee: flat view built in {t_flat:.1f}s (dbi keys "
+        f"{len(flat.dbi)}, TR slots {flat.nslots}), referee'd pairs "
+        f"{runner.n_referee} resolved {runner.n_resolved} by "
+        f"{runner.referee.nthreads} native threads, referee_s="
+        f"{runner.referee_s:.3f} (host wall in the calls and flushes), "
+        f"host counts {int(flat.flat_counts().sum())}")
+    referee_gate(flat, cfg, flagged)
     log(f"[5] funnel: pairs={npairs} (data made in {t_data:.1f}s) "
         f"wall={wall:.3f}s reads/s={2 * npairs / wall:.0f} "
         f"prefilter_dispatches={nbat} ms/dispatch={pre_ms:.4f} "
@@ -551,7 +589,7 @@ def align_phases(args, dev) -> dict:
     sharded = sharded_phase(args, dev, dict(
         drp=drp, seqs=seqs, cap=cap, q_mem=q_mem, batches=batches, P=P, L=L,
         E=E, k=k, RL=RL, cfg=cfg, reads_s=2 * npairs / wall,
-        ref_share=ref_share))
+        ref_share=ref_share, flat=flat))
 
     # ---- 6. production-size threading funnel ----
     t0 = time.time()
@@ -675,7 +713,9 @@ def align_phases(args, dev) -> dict:
         f"in {t_view:.1f}s) wall={twall:.3f}s "
         f"reads/s={2 * npairs / twall:.0f} "
         f"survivors={n_surv} device_clean={n_dev} host_thread={n_host} "
-        f"referee={n_ref} shares(device/host/referee of survivors)="
+        f"referee={n_ref} (counted, not resolved: no host view carries the "
+        f"locus graphs at scale, in either package) "
+        f"shares(device/host/referee of survivors)="
         f"{n_dev / n_surv:.4f}/{n_host / n_surv:.4f}/{n_ref / n_surv:.4f} "
         f"host_view_loci_built_in_run={len(view.graphs) - n_view} "
         f"host_view_build_s_in_run={view.build_s - t_view:.3f} "
@@ -831,8 +871,13 @@ def align_phases(args, dev) -> dict:
         f"counted={int(oout['counted'].sum())} KD[annot] ms={kda['ms']:.4f}")
     del oscratch, st_k, st_p, ocap, kf_args, kg_args, kda_args, ostep, oout
 
-    # (c) the 1M-pair okam funnel
-    orunner = DeviceAlignRunner(None, ocfg, batch_pairs=P, max_read_len=L,
+    # (c) the 1M-pair okam funnel; the referee's view gains the tre sets,
+    # bait maps and QC mask
+    t0 = time.time()
+    oflat = flat.renew(drp)
+    t_oflat = time.time() - t0
+    del flat
+    orunner = DeviceAlignRunner(oflat, ocfg, batch_pairs=P, max_read_len=L,
                                 expand_cap=E, drp=drp, device=dev)
     orng = np.random.default_rng([args.seed, 5])
     t0 = time.time()
@@ -861,6 +906,9 @@ def align_phases(args, dev) -> dict:
     bub = orunner.bubbles
     n_novel_f = sum(sum(c.values()) for c in bub.bub_counts.values())
     n_osurv = orunner.n_step_pairs
+    if orunner.n_resolved != orunner.n_referee or not orunner.n_referee:
+        fail(f"phase 7c resolved {orunner.n_resolved} of "
+             f"{orunner.n_referee} referee'd pairs")
     if (int(onmap.sum()) != ost[6]
             or orunner.n_prefiltered + n_osurv != npairs
             or not rows or ost[7] <= 0 or ost[8] <= 0 or n_novel_f <= 0
@@ -878,7 +926,11 @@ def align_phases(args, dev) -> dict:
         f"novel_edges={n_novel_f} bubble_kmers="
         f"{sum(len(c) for c in bub.bub_counts.values())} "
         f"referee={orunner.n_referee} referee_share="
-        f"{orunner.n_referee / max(n_osurv, 1):.5f} steps={orunner.n_steps} "
+        f"{orunner.n_referee / max(n_osurv, 1):.5f} resolved="
+        f"{orunner.n_resolved} by the Python HostAligner, referee_s="
+        f"{orunner.referee_s:.3f}; flat view renewed with tre, bait and QC "
+        f"in {t_oflat:.1f}s (tre edges {len(oflat.tre_sets.keys)}) "
+        f"steps={orunner.n_steps} "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
         f"stats={ost} launches={olaunches}")
 
@@ -896,6 +948,48 @@ def align_phases(args, dev) -> dict:
                         golden_okam_counts))
 
 
+def referee_gate(flat, cfg, flagged) -> None:
+    """Phase 5's referee gate: the flagged pairs' referee calls through the
+    port's NativeReferee and through the Python HostAligner (okam), each
+    on a fresh copy of the flat view; their counts, nmapread, kmc, stats
+    and .kam rows must be equal."""
+    import dataclasses
+
+    import numpy as np
+
+    from danbing_tk_tpu_torch.engine import native_referee as nr
+    from danbing_tk_tpu_torch.engine.host_align import HostAligner
+
+    gcfg = dataclasses.replace(cfg, okam=True)
+    t0 = time.time()
+    py = HostAligner(flat.renew(), gcfg)
+    for a in flagged:
+        py.process_pair(*a)
+    t_py = time.time() - t0
+    t0 = time.time()
+    nat = HostAligner(flat.renew(), gcfg)
+    eng = nr.NativeReferee(nat)
+    for a in flagged:
+        eng.process_pair(*a)
+    t_nat = time.time() - t0
+    same = (np.array_equal(py.flat_counts(), nat.flat_counts())
+            and np.array_equal(py.nmapread, nat.nmapread)
+            and np.array_equal(py.kmc, nat.kmc) and py.stats == nat.stats
+            and py.kam_rows == nat.kam_rows)
+    if len(flagged) < 256 or not py.kam_rows:
+        fail(f"referee gate: {len(flagged)} flagged pairs, "
+             f"{len(py.kam_rows)} .kam rows (256 pairs and rows needed)")
+    if not same:
+        fail(f"referee gate: native and Python referees disagree on "
+             f"{len(flagged)} flagged pairs (stats {py.stats} vs "
+             f"{nat.stats})")
+    log(f"[5] referee gate: {len(flagged)} flagged pairs, native = Python "
+        f"referee on the flat view (counts, nmapread, kmc, stats, "
+        f"{len(py.kam_rows)} .kam rows equal; counted TR k-mers "
+        f"{int(py.flat_counts().sum())}) python_s={t_py:.2f} "
+        f"native_s={t_nat:.2f}")
+
+
 def site_scorer_phase(drp, dev, tbatches, src_loci, view, k, RL, kb_bytes):
     """Phase 6c: B = 8192 failure sites (the mates of one P = 4096 step)
     from phase 6's TR pairs, scored on the scale graph table through
@@ -907,37 +1001,11 @@ def site_scorer_phase(drp, dev, tbatches, src_loci, view, k, RL, kb_bytes):
 
     from danbing_tk_tpu_torch.kernels import build
     from danbing_tk_tpu_torch.ops import correct as cr
-    from danbing_tk_tpu_torch.tools.scale_index import _fwd_kmers
+    from danbing_tk_tpu_torch.tools.scale_index import failure_sites
 
     B, mes = 8192, 2
     t_phase = t0 = time.time()
-    # a site: a mate's forward k-mers, the first ki >= 1 whose k-mer is no
-    # out-neighbour of k-mer ki - 1, a node of the source locus's graph
-    # (where the threading walk calls error correction), and that locus
-    sites, n_pairs = [], 0
-    for (codes, rlen, _), li in zip(tbatches, src_loci):
-        t = np.flatnonzero(li >= 0)
-        mates = np.stack([2 * t, 2 * t + 1], 1).ravel()
-        if (rlen[mates] != RL).any():
-            fail("phase 6c: a TR mate is not RL bases long")
-        ml = np.repeat(li[t], 2)
-        kms = _fwd_kmers(codes[mates, :RL], k)
-        ul = np.unique(ml)
-        gk = np.concatenate([(np.uint64(d) << np.uint64(42))
-                             | view.graphs[d][0] for d in ul.tolist()])
-        gm = np.concatenate([view.graphs[d][1] for d in ul.tolist()])
-        key = (ml.astype(np.uint64)[:, None] << np.uint64(42)) | kms
-        pos = np.searchsorted(gk, key).clip(max=len(gk) - 1)
-        hit = gk[pos] == key
-        bits = np.where(hit, gm[pos], 0).astype(np.int64)
-        bad = hit[:, :-1] & (((bits[:, :-1] >> (kms[:, 1:] & np.uint64(3))
-                               .astype(np.int64)) & 1) == 0)
-        rows = np.flatnonzero(bad.any(1))[:B - len(sites)]
-        ki = bad.argmax(1) + 1
-        sites += [(kms[r], int(ki[r]), int(ml[r])) for r in rows]
-        n_pairs += rows[-1] // 2 + 1 if len(sites) == B else len(t)
-        if len(sites) == B:
-            break
+    sites, n_pairs = failure_sites(tbatches, src_loci, view, k, RL, B)
     if len(sites) < B:
         fail(f"phase 6c: {len(sites)} sites from {n_pairs} TR pairs")
     w_lo, w_hi, nkrem, loc = cr.sites_to_batch(sites, k=k, B=B)
@@ -989,20 +1057,24 @@ def site_scorer_phase(drp, dev, tbatches, src_loci, view, k, RL, kb_bytes):
         n_edit += edit[0] > 0
     ms = cuda_ms(kj)
     plain_ms = cuda_ms(plain, n=5, reps=2, warm=1)
-    # the bound: the distinct graph rows of the probes KJ makes (per level
-    # as KB's bound counts them), the sites' k-mers, nkrem and loc in, the
-    # counters out
+    # the bound: the distinct graph rows of the probes the counters need
+    # (the serial early exit's, at the levels they need under the level
+    # stop), the sites' k-mers, nkrem and loc in, the counters out; KJ's
+    # rounds of D steps make more probes
+    kjc = cr.site_scorer_config()
     site, q = cr.site_probes(gtab, *args, k, mes)
-    _, rows, reads = kb_bytes(gtab, q, args[2][site])
+    made = len(cr.site_probes(gtab, *args, k, mes, ahead=kjc["ahead"])[1])
+    _, rows, reads = kb_bytes(gtab, q, args[2][site], stop=True)
     nbytes = rows * 8 * gtab.W * 4 + B * ((k + 3) * 8 + 8 + cr.NCHAINS * 4)
     bound = nbytes / HBM_BYTES_PER_MS
     log(f"[6c] KJ site_scorer match=True max_abs_err={err} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
         f"us_per_site={1e3 * ms / B:.4f} (host engine ~1.1 ms per corrected "
         f"read, PERF.md) sites={B} from {n_pairs} TR pairs (found in "
-        f"{t_sites:.1f}s) mes={mes} probes={len(q)} "
+        f"{t_sites:.1f}s) mes={mes} probes_needed={len(q)} "
         f"probes_per_site={len(q) / B:.2f} (JAX: 21 + 62k = "
-        f"{21 + 62 * k}) distinct_rows={rows} row_reads={reads} "
+        f"{21 + 62 * k}) KJ {kjc}: probes_made={made} "
+        f"({made / B:.2f} a site) distinct_rows={rows} row_reads={reads} "
         f"bytes={nbytes} nonzero_sites={int(got.any(1).sum())} "
         f"oracle_sites=256 with_edit={n_edit} first_call_s={t_first:.3f} "
         f"launches={jlaunches['KJ']} phase_s={time.time() - t_phase:.1f}")
@@ -1204,10 +1276,10 @@ def sharded_phase(args, dev, ctx) -> dict:
 
     # ---- (c) KC large-E on overflow pairs of the TR pool ----
     E4 = 4096
-    srunner = ShardedAlignRunner(None, ctx["cfg"], mesh=mesh, batch_pairs=P,
-                                 max_read_len=L, expand_cap=E,
-                                 retry_expand=[E4], shard_index=True,
-                                 drp=drp)
+    srunner = ShardedAlignRunner(ctx["flat"].renew(), ctx["cfg"], mesh=mesh,
+                                 batch_pairs=P, max_read_len=L,
+                                 expand_cap=E, retry_expand=[E4],
+                                 shard_index=True, drp=drp)
     Pt = srunner.retry_P[0]             # _tier_P(4096)
     kc_rng = np.random.default_rng([args.seed, 6])
     kcap: dict = {}
@@ -1294,12 +1366,17 @@ def sharded_phase(args, dev, ctx) -> dict:
                      n=5, reps=3, warm=1)
     k15_bound = 12 * nslots / HBM_BYTES_PER_MS
     ref_share = srunner.n_referee / max(srunner.n_step_pairs, 1)
+    if srunner.n_resolved != srunner.n_referee:
+        fail(f"phase 5s-d resolved {srunner.n_resolved} of "
+             f"{srunner.n_referee} referee'd pairs")
     log(f"[5s-d] sharded funnel (world 1, shard_index, E={E}->{E4}): "
         f"pairs={npairs} wall={wall:.3f}s reads/s={2 * npairs / wall:.0f} "
         f"(phase 5: {ctx['reads_s']:.0f}) survivors={srunner.n_step_pairs} "
         f"retried={srunner.n_retried} steps={srunner.n_steps} "
         f"referee={srunner.n_referee} referee_share={ref_share:.5f} "
-        f"(phase 5: {ctx['ref_share']:.5f}) reasons={srunner.referee_reasons} "
+        f"(phase 5: {ctx['ref_share']:.5f}) resolved={srunner.n_resolved} "
+        f"(flat view shared with phase 5, built in 0s here) referee_s="
+        f"{srunner.referee_s:.3f} reasons={srunner.referee_reasons} "
         f"collective_probe_ms_per_step={coll:.4f} (world 1: the probes' "
         f"cost beyond KI, collectives and their glue, and the pack's "
         f"gather) K15_finalize_merge_ms={k15_ms:.4f} (counts, {nslots} "

@@ -159,16 +159,30 @@ class DeviceAlignRunner:
                  max_read_len: int = 256, expand_cap: int = 512,
                  retry_expand: int | list = 0, drp=None, device=None,
                  thread_view=None):
-        """In threading mode a step's fallback pairs (walk not clean) go
-        to the native engine in one batched call, or with ``cfg.tc``
-        (-gcc) to the Python engine pair by pair, as in the JAX package.
-        ``thread_view`` stands in for ``rpgg`` when there is none (a
-        DeviceRPGG built straight from arrays): an object with per-locus
+        """``rpgg`` is the host view of the index that referee'd pairs
+        are resolved against: a host_align.RPGG (dict-backed, built from
+        the text formats) or, at production scale, a flat_rpgg.FlatRPGG
+        view of ``drp``'s tables.  The referee is the pooled native
+        engine (native_referee.ParallelReferee) where
+        native_referee.supported(cfg) holds and DTK_NO_NATIVE_REFEREE is
+        unset, else the Python HostAligner, as in the JAX package.
+
+        In threading mode a step's fallback pairs (walk not clean) go to
+        the native engine in one batched call, or with ``cfg.tc`` (-gcc)
+        to the Python engine pair by pair, as in the JAX package.  At
+        scale no host view carries the locus graphs (the JAX package's
+        FlatRPGG.load_graphs raises too), so threading may run with
+        ``rpgg=None`` and a ``thread_view``: an object with per-locus
         ``graphs[d]`` (a dict or a (nodes, masks) array pair) and
-        ``tr_counts[d]`` (a dict) for the batched fallback.  Without an
-        rpgg, referee'd pairs are counted, not resolved, and write no .kam
-        row; the runner keeps its own bubble maps."""
+        ``tr_counts[d]`` (a dict) for the batched fallback.  Its
+        referee'd pairs are counted, not resolved.  ``rpgg=None`` without
+        a ``thread_view`` raises ValueError."""
         da.check_ported_config(cfg)
+        if rpgg is None and (thread_view is None or not cfg.threading):
+            raise ValueError("a runner needs an rpgg (a FlatRPGG view of "
+                             "drp at scale) to resolve referee'd pairs; "
+                             "only threading with a thread_view runs "
+                             "without one")
         self.device = resolve_device(device)
         self.rpgg = rpgg
         self.cfg = cfg
@@ -204,10 +218,20 @@ class DeviceAlignRunner:
         self.step = self._build_step(expand_cap, with_annot=self.okam,
                                      with_qual=self.with_qual)
         self.state = self._init_state()
-        # host oracle: referee'd pairs' counts go into the rpgg dicts.
-        # Without an rpgg (a DeviceRPGG built straight from arrays, as the
-        # synthetic scale index is) flagged pairs are counted, not resolved
+        # host oracle: referee'd pairs' counts go into the rpgg's counts.
+        # Without an rpgg (threading at scale) flagged pairs are counted,
+        # not resolved
         self.host = HostAligner(rpgg, cfg) if rpgg is not None else None
+        # the pooled C++ engine runs supported configs with identical
+        # state updates: its calls fan over threads (GIL released in C)
+        # and the verdicts apply in submission order
+        self.referee = self.host
+        if self.host is not None \
+                and not os.environ.get("DTK_NO_NATIVE_REFEREE"):
+            from . import native_referee as nr
+
+            if nr.supported(cfg):
+                self.referee = nr.ParallelReferee(self.host)
         # the batch-local maps merged at the end of the run (and, with
         # -bu, at each flush): the host's, which its referee calls fill
         # too, or the runner's own bubble maps without an rpgg
@@ -229,6 +253,10 @@ class DeviceAlignRunner:
         self.aln_rows: list[str] = []
         self.n_referee = 0
         self.referee_reasons = {"tie": 0, "ovf": 0, "t2": 0}
+        # referee calls made (each pooled call has landed when run_batches
+        # returns) and the host seconds spent in them and in the flushes
+        self.n_resolved = 0
+        self.referee_s = 0.0
         self.n_prefiltered = 0
         self.n_steps = 0            # full steps dispatched (retry tiers too)
         self.n_step_pairs = 0       # live pairs entering primary steps
@@ -366,6 +394,21 @@ class DeviceAlignRunner:
         if prefilter and self.prefilter_P != Pp:
             self.prefilter_step = self._build_prefilter(Pp)
             self.prefilter_P = Pp
+        # counting mode submits referee calls to the native pool (their
+        # count adds commute); ordered modes call it synchronously, so a
+        # pair's row lands in pair order.  The pool is flushed before a
+        # -bu merge, a checkpoint save and the finalize
+        ref = self.referee
+        ref_submit = None if ordered else getattr(ref, "submit", None)
+
+        def ref_call(fn, *a):
+            t0 = time.perf_counter()
+            fn(*a)
+            self.referee_s += time.perf_counter() - t0
+
+        def ref_flush():
+            if hasattr(ref, "flush"):
+                ref_call(ref.flush)
         aux_keys = (("referee_pack",)
                     + (THR_KEYS if thr else KAM_KEYS if okam else ())
                     + (BUB_KEYS if bub else ()))
@@ -499,6 +542,9 @@ class DeviceAlignRunner:
                         self.aln_rows.append(
                             f"{src_s}\t{dest}\t{title}\t{s2}\t{s1}\t"
                             f"{c2}\t{t2}\t{c1}\t{t1}\n")
+            elif ref_submit is not None:        # referee, pooled
+                self.n_resolved += 1
+                ref_call(ref_submit, *e[1:])
             else:                               # referee (synchronous)
                 _, title, s1, s2, src, qs = e
                 # the referee's freshly appended row moves into the
@@ -506,7 +552,8 @@ class DeviceAlignRunner:
                 rows, sink = ((host.kam_rows, self.kam_rows) if okam else
                               (host.aln_rows, self.aln_rows))
                 n0 = len(rows)
-                host.process_pair(title, s1, s2, src, qs)
+                self.n_resolved += 1
+                ref_call(ref.process_pair, title, s1, s2, src, qs)
                 if len(rows) > n0:
                     sink.append(rows.pop())
 
@@ -784,6 +831,7 @@ class DeviceAlignRunner:
             nonlocal next_flush
             step_buf()
             drain_ladder()
+            ref_flush()
             self.bubbles.flush_batch()
             next_flush += bflush
 
@@ -808,6 +856,7 @@ class DeviceAlignRunner:
                 drain_ladder()
             else:
                 drain_steps()
+            ref_flush()
             extra = dict(cfg_P=P, cfg_retry_E=sum(self.retry_E),
                          cfg_prefilter=int(bool(prefilter)),
                          cfg_okam=int(okam), cfg_bub=int(bub))
@@ -922,6 +971,7 @@ class DeviceAlignRunner:
                 drain_one()
             step_buf()
             drain_ladder()
+            ref_flush()
             if self.bubbles is not None:
                 self.bubbles.flush_batch()
             # batched threading counts live in native CountMaps until
@@ -1049,6 +1099,9 @@ class DeviceAlignRunner:
             if flat.any():
                 raise ValueError("checkpoint holds referee counts but this "
                                  "runner has no rpgg to restore them into")
+        elif hasattr(self.rpgg, "flat_counts"):
+            # the flat view: one array copy
+            self.rpgg.flat_counts()[:] = flat
         else:
             p = 0
             for li in range(self.rpgg.nloci):
@@ -1056,6 +1109,7 @@ class DeviceAlignRunner:
                 for km in self.rpgg.tr_orders[li]:
                     cnt[km] = int(flat[p])
                     p += 1
+        if self.host is not None:
             self.host.nmapread = z["host_nmapread"].astype(np.uint64)
             self.host.kmc = z["host_kmc"].astype(np.uint64)
         self.n_referee = int(z["n_referee"])

@@ -6,10 +6,12 @@
   seconds).  ``build_kernels()`` starts one nvcc per source, all at once.
 * ``native/dtk_native.cpp`` (the repo's shared host runtime: the streaming
   pair reader, the subfilter query sampler and the libstdc++ sort-order
-  helper) -> ``build/torch_native/libdtk_native.so`` and
+  helper) -> ``build/torch_native/libdtk_native.so``,
   ``native/dtk_thread.cpp`` (the graph-threading engine with error
-  correction) -> ``build/torch_native/libdtk_thread.so``, both with
-  ``g++``; a failed build raises.
+  correction) -> ``build/torch_native/libdtk_thread.so`` and
+  ``native/dtk_align.cpp`` (the host referee engine) ->
+  ``build/torch_native/libdtk_align.so``, all with ``g++``; a failed build
+  raises.
 
 Every library name carries a hash of its source and flags, so a stale or
 foreign build is never loaded; each build writes to a temporary file and
@@ -35,7 +37,8 @@ CSRC = os.path.join(_PKG, "csrc")
 KERNEL_DIR = os.path.join(ROOT, "build", "torch_kernels")
 NATIVE_DIR = os.path.join(ROOT, "build", "torch_native")
 NATIVE_SRCS = {"native": os.path.join(ROOT, "native", "dtk_native.cpp"),
-               "thread": os.path.join(ROOT, "native", "dtk_thread.cpp")}
+               "thread": os.path.join(ROOT, "native", "dtk_thread.cpp"),
+               "align": os.path.join(ROOT, "native", "dtk_align.cpp")}
 
 KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
            "thread_walk", "read_filter", "novel_edges", "bias_correct",
@@ -187,6 +190,11 @@ def native_lib() -> ctypes.CDLL:
 def thread_lib() -> ctypes.CDLL:
     """The graph-threading engine ``native/dtk_thread.cpp``."""
     return _host_lib("thread")
+
+
+def align_lib() -> ctypes.CDLL:
+    """The host referee engine ``native/dtk_align.cpp``."""
+    return _host_lib("align")
 
 
 def bind(lib: ctypes.CDLL, name: str, sig: str):

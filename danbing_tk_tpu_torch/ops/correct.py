@@ -303,14 +303,18 @@ def _mask4(b: torch.Tensor) -> torch.Tensor:
     return (b.long() << torch.arange(4, device=b.device)).sum(-1)
 
 
-def _score_plain(tab, w, nkrem, loc, k: int, mes: int, probes=False):
+def _score_plain(tab, w, nkrem, loc, k: int, mes: int, probes=False,
+                 ahead: int = 1):
     """The JAX batch body on int64 tensors.  Returns the (B, 62) int32
-    counters, or with ``probes`` the probes KJ makes, as (site, k-mer)
-    int64 pairs: the node of a site where good[0..2] is not all false (no
-    gate opens otherwise), the children its mask allows, the
-    grandchildren their masks allow, and a chain step's k-mer where the
-    step passed and the next step reads the mask (it is in range and
-    good)."""
+    counters, or with ``probes`` the probes of the serial early exit, as
+    (site, k-mer) int64 pairs: the node of a site where good[0..2] is not
+    all false (no gate opens otherwise), the children its mask allows,
+    the grandchildren their masks allow, and a chain step's k-mer where
+    the step passed and the next step reads the mask (it is in range and
+    good).  With ``ahead`` = D > 1 the chain probes are those of KJ's
+    rounds of D steps: step r + d of a round starting at step r where
+    step r passed, steps r + 1 .. r + d are in range and good, and the
+    next step reads the mask."""
     B, dev = w.shape[0], w.device
     rmask = (1 << (2 * (k - 1))) - 1
     a4 = torch.arange(4, device=dev)
@@ -406,9 +410,11 @@ def _score_plain(tab, w, nkrem, loc, k: int, mes: int, probes=False):
     live = good[:, :3].any(1)
     c_live = live[:, None] & nts0
     g_live = c_live[:, :, None] & has_e
-    step = torch.stack(oks, 1)
-    step[:, :-1] &= reads[:, 1:]
-    step[:, -1] = False
+    passed = torch.stack(oks, 1)
+    step = torch.zeros_like(passed)
+    for t in range(k - 1):
+        r = t - t % ahead                       # the round's first step
+        step[:, t] = passed[:, r] & reads[:, r + 1:t + 2].all(1)
     pick = [(s.nonzero()[:, 0], q[s]) for s, q in
             ((live, node), (c_live, c), (g_live, g), (step, ck))]
     return tuple(torch.cat(p) for p in zip(*pick))
@@ -424,11 +430,22 @@ def score_sites_plain(graph_tab, w, nkrem, loc, k: int, mes: int):
     return _score_plain(graph_tab, w, nkrem, loc, k, mes)
 
 
-def site_probes(graph_tab, w, nkrem, loc, k: int, mes: int):
-    """The (site, k-mer) int64 pairs of the graph probes KJ makes on
-    these inputs (the early-exit walk's live probes); score_sites_plain's
-    arguments."""
-    return _score_plain(graph_tab, w, nkrem, loc, k, mes, probes=True)
+def site_probes(graph_tab, w, nkrem, loc, k: int, mes: int, ahead: int = 1):
+    """The (site, k-mer) int64 pairs of the graph probes on these inputs:
+    with ``ahead`` = 1 the early-exit walk's live probes (the probes the
+    counters need), with ``ahead`` = D those KJ makes when a round stages
+    D steps of each chain (site_scorer_config()["ahead"]);
+    score_sites_plain's arguments."""
+    return _score_plain(graph_tab, w, nkrem, loc, k, mes, probes=True,
+                        ahead=ahead)
+
+
+def site_scorer_config(lib=None) -> dict:
+    """The lookahead D and the keys a probe group takes a pass that KJ
+    (csrc/site_scorer.cu, or the build ``lib`` of it) was made with;
+    builds KJ on first use (needs nvcc)."""
+    c = (lib or kernel_lib("site_scorer")).dtk_site_scorer_config()
+    return dict(ahead=c & 0xFF, keys=(c >> 8) & 0xFF)
 
 
 def score_sites(graph_tab, w, nkrem, loc, k: int, mes: int):

@@ -17,7 +17,13 @@ key_averages table under --out.  In threading mode the host view's locus
 builds are done in the warm-up pass (the profiled pass reuses them), and
 the host seconds spent waiting on the batched native engine are printed
 beside the wall; in okam mode, the host seconds spent making .kam rows,
-inserting bubbles and merging the bubble maps.
+inserting bubbles and merging the bubble maps.  Every mode but threading
+resolves its referee'd pairs over the flat host view of the index
+(engine/flat_rpgg.py, built before the warm-up), as chip_smoke.py's
+phases do: its build seconds, and per pass the pairs resolved and the
+host seconds spent in the referee (native pool, or the Python HostAligner
+with -bu), are printed.  Threading keeps the thread_view and counts its
+referee'd pairs unresolved, as no host view carries the graphs at scale.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from ..engine.align_runner import DeviceAlignRunner
+from ..engine.flat_rpgg import FlatRPGG
 from ..engine.host_align import AlignConfig
 from .scale_index import (ScaleThreadView, build_scale_bait,
                           build_scale_graph, build_scale_qc, build_scale_rpgg,
@@ -114,18 +121,23 @@ def main(argv=None):
         sub_rate = 0.005
     print(f"index nloci={args.nloci} built in {time.time() - t0:.1f}s "
           f"threading={args.threading} okam={args.okam}", flush=True)
+    flat = None
+    if not args.threading:
+        t0 = time.time()
+        flat = FlatRPGG.from_device_tables(drp)
+        print(f"flat host view built in {time.time() - t0:.1f}s", flush=True)
     P, L = 4096, 160
     rng = np.random.default_rng(
         [args.seed, 3 if args.threading else 5 if args.okam else 1])
     if args.sharded:
         from ..parallel.runner import ShardedAlignRunner
 
-        runner = ShardedAlignRunner(None, cfg, batch_pairs=P,
+        runner = ShardedAlignRunner(flat, cfg, batch_pairs=P,
                                     max_read_len=L, expand_cap=512,
                                     retry_expand=[4096], shard_index=True,
                                     drp=drp, device=dev)
     else:
-        runner = DeviceAlignRunner(None, cfg, batch_pairs=P,
+        runner = DeviceAlignRunner(flat, cfg, batch_pairs=P,
                                    max_read_len=L, drp=drp, device=dev,
                                    thread_view=view)
     Pd = runner.dispatch_pairs(True)
@@ -143,6 +155,7 @@ def main(argv=None):
     merge_s = _time_calls(runner.bubbles, "flush_batch")
     torch.cuda.synchronize()
     steps0, ret0 = runner.n_steps, runner.n_retried
+    res0, ref_s0 = runner.n_resolved, runner.referee_s
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -168,6 +181,8 @@ def main(argv=None):
           f"device_busy_ms={busy:.3f} idle_share={1 - busy / wall_ms:.4f} "
           f"steps={runner.n_steps - steps0} dispatches={nbat} "
           f"retried={runner.n_retried - ret0} "
+          f"referee_resolved={runner.n_resolved - res0} "
+          f"referee_ms={(runner.referee_s - ref_s0) * 1e3:.3f} "
           f"engine_call_ms={engine_wait[0] * 1e3:.3f} "
           f"kam_row_ms={kam_s[0] * 1e3:.3f} bubble_insert_ms="
           f"{bub_s[0] * 1e3:.3f} bubble_merge_ms={merge_s[0] * 1e3:.3f}",

@@ -41,17 +41,13 @@ from ..index import device_table as dt
 from ..ops import kmers_np as K
 
 
-def build_scale_rpgg(nloci: int = 80_000, kmers_per_locus: int = 1500,
-                     family_frac: float = 0.2, k: int = 21, seed: int = 9,
-                     with_trfl: bool = True, verbose: bool = True):
-    """Returns (drp: DeviceRPGG, seqs: (nloci, Ltr) u8 codes)."""
-    def log(msg):
-        if verbose:
-            print(f"[scale-index] {msg}", file=sys.stderr)
-
+def scale_seqs(nloci: int = 80_000, kmers_per_locus: int = 1500,
+               family_frac: float = 0.2, k: int = 21,
+               seed: int = 9) -> np.ndarray:
+    """The loci's sequences, (nloci, kmers_per_locus + k - 1) u8 codes, as
+    build_scale_rpgg makes them (its tables are built from these)."""
     rng = np.random.default_rng(seed)
     Ltr = kmers_per_locus + k - 1
-    t0 = time.time()
     seqs = rng.integers(0, 4, size=(nloci, Ltr), dtype=np.uint8)
     # families: runs of 2-8 consecutive loci share a ~25% SEGMENT (motif-
     # level sharing; fully duplicated loci would make every family read a
@@ -67,6 +63,20 @@ def build_scale_rpgg(nloci: int = 80_000, kmers_per_locus: int = 1500,
         seqs[li + 1 : li + size, beg : beg + seg] = seqs[li, beg : beg + seg]
         famed += size
         li += size + int(rng.integers(1, 20))
+    return seqs
+
+
+def build_scale_rpgg(nloci: int = 80_000, kmers_per_locus: int = 1500,
+                     family_frac: float = 0.2, k: int = 21, seed: int = 9,
+                     with_trfl: bool = True, verbose: bool = True):
+    """Returns (drp: DeviceRPGG, seqs: (nloci, Ltr) u8 codes)."""
+    def log(msg):
+        if verbose:
+            print(f"[scale-index] {msg}", file=sys.stderr)
+
+    t0 = time.time()
+    seqs = scale_seqs(nloci, kmers_per_locus, family_frac, k, seed)
+    Ltr = seqs.shape[1]
     log(f"sequences {seqs.nbytes/1e6:.0f} MB in {time.time()-t0:.1f}s")
 
     # canonical k-mers, all loci in one shot (interior windows only)
@@ -224,6 +234,42 @@ def build_scale_graph(seqs: np.ndarray, k: int = 21, chunk: int = 4096,
               f"{time.time()-t0:.1f}s", file=sys.stderr)
     tab = dt.build_bucket_table(nodes, masks, loci)
     return tab, len(nodes)
+
+
+def failure_sites(tbatches, src_loci, view, k: int, RL: int, B: int):
+    """B error-correction sites of the threading reads ``tbatches``
+    ((codes, rlen, n) batches of sample_read_batch(with_loci=True), whose
+    pairs' source loci are ``src_loci``): a TR mate's forward k-mers, the
+    first ki >= 1 whose k-mer is no out-neighbour of k-mer ki - 1, a node
+    of the source locus's graph (where the threading walk calls error
+    correction; ``view`` a ScaleThreadView), and that locus.  Returns
+    ([(kmers, ki, locus)], TR pairs searched); fewer than B sites when the
+    batches run out."""
+    sites, n_pairs = [], 0
+    for (codes, rlen, _), li in zip(tbatches, src_loci):
+        t = np.flatnonzero(li >= 0)
+        mates = np.stack([2 * t, 2 * t + 1], 1).ravel()
+        if (rlen[mates] != RL).any():
+            raise ValueError("a TR mate is not RL bases long")
+        ml = np.repeat(li[t], 2)
+        kms = _fwd_kmers(codes[mates, :RL], k)
+        ul = np.unique(ml)
+        gk = np.concatenate([(np.uint64(d) << np.uint64(42))
+                             | view.graphs[d][0] for d in ul.tolist()])
+        gm = np.concatenate([view.graphs[d][1] for d in ul.tolist()])
+        key = (ml.astype(np.uint64)[:, None] << np.uint64(42)) | kms
+        pos = np.searchsorted(gk, key).clip(max=len(gk) - 1)
+        hit = gk[pos] == key
+        bits = np.where(hit, gm[pos], 0).astype(np.int64)
+        bad = hit[:, :-1] & (((bits[:, :-1] >> (kms[:, 1:] & np.uint64(3))
+                               .astype(np.int64)) & 1) == 0)
+        rows = np.flatnonzero(bad.any(1))[:B - len(sites)]
+        ki = bad.argmax(1) + 1
+        sites += [(kms[r], int(ki[r]), int(ml[r])) for r in rows]
+        n_pairs += rows[-1] // 2 + 1 if len(sites) == B else len(t)
+        if len(sites) == B:
+            break
+    return sites, n_pairs
 
 
 def _canonical(codes: np.ndarray, k: int) -> np.ndarray:

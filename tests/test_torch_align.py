@@ -134,8 +134,13 @@ def test_scale_index_cache_and_batches(tmp_path):
         [9, 1]), frac_tr=0.5, flen=100, read_len=90)
     assert codes.shape == (128, 100) and (rlen == 90).all()
     assert (codes[:, 90:] == 255).all() and (codes[:, :90] < 4).all()
-    # the funnel over the synthetic index: every pair's fate is counted
-    run = DeviceAlignRunner(None, AlignConfig(**KW), batch_pairs=16,
+    # the funnel over the synthetic index, its referee on the flat view
+    # of the tables: every pair's fate is counted, every flagged pair
+    # resolved
+    from danbing_tk_tpu_torch.engine.flat_rpgg import FlatRPGG
+
+    run = DeviceAlignRunner(FlatRPGG.from_device_tables(drp),
+                            AlignConfig(**KW), batch_pairs=16,
                             max_read_len=100, drp=drp, device="cpu")
     assert run.dispatch_pairs(True) == 64
     run.run_batches([(codes, rlen, 64)], prefilter=True)
@@ -144,3 +149,4 @@ def test_scale_index_cache_and_batches(tmp_path):
                                                          // 16)
     assert int(run.state["stats"][0]) + 2 * run.n_referee == \
         2 * run.n_step_pairs
+    assert run.n_resolved == run.n_referee

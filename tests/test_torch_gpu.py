@@ -24,6 +24,7 @@ from test_torch_assign_count import kd_cases, kd_run
 from test_torch_kmers_filter_cases import (FLAGS, KF_MODES, ka_cases,
                                            kf_args, kf_cases)
 from test_torch_pair_vote import vote_cases
+from test_torch_site_scorer_cases import kj_args, kj_cases
 from test_torch_walk_edges_cases import (ke_args, ke_cases, ke_state,
                                          kg_args, kg_cases)
 
@@ -271,6 +272,24 @@ def test_kj_matches_plain(cuda, drp_graph, mes):
     scorer = cr.make_site_scorer(drp_graph, B, k=k, mes=mes)
     assert torch.equal(scorer(cr.join_w(w_lo, w_hi), nkrem, loc), want)
     assert build.launch_counts()["KJ"] == n0 + 2
+
+
+@pytest.mark.parametrize("k,mes", [(17, 2), (21, 1), (21, 2), (32, 2)])
+def test_kj_cases_match_plain(cuda, k, mes):
+    """KJ equals score_sites_plain on tests/test_torch_site_scorer_cases.py's
+    adversarial sites (edits of every kind, N holes, NAN64 nodes, nkrem 1-3,
+    pad rows, tandem-repeat loci, branching graphs, keys past level 0),
+    k = 17, 21 and 32, mes 1 and 2; one launch per call."""
+    from danbing_tk_tpu_torch.ops import correct as cr
+
+    case = kj_cases(5, 256, k)
+    args = kj_args(case, cuda)
+    n0 = build.launch_counts()["KJ"]
+    got = cr.score_sites(*args, k, mes)
+    assert build.launch_counts()["KJ"] == n0 + 1
+    want = cr.score_sites_plain(*args, k, mes)
+    assert torch.equal(got, want)
+    assert bool(got.any()) and not bool(got[256 - case["npad"]:].any())
 
 
 def test_golden_threading_on_cuda(cuda, tmp_path):

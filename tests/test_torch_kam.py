@@ -115,9 +115,13 @@ def test_bubbles_flush_cadence(tmp_path, prefilter):
 
 
 def test_scale_funnel_okam_counts_referees():
-    """Without an rpgg (the synthetic scale index) the okam funnel keeps
-    its own bubble maps, counts referee'd pairs and writes no .kam row
-    for them; simmode-2 titles give each row its source locus."""
+    """On the synthetic scale index the okam funnel's referee is the
+    Python HostAligner (-bu) over the flat view of the tables, with their
+    tre sets, bait maps and QC mask: it resolves every referee'd pair,
+    and its .kam rows join the device's; simmode-2 titles give each row
+    its source locus."""
+    from danbing_tk_tpu_torch.engine.flat_rpgg import FlatRPGG
+
     from danbing_tk_tpu_torch.tools import scale_index as si
 
     drp, seqs = si.build_scale_rpgg(40, 300, verbose=False)
@@ -126,8 +130,10 @@ def test_scale_funnel_okam_counts_referees():
     drp.qc = si.build_scale_qc(40, fail_frac=0.1)
     cfg = AlignConfig(**KW, simmode=2, bait=True, qc=True,
                       output_bubbles=True, reads_per_batch=40)
-    run = DeviceAlignRunner(None, cfg, batch_pairs=16, max_read_len=100,
+    flat = FlatRPGG.from_device_tables(drp)
+    run = DeviceAlignRunner(flat, cfg, batch_pairs=16, max_read_len=100,
                             expand_cap=16, drp=drp, device="cpu")
+    assert run.referee is run.host
     rng = np.random.default_rng([9, 5])
     batches = []
     for _ in range(2):
@@ -139,8 +145,10 @@ def test_scale_funnel_okam_counts_referees():
     st = run.state["stats"].tolist()
     assert run.n_step_pairs + run.n_prefiltered == 128
     assert st[0] + 2 * run.n_referee == 2 * run.n_step_pairs
+    assert 0 < run.n_referee == run.n_resolved
+    assert flat.flat_counts().any()
     rows = run.kam_rows
-    assert 0 < len(rows) <= run.n_step_pairs - run.n_referee
+    assert 0 < len(rows) <= run.n_step_pairs
     assert all(r.split("\t")[0] != "." for r in rows)
     assert sum(map(len, run.bubbles.bub_counts.values())) > 0
 

@@ -20,6 +20,12 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      --native-io --prefilter -ka`` (.trkmc.ar byte-equal) and the
      threading run ``-s 2 -gc 50 3 -a -on`` (.aln and .tr.kmers
      byte-equal, no .tr.summary.txt); every kernel launched
+ 4b. golden on cuda through the CLI's Python ingest (``align --device``
+     with neither --native-io nor --prefilter: DeviceAlignRunner.run_file):
+     -e 2 and -fq -s 2 -e 1 (rows on stdout), -ka (.trkmc.ar,
+     .tr.summary.txt), the default okam (.kam) and -ka --checkpoint, and a
+     checkpointed run_file stopped after five steps and resumed, all
+     byte-equal; KA-KD launched in every run
   5. the production-size counting funnel: >= 1M read pairs (5% from the
      TR pool, 95% random background, 150 bp in L = 160 rows) through the
      host-sampled prefilter, survivor repack and the full step; flagged
@@ -30,6 +36,12 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      flagged pairs through the native referee and the Python HostAligner
      on two fresh copies of the view (okam): counts, stats and .kam rows
      equal
+ 5b. the Python ingest at full width: phase 5's first 65,536 pairs as a
+     FASTA file through run_file (-ka) and run_file_native (prefilter),
+     each over a fresh copy of phase 5's flat view: equal counts, resolved
+     = flagged in each, reads/s of both and their referee seconds; then
+     -e 2 through run_file on the first 512 pairs, rows equal to the
+     HostAligner's over the flat view
  5s. the sharded funnel on a world-1 NCCL group: (a) the golden funnel
      through ShardedAlignRunner (index sharded, E = 128 -> 512,
      checkpoints every 64 pairs), a run stopped after three prefilter
@@ -100,9 +112,9 @@ Phases; any failure exits non-zero (nothing is caught and continued):
   9. the kernels line (JSON): KA-KJ and KC's large-E instance; each
      kernel's ``launches`` is the sum over its paths' runs (per path in
      ``launches_by_path``: the counting, sharded, threading and okam
-     funnel runs and the site scorer's run, and for KH the pred file
-     run), the counts set to 0 just before each run and read just after
-     it
+     funnel runs, the site scorer's run and phase 5b's run_file, and for
+     KH the pred file run), the counts set to 0 just before each run and
+     read just after it
  10. the last line: {"ok": true, "device": {...}}
 
 Needs a CUDA card; exits 1 without one, or without the package beside it.
@@ -234,7 +246,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[2] {name}: {line.strip()}")
 
-    res = align_phases(args, dev)
+    res = align_phases(args, dev, smi)
     # ---- 8. pred ----
     # every device tensor of phases 2-7 died with align_phases
     import gc
@@ -247,7 +259,7 @@ def main() -> int:
     return finish(res, kh, kh_launches, kind, smi, t_start)
 
 
-def align_phases(args, dev) -> dict:
+def align_phases(args, dev, smi: str) -> dict:
     """Phases 2 (scale index) to 7; returns the kernel results and the
     launch counts of every path."""
     import numpy as np
@@ -521,6 +533,8 @@ def align_phases(args, dev) -> dict:
         fail(f"golden threading run skipped a kernel: {golden_thr_counts}")
     log(f"[4] golden threading CLI on cuda: .aln and .tr.kmers byte-equal, "
         f"{time.time() - t0:.1f}s, launches {golden_thr_counts}")
+    # ---- 4b. golden, Python ingest (run_file), through the CLI ----
+    golden_py_counts = python_ingest_golden(gold, smi)
 
     # ---- 5. production-size funnel ----
     # the referee's host view: the flat arrays of the device tables
@@ -584,6 +598,10 @@ def align_phases(args, dev) -> dict:
         f"index_build_s={t_index:.1f} nloci={args.nloci} "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
         f"stats={stats} launches={launches}")
+
+    # ---- 5b. the Python ingest at full width ----
+    plaunches = python_ingest_scale(drp, flat, batches, cfg, P, L, E, dev,
+                                    smi)
 
     # ---- 5s. the sharded funnel (world-1 NCCL group) ----
     sharded = sharded_phase(args, dev, dict(
@@ -943,9 +961,223 @@ def align_phases(args, dev) -> dict:
         replaces="danbing_tk_tpu/engine/device_align.py:618")
     return dict(results=results, launches=launches, tlaunches=tlaunches,
                 olaunches=olaunches, slaunches=sharded["launches"],
-                jlaunches=jlaunches,
+                jlaunches=jlaunches, plaunches=plaunches,
                 golden=(golden_counts, golden_thr_counts,
-                        golden_okam_counts))
+                        golden_okam_counts, golden_py_counts))
+
+
+def python_ingest_golden(gold: str, smi: str) -> dict:
+    """Phase 4b: the CLI's --device route without --native-io or
+    --prefilter (DeviceAlignRunner.run_file, the Python ingest) on cuda
+    over the golden panel: -e 2 and -fq -s 2 -e 1 (rows on stdout),
+    -ka (.trkmc.ar, .tr.summary.txt), the default okam (.kam), and -ka
+    --checkpoint in one go, and through the runner stopped after five
+    steps and resumed, all byte-equal to the goldens.  Returns the launch
+    counts summed over the runs; KA-KD must each have launched in every
+    run."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from danbing_tk_tpu_torch.apps import cli
+    from danbing_tk_tpu_torch.engine.align_runner import DeviceAlignRunner
+    from danbing_tk_tpu_torch.engine.host_align import AlignConfig, RPGG
+    from danbing_tk_tpu_torch.kernels import build
+
+    t_phase = time.time()
+    pan = os.path.join(gold, "pan")
+    base = ["align", "--device", "-cth", "20", "-kf", "4", "1", "-qs", pan]
+    total: dict = {}
+
+    def counted(what, fn):
+        build.reset_launch_counts()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        c = build.launch_counts()
+        if min(c[t] for t in COUNTING) <= 0:
+            fail(f"phase 4b {what} skipped a kernel: {c}")
+        for key, v in c.items():
+            total[key] = total.get(key, 0) + v
+        return time.time() - t0
+
+    def same(path, name, what):
+        with open(path, "rb") as f, open(os.path.join(gold, name), "rb") as g:
+            if f.read() != g.read():
+                fail(f"phase 4b {what}: {os.path.basename(path)} differs "
+                     f"from tests/golden/{name}")
+
+    secs = {}
+    with tempfile.TemporaryDirectory(prefix="dtk_smoke_") as d:
+        out = os.path.join(d, "OUT")
+        for what, extra, name in (
+                ("-e 2", ["-fa", os.path.join(gold, "reads.fa"), "-e", "2"],
+                 "out.e2.fa"),
+                ("-fq -e 1", ["-fq", os.path.join(gold, "reads.sim.fq"),
+                              "-s", "2", "-e", "1"], "out.fq.e1.fq")):
+            rows = os.path.join(d, "rows")
+            with open(rows, "w") as fh, contextlib.redirect_stdout(fh):
+                secs[what] = counted(what, lambda: cli.main(
+                    base + extra + ["-o", out]))
+            same(rows, name, what)
+        reads = ["-fa", os.path.join(gold, "reads.fa")]
+        secs["-ka"] = counted("-ka", lambda: cli.main(
+            base + reads + ["-ka", "-o", out]))
+        same(out + ".trkmc.ar", "out.trkmc.ar", "-ka")
+        same(out + ".tr.summary.txt", "out.tr.summary.txt", "-ka")
+        secs["okam"] = counted("okam", lambda: cli.main(
+            base + reads + ["-o", out + "k"]))
+        same(out + "k.kam", "out.kam", "okam")
+        ck = os.path.join(d, "ck.npz")
+        what = "-ka --checkpoint"
+        secs[what] = counted(what, lambda: cli.main(
+            base + reads + ["-ka", "--checkpoint", ck, "-o", out + "c"]))
+        same(out + "c.trkmc.ar", "out.trkmc.ar", "-ka --checkpoint")
+
+        class Stop(Exception):
+            pass
+
+        cfg = AlignConfig(ksize=21, cth=20, n_filter=4, nm_filter=1,
+                          okam=False)
+        ck2 = os.path.join(d, "ck2.npz")
+        r1 = DeviceAlignRunner(RPGG(pan), cfg, batch_pairs=512)
+        inner, n = r1.step, [0]
+
+        def step(*a):
+            if n[0] >= 5:
+                raise Stop()
+            n[0] += 1
+            return inner(*a)
+
+        r1.step = step
+        try:
+            r1.run_file(os.path.join(gold, "reads.fa"), checkpoint=ck2,
+                        checkpoint_every=1024)
+            fail("phase 4b: the stopped run was not stopped")
+        except Stop:
+            pass
+        cursor = int(np.load(ck2)["cursor"])
+        r2 = DeviceAlignRunner(RPGG(pan), cfg, batch_pairs=512)
+        secs["resume"] = counted("resume", lambda: r2.run_file(
+            os.path.join(gold, "reads.fa"), checkpoint=ck2,
+            checkpoint_every=1024))
+        r2.write_trkmc_ar(out + "r.trkmc.ar")
+        r2.write_summary(out + "r.tr.summary.txt")
+        same(out + "r.trkmc.ar", "out.trkmc.ar", "resumed run")
+        same(out + "r.tr.summary.txt", "out.tr.summary.txt", "resumed run")
+    log(f"[4b] golden Python ingest (run_file) on cuda through the CLI: "
+        f"-e 2 and -fq -s 2 -e 1 rows on stdout, -ka .trkmc.ar and "
+        f".tr.summary.txt, okam .kam, -ka --checkpoint in one go, and "
+        f"stopped at pair {cursor} and resumed (batch_pairs=512): all "
+        f"byte-equal; seconds {secs}; phase_s={time.time() - t_phase:.1f} "
+        f"launches {total}; card {smi}")
+    return total
+
+
+def python_ingest_scale(drp, flat, batches, cfg, P, L, E, dev,
+                        smi: str) -> dict:
+    """Phase 5b: the first 65,536 pairs of phase 5 as a FASTA file,
+    through run_file (Python ingest, -ka) and run_file_native (prefilter)
+    at full width, each over a fresh copy of phase 5's flat view (the
+    view is not built again): equal counts, every flagged pair resolved;
+    then -e 2 through run_file on the first 512 pairs, rows equal to the
+    HostAligner's over the flat view.  Returns run_file's launch counts."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from danbing_tk_tpu_torch.engine.align_runner import DeviceAlignRunner
+    from danbing_tk_tpu_torch.engine.host_align import HostAligner
+    from danbing_tk_tpu_torch.kernels import build
+
+    t_phase = time.time()
+    decode = np.frombuffer(b"ACGT" + b"N" * 252, dtype=np.uint8)
+    npairs = 65_536
+
+    def write_fasta(path, n):
+        rows, got = [], 0
+        for codes, rlen, m in batches:
+            for i in range(min(m, n - got)):
+                j = got + i
+                # iter_fasta_pairs (and the native reader) take a pair's
+                # second record for mate 1
+                for mate in (1, 0):
+                    r = 2 * i + mate
+                    seq = decode[codes[r, : rlen[r]]].tobytes().decode()
+                    rows.append(f">p{j}/{mate + 1}\n{seq}\n")
+            got += min(m, n - got)
+            if got == n:
+                break
+        with open(path, "w") as f:
+            f.writelines(rows)
+
+    with tempfile.TemporaryDirectory(prefix="dtk_smoke_") as d:
+        fa, fa512 = os.path.join(d, "reads.fa"), os.path.join(d, "r512.fa")
+        t0 = time.time()
+        write_fasta(fa, npairs)
+        write_fasta(fa512, 512)
+        t_write = time.time() - t0
+        runs = {}
+        for name in ("run_file", "run_file_native"):
+            r = DeviceAlignRunner(flat.renew(), cfg, batch_pairs=P,
+                                  max_read_len=L, expand_cap=E, drp=drp,
+                                  device=dev)
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.time()
+            if name == "run_file":
+                r.run_file(fa)
+            else:
+                r.run_file_native(fa, prefilter=True)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            c = build.launch_counts()
+            if min(c[t] for t in COUNTING) <= 0:
+                fail(f"phase 5b {name} skipped a kernel: {c}")
+            if r.n_resolved != r.n_referee or not r.n_referee:
+                fail(f"phase 5b {name} resolved {r.n_resolved} of "
+                     f"{r.n_referee} flagged pairs")
+            runs[name] = (r, wall, c)
+        (rp, wp, cp), (rn, wn, _) = runs["run_file"], runs["run_file_native"]
+        if not np.array_equal(rp.flat_counts(), rn.flat_counts()):
+            fail("phase 5b: run_file's counts differ from run_file_native's")
+        # -e 2 on the first 512 pairs: device rows vs the HostAligner's
+        ecfg = dataclasses.replace(cfg, extract=2)
+        t0 = time.time()
+        er = DeviceAlignRunner(flat.renew(), ecfg, batch_pairs=P,
+                               max_read_len=L, expand_cap=E, drp=drp,
+                               device=dev)
+        er.run_file(fa512)
+        dev_rows = io.StringIO()
+        er.write_extract(dev_rows)
+        t_edev = time.time() - t0
+        t0 = time.time()
+        host = HostAligner(flat.renew(), ecfg)
+        host.run_file(fa512)
+        host_rows = io.StringIO()
+        host.write_extract(host_rows)
+        t_ehost = time.time() - t0
+        if dev_rows.getvalue() != host_rows.getvalue():
+            fail("phase 5b: -e 2 rows of run_file differ from the "
+                 "HostAligner's over the flat view")
+        nrows = dev_rows.getvalue().count("\n") // 4
+    log(f"[5b] Python ingest at full width (P={P}, L={L}, E={E}): "
+        f"{npairs} pairs of phase 5 as FASTA (written in {t_write:.1f}s); "
+        f"run_file reads/s={2 * npairs / wp:.0f} wall={wp:.3f}s "
+        f"survivors={rp.n_step_pairs} steps={rp.n_steps} referee="
+        f"{rp.n_referee} resolved={rp.n_resolved} referee_s="
+        f"{rp.referee_s:.3f}; run_file_native (prefilter) reads/s="
+        f"{2 * npairs / wn:.0f} wall={wn:.3f}s survivors={rn.n_step_pairs} "
+        f"referee={rn.n_referee} resolved={rn.n_resolved} referee_s="
+        f"{rn.referee_s:.3f}; counts equal ({int(rp.flat_counts().sum())} "
+        f"TR k-mers); -e 2 on 512 pairs: {nrows} rows equal to the "
+        f"HostAligner's (device {t_edev:.1f}s, host {t_ehost:.1f}s, "
+        f"referee {er.n_referee}); phase_s={time.time() - t_phase:.1f} "
+        f"launches {cp}; card {smi}")
+    return cp
 
 
 def referee_gate(flat, cfg, flagged) -> None:
@@ -1592,7 +1824,8 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "KI": "KI sharded_lookup", "KJ": "KJ site_scorer"}
     paths = {"counting": res["launches"], "sharded": res["slaunches"],
              "threading": res["tlaunches"], "okam": res["olaunches"],
-             "site_scorer": res["jlaunches"]}
+             "site_scorer": res["jlaunches"],
+             "python_ingest": res["plaunches"]}
     kern = [dict(name=names[t], route="cuda",
                  launches=sum(c[t] for c in paths.values()),
                  launches_by_path={p: c[t] for p, c in paths.items()},
@@ -1600,10 +1833,11 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
     kern.append(dict(name="KH bias_correct", route="cuda",
                      launches=kh_launches,
                      launches_by_path={"pred": kh_launches}, **kh))
-    golden_counts, golden_thr_counts, golden_okam_counts = res["golden"]
+    golden_counts, golden_thr_counts, golden_okam_counts, golden_py = \
+        res["golden"]
     log(f"[9] golden launches {golden_counts} / threading "
-        f"{golden_thr_counts} / okam {golden_okam_counts}; card {smi}; "
-        f"smoke wall {time.time() - t_start:.1f}s")
+        f"{golden_thr_counts} / okam {golden_okam_counts} / Python ingest "
+        f"{golden_py}; card {smi}; smoke wall {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kern}), flush=True)
     # ---- 10. last line ----
     print(json.dumps({"ok": True, "device": {

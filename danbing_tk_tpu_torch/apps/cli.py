@@ -1,30 +1,37 @@
-"""Command-line interface: ``python -m danbing_tk_tpu_torch align|pred ...``.
+"""Command-line interface: ``python -m danbing_tk_tpu_torch <cmd> ...``.
 
-Both subcommands take the JAX CLI's arguments (danbing_tk_tpu/apps/cli.py)
-plus ``--torch-device`` (default ``cuda``; without a card the run raises
-unless ``--torch-device cpu`` is given).
-The port runs the counting funnel, by default with .kam rows (-ka turns
-them off), with simmode, bait, QC, fastq input and bubbles, and the
-graph-threading funnel, each with the retry ladder (--retry-expand) and
-checkpoints (--checkpoint, --checkpoint-every),
+The subcommands take the JAX CLI's arguments (danbing_tk_tpu/apps/cli.py).
+``align`` routes as the JAX CLI's does:
 
-    align --device --native-io [--prefilter] [-ka] [-s 1|2] [-b] \
-        [-qc QC] [-bu] [--retry-expand E1,E2] [--checkpoint CK] \
-        -qs PAN (-fa READS | -fq READS) -o OUT
-    align --device --native-io [--prefilter] -gc T C [-a|-ae] [-s 2] \
-        -qs PAN -fa READS -on OUT
+    align -qs PAN (-fa|-fq) READS (-o|-on) OUT ...       host engine
+    align --device ...                                   run_file (Python
+                                                         ingest)
+    align --device --checkpoint CK -ka ...               run_file, resumable
+    align --device (--native-io|--prefilter) ...         run_file_native
 
-(``--device --prefilter`` without ``--native-io`` runs the same native
-reader path, as the JAX CLI does) and raises NotImplementedError, naming
-the ROADMAP item, for any mode it does not run yet (-e, -tb, -t, and
-``--device`` with neither flag, or no ``--device``).  A run resumed from its checkpoint keeps
-the partial .kam, which the checkpoint truncates back to its high-water
-mark.
+with .kam rows by default (-ka turns them off), -s 1|2, -b, -qc, -fq, -bu,
+graph threading (-gc T C [-a|-ae]), extract (-e 1|2: the pairs go to
+stdout and no other file is written), bait tracking (-tb: .btk.kmdb, host
+engine only), the trimmed TR k-mer DB (-t T), the retry ladder
+(--retry-expand) and checkpoints (--checkpoint, --checkpoint-every).  The
+device engine takes ``--torch-device`` (default ``cuda``; without a card
+the run raises unless ``--torch-device cpu`` is given); the host engine
+runs no card work.  Refused, each with its reason: ``--device -tb`` (the
+device step does not track bait hits), and -e with --native-io or
+--prefilter (extract mode runs on run_file).  A run resumed from its
+checkpoint keeps the partial .kam, which the checkpoint truncates back to
+its high-water mark.
 
 ``pred gt.meta ikmer.meta raw.gt corr.gt bias.tsv`` is danbing-tk's bias
 correction, with KH on the card; its files are byte-identical to the JAX
 package's default (numpy) ``pred``.  ``--jax`` is accepted so that JAX
 command lines run unchanged: the port has the one device path.
+
+The index and read tools are host code, byte-identical to the JAX
+package's: ``serialize PREF`` (.kmers.dbi, .fl.kdb, .tre.kdb),
+``fa2kmers``, ``genpankmers``, ``ktools`` (ksi, sum [-f], extract,
+extract-bt, serialize, serialize-bt, raava), ``mapkmers``, ``simreads``
+and ``bam2pe``.
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ import sys
 
 
 def _cmd_align(args):
-    from .._device import resolve_device
-    from ..engine.host_align import AlignConfig, RPGG
+    from ..engine.host_align import AlignConfig, HostAligner, RPGG
+    from ..io.rowsink import RowSink
 
     cfg = AlignConfig(
         ksize=args.k, cth=args.cth, n_filter=args.kf[0],
@@ -53,53 +60,75 @@ def _cmd_align(args):
         qth=args.qth,
         reads_per_batch=int(300000 * args.r),
     )
-    if (args.native_io or args.prefilter) and not args.device:
+    native = args.native_io or args.prefilter
+    if native and not args.device:
         raise ValueError("--native-io/--prefilter need --device")
-    if not (args.device and (args.native_io or args.prefilter)):
-        raise NotImplementedError(
-            "the port runs the device engine over the native reader only "
-            "(--device with --native-io or --prefilter); the Python-ingest "
-            "and host-only paths are not ported yet (ROADMAP: port queue)")
-    if args.t:
-        raise NotImplementedError("-t (trimmed TR k-mer DB) is not "
-                                  "ported yet (ROADMAP: port queue)")
-    device = resolve_device(args.torch_device)
-    from ..engine.align_runner import DeviceAlignRunner
+    if args.checkpoint and not args.device:
+        raise ValueError("--checkpoint needs --device")
+    if native and cfg.extract:
+        raise ValueError("-e extract mode uses run_file: drop --native-io "
+                         "and --prefilter")
+    if args.device:
+        from .._device import resolve_device
+        from ..engine import device_align as da
 
+        device = resolve_device(args.torch_device)
+        da.check_ported_config(cfg)
     rpgg = RPGG(args.qs, bait=args.b, qc_file=args.qc, trim=args.t)
-    al = DeviceAlignRunner(rpgg, cfg, expand_cap=args.expand_cap,
-                           retry_expand=args.retry_expand, device=device)
-    pref = args.o or args.on
-    # .kam and .aln rows stream to their files in append (pair) order
-    from ..io.rowsink import RowSink
+    if args.device:
+        from ..engine.align_runner import DeviceAlignRunner
 
-    if al.okam:
-        # a resumed run keeps the partial .kam (the checkpoint loader
-        # truncates it back to the saved high-water mark)
-        resuming = bool(args.checkpoint and os.path.exists(args.checkpoint))
-        al.kam_rows = RowSink(pref + ".kam", append=resuming)
-    if cfg.aln:
-        al.aln_rows = RowSink(pref + ".aln")
-    al.run_file_native(args.fa or args.fq, checkpoint=args.checkpoint,
-                       checkpoint_every=args.checkpoint_every,
-                       prefilter=args.prefilter)
+        al = DeviceAlignRunner(rpgg, cfg, expand_cap=args.expand_cap,
+                               retry_expand=args.retry_expand, device=device)
+    else:
+        al = HostAligner(rpgg, cfg)
+    # rows stream to their sinks in append (pair) order
+    pref = args.o or args.on
+    okam = cfg.okam and not cfg.threading
+    if cfg.extract:
+        al.extract_rows = RowSink(fh=sys.stdout)
+    else:
+        if okam:
+            # a resumed run keeps the partial .kam (the checkpoint loader
+            # truncates it back to the saved high-water mark)
+            resuming = bool(args.checkpoint
+                            and os.path.exists(args.checkpoint))
+            al.kam_rows = RowSink(pref + ".kam", append=resuming)
+        if cfg.aln:
+            al.aln_rows = RowSink(pref + ".aln")
+    path = args.fa or args.fq
+    if native:
+        al.run_file_native(path, checkpoint=args.checkpoint,
+                           checkpoint_every=args.checkpoint_every,
+                           prefilter=args.prefilter)
+    elif args.device:
+        al.run_file(path, checkpoint=args.checkpoint,
+                    checkpoint_every=args.checkpoint_every or 1_000_000)
+    else:
+        al.run_file(path)
+    if cfg.extract:
+        al.write_extract(sys.stdout)
+        return
     if args.on:
         al.write_tr_kmers(pref + ".tr.kmers")
     else:
         al.write_trkmc_ar(pref + ".trkmc.ar")
         if not cfg.threading:
             al.write_summary(pref + ".tr.summary.txt")
-    if al.okam:
+    if okam:
         al.write_kam(pref + ".kam")
+    if cfg.track_bait:
+        al.write_btk(pref + ".btk.kmdb")
     if cfg.aln:
         al.write_aln(pref + ".aln")
     if cfg.output_bubbles:
         al.write_bubbles(pref + ".bub.kmdb")
-    print(f"referee pairs (host-oracle fallback): {al.n_referee}",
-          file=sys.stderr)
-    if cfg.threading:
-        print(f"threading pairs: {al.n_device_thread} device-clean, "
-              f"{al.n_host_thread} host engine", file=sys.stderr)
+    if args.device:
+        print(f"referee pairs (host-oracle fallback): {al.n_referee}",
+              file=sys.stderr)
+        if cfg.threading:
+            print(f"threading pairs: {al.n_device_thread} device-clean, "
+                  f"{al.n_host_thread} host engine", file=sys.stderr)
     print(f"align done -> {pref}", file=sys.stderr)
 
 
@@ -108,6 +137,82 @@ def _cmd_pred(args):
 
     return run_pred(args.gt_meta, args.ikmer_meta, args.out_raw, args.out,
                     args.out_bias, device=args.torch_device)
+
+
+def _cmd_serialize(args):
+    from ..index.dbi import serialize
+
+    serialize(args.pref)
+
+
+def _cmd_fa2kmers(args):
+    from ..apps.fa2kmers import fa2kmers, make_tre_kmers
+
+    fa2kmers(args.o, args.fa, k=args.k, fsi=args.fsi, fso=args.fso,
+             gen_graph=args.g, tr_only=args.tr, threshold=args.th,
+             prune_file=args.p)
+    if args.tre:
+        make_tre_kmers(args.o, args.fa, args.k, args.fsi)
+
+
+def _cmd_genpankmers(args):
+    from ..apps.genpankmers import gen_pan_kmers
+
+    gen_pan_kmers(args.o, args.k,
+                  ortho_map=None if args.m == "-" else args.m,
+                  tr_only=args.tr, tre_only=args.tre)
+
+
+def _cmd_simreads(args):
+    from ..apps.sim_reads import sim_reads
+
+    sim_reads(args.i, sys.stdout, cov=args.c, flen=args.fs, rlen=args.rlen,
+              min_ctg_len=args.ml, uni=args.uni, bed=args.bed,
+              seed=args.seed, out_pref=args.o, split=args.split)
+
+
+def _cmd_bam2pe(args):
+    from ..apps.bam2pe import bam2pe
+
+    with open(args.fai) as f:
+        bam2pe(f, sys.stdout)
+
+
+def _cmd_ktools(args):
+    from ..apps import ktools as kt
+    from ..index.dbi import serialize as dbi_serialize
+
+    a = args.args
+    if args.sub == "ksi":
+        for v in kt.ksi(a[0]):
+            print(v)
+    elif args.sub == "sum":
+        if a[0] == "-f":
+            ks = [int(x) for x in open(a[1])]
+            files = [line.strip() for line in open(a[2])]
+            with open(a[3], "w") as fo:
+                kt.kms_sum_matrix(ks, files, fo)
+        else:
+            ks = [int(x) for x in open(a[0])]
+            for v in kt.kms_sum(ks, a[1]):
+                print(v)
+    elif args.sub == "extract":
+        kt.extract(a[0], int(a[1]), a[2])
+    elif args.sub == "extract-bt":
+        kt.extract_bt(a[0], a[1], a[2] if len(a) > 2 else None)
+    elif args.sub == "serialize":
+        dbi_serialize(a[0])
+    elif args.sub == "serialize-bt":
+        kt.serialize_bt(a[0], int(a[1]), a[2])
+    elif args.sub == "raava":
+        kt.raava(a[0], int(a[1]))
+
+
+def _cmd_mapkmers(args):
+    from ..apps.mapkmers import mapkmers
+
+    mapkmers(args.panbed, args.target_field, args.pankmers, args.kmers,
+             args.outpref)
 
 
 def main(argv=None):
@@ -146,7 +251,7 @@ def main(argv=None):
     a.add_argument("-a", action="store_true")
     a.add_argument("-ae", action="store_true")
     a.add_argument("--device", action="store_true",
-                   help="run the device engine")
+                   help="run the device engine (else the host engine)")
     a.add_argument("--native-io", action="store_true",
                    help="C++ streaming reader (production ingest; "
                         "counting mode only)")
@@ -159,7 +264,8 @@ def main(argv=None):
     a.add_argument("--checkpoint-every", type=int, default=None,
                    metavar="PAIRS",
                    help="fixed save cadence in pairs; default auto-sizes "
-                        "from the measured save cost (<5%% overhead)")
+                        "from the measured save cost (<5%% overhead), or "
+                        "1,000,000 pairs with --device alone (run_file)")
     a.add_argument("--expand-cap", type=int, default=512,
                    help="per-pair kmer->locus expansion slots on device")
     a.add_argument("--retry-expand",
@@ -169,8 +275,8 @@ def main(argv=None):
                         "device steps with these many slots (comma-"
                         "separated tiers) before the host referee")
     a.add_argument("--torch-device", default="cuda",
-                   help="torch device of the engine (default cuda; cpu runs "
-                        "the kernels' plain versions)")
+                   help="torch device of the --device engine (default "
+                        "cuda; cpu runs the kernels' plain versions)")
     a.set_defaults(fn=_cmd_align)
 
     pr = sub.add_parser("pred", help="bias correction")
@@ -186,6 +292,64 @@ def main(argv=None):
                     help="torch device (default cuda; cpu runs KH's plain "
                          "version)")
     pr.set_defaults(fn=_cmd_pred)
+
+    s = sub.add_parser("serialize", help="ktools serialize equivalent")
+    s.add_argument("pref")
+    s.set_defaults(fn=_cmd_serialize)
+
+    f = sub.add_parser("fa2kmers")
+    f.add_argument("-o", required=True)
+    f.add_argument("-fa", nargs="+", required=True)
+    f.add_argument("-k", type=int, default=21)
+    f.add_argument("-fsi", type=int, default=700)
+    f.add_argument("-fso", type=int, default=700)
+    f.add_argument("-g", action="store_true")
+    f.add_argument("-tr", action="store_true")
+    f.add_argument("-th", type=int, default=0)
+    f.add_argument("-p", help="prune kmer file (-p)", default=None)
+    f.add_argument("--tre", action="store_true")
+    f.set_defaults(fn=_cmd_fa2kmers)
+
+    g = sub.add_parser("genpankmers")
+    g.add_argument("-o", required=True)
+    g.add_argument("-m", default="-")
+    g.add_argument("-k", nargs="+", required=True)
+    g.add_argument("-tr", action="store_true")
+    g.add_argument("-tre", action="store_true")
+    g.set_defaults(fn=_cmd_genpankmers)
+
+    sr = sub.add_parser("simreads")
+    sr.add_argument("-i", required=True)
+    sr.add_argument("-c", type=int, default=15)
+    sr.add_argument("-fs", type=int, default=500)
+    sr.add_argument("-rlen", type=int, default=150)
+    sr.add_argument("-ml", type=int, default=50000)
+    sr.add_argument("-uni", action="store_true")
+    sr.add_argument("-bed", action="store_true")
+    sr.add_argument("--seed", type=int, default=0)
+    sr.add_argument("-o", default=None)
+    sr.add_argument("-split", action="store_true")
+    sr.set_defaults(fn=_cmd_simreads)
+
+    bp = sub.add_parser("bam2pe")
+    bp.add_argument("-fai", required=True)
+    bp.set_defaults(fn=_cmd_bam2pe)
+
+    kt = sub.add_parser("ktools", help="index utilities")
+    kt.add_argument("sub", choices=["ksi", "sum", "extract", "extract-bt",
+                                    "serialize", "serialize-bt", "raava"])
+    # REMAINDER: `sum -f` reaches the subcommand (with nargs="*" argparse
+    # takes -f for an option of its own, as the JAX CLI does)
+    kt.add_argument("args", nargs=argparse.REMAINDER)
+    kt.set_defaults(fn=_cmd_ktools)
+
+    mk = sub.add_parser("mapkmers")
+    mk.add_argument("panbed")
+    mk.add_argument("target_field", type=int)
+    mk.add_argument("pankmers")
+    mk.add_argument("kmers")
+    mk.add_argument("outpref")
+    mk.set_defaults(fn=_cmd_mapkmers)
 
     args = p.parse_args(argv)
     return args.fn(args)

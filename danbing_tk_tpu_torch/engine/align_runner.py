@@ -1,11 +1,12 @@
 """Device-aligner runner: streams read batches from the native reader
-through the optional sampled-k-mer prefilter and the device step, routes
+(run_file_native, through the optional sampled-k-mer prefilter) or from
+the Python reader (run_file) through the device step, routes
 referee-flagged pairs through the host oracle, and writes the byte-exact
-outputs (.trkmc.ar / .tr.kmers / .tr.summary.txt, .kam, .bub.kmdb, and
-.aln in threading mode).
+outputs (.trkmc.ar / .tr.kmers / .tr.summary.txt, .kam, .bub.kmdb, .aln
+in threading mode, and the extracted pairs of -e).
 
-Counterpart of DeviceAlignRunner.run_file_native in
-danbing_tk_tpu/engine/align_runner.py, with its retry ladder and
+Counterpart of DeviceAlignRunner.run_file_native and run_file in
+danbing_tk_tpu/engine/align_runner.py, with the retry ladder and
 checkpoints.  The device accumulates TR-k-mer counts in a flat u32 array
 in .trkmc.ar order; referee'd pairs are masked out on the device and
 recomputed by host_align.process_pair, so the final counts are device +
@@ -21,16 +22,24 @@ pair cursor, the host counts, ``dev_<state key>`` as u32 / int64 and
 buffers and, in ordered mode, the .kam high-water mark and the bubble
 maps), so a checkpoint crosses between the packages.
 
-Threading, okam (.kam rows, the default) and bubbles (-bu) are ordered:
-every pair entering a full step gets an ordinal, its side effects (a .kam
-row, bubble inserts, a device-clean .aln row, a host threading fallback, a
-referee call) are buffered per ordinal and applied strictly in pair order,
-so rows interleave and the bubble maps fill exactly as the reference's.
+Threading, okam (.kam rows, the default), bubbles (-bu) and extract (-e)
+are ordered: every pair entering a full step gets an ordinal, its side
+effects (a .kam row, bubble inserts, a device-clean .aln row, an extract
+row, a host threading fallback, a referee call) are buffered per ordinal
+and applied strictly in pair order, so rows interleave and the bubble maps
+fill exactly as the reference's.
 With -bu the batch-local bubble maps merge into the global DB every
 reads_per_batch / 2 input pairs, the reference's flush cadence, which
 shapes the .bub.kmdb bytes.  Pairs whose DFA walk is not clean go to the
 native threading engine (native/dtk_thread.cpp) in one batched call per
 step on a one-worker pool.
+
+run_file packs each batch of the Python reader (iter_fasta_pairs) into
+P-pair chunks of the same format, with the reads cut to L for the step;
+the host sees the full records (titles, sequences, quality strings and
+source loci), so referee calls, .kam, .aln and extract rows are the JAX
+run_file's.  Its unclean threading pairs go to the host engine pair by
+pair, as there.
 """
 
 from __future__ import annotations
@@ -47,8 +56,8 @@ from ..io import binary as bio
 from . import device_align as da
 from ..ops import kmers_np as K
 from .host_align import (AlignConfig, BubbleMaps, HostAligner, RPGG,
-                         ReadAsgn, _kam_row, parse_read_name_sim1,
-                         parse_read_name_sim2)
+                         ReadAsgn, _kam_row, iter_fasta_pairs,
+                         parse_read_name_sim1, parse_read_name_sim2)
 from .native_thread import NativeThreader, row_stride, split_cg_row
 
 # a prefilter dispatch carries PREFILTER_MULT x the step's pairs (the
@@ -73,6 +82,8 @@ KAM_KEYS = ("nonshort", "sub_drop", "pair_alive", "qc_drop", "vote_pass",
             "counted", "dest", "dst0", "kf", "hf", "bf", "rm", "af", "nt",
             "bs", "ti", "si", "ei", "nk", "ann")
 BUB_KEYS = ("novel_pack", "dest")
+# -e rows (JAX _post_chunk_extract): bait and QC do not apply
+EXT_KEYS = ("nonshort", "sub_drop", "pair_alive", "vote_pass", "dst0")
 
 _DECODE = np.full(256, ord("N"), dtype=np.uint8)
 _DECODE[:4] = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -193,8 +204,8 @@ class DeviceAlignRunner:
             da.DeviceRPGG.build(rpgg, with_tre=cfg.output_bubbles)
         if cfg.threading and self.drp.graph_tab is None:
             self.drp.add_graph(rpgg)
-        # threading never writes .kam
-        self.okam = bool(cfg.okam and not cfg.threading)
+        # threading and extract never write .kam
+        self.okam = bool(cfg.okam and not cfg.threading and not cfg.extract)
         # fastq + bait: the bait count profile skips quality-masked k-mers
         # (aQueryFasta_thread.h:1038-1078); the mask is made on the host
         self.with_qual = bool(cfg.is_fastq and cfg.bait
@@ -251,6 +262,7 @@ class DeviceAlignRunner:
                                  "thread_view (and no -gcc check)")
         self.kam_rows: list[str] = []
         self.aln_rows: list[str] = []
+        self.extract_rows: list[str] = []
         self.n_referee = 0
         self.referee_reasons = {"tie": 0, "ovf": 0, "t2": 0}
         # referee calls made (each pooled call has landed when run_batches
@@ -335,6 +347,9 @@ class DeviceAlignRunner:
         from ..io.prefetch import PrefetchIterator
 
         cfg = self.cfg
+        if cfg.extract:
+            raise ValueError("-e extract mode uses run_file (the native "
+                             "reader path has no extract rows)")
         reader = NativeBatchReader(
             path, self.dispatch_pairs(prefilter), self.L,
             is_fastq=cfg.is_fastq, min_read_size=cfg.cth + cfg.ksize - 1,
@@ -345,6 +360,50 @@ class DeviceAlignRunner:
                              checkpoint_every=checkpoint_every)
         finally:
             reader.close()
+
+    def run_file(self, path: str, checkpoint: str | None = None,
+                 checkpoint_every: int = 1_000_000):
+        """Python ingest (the JAX runner's run_file): iter_fasta_pairs
+        batches of reads_per_batch / 2 pairs, each cut into chunks of P
+        pairs, one full step a chunk (no prefilter).  The step sees the
+        reads cut to L; the host gets the full records.  With -bu the
+        bubble maps merge after every reader batch.  ``checkpoint`` covers
+        counting mode only (no .kam rows, no -bu), with a chunk-aligned
+        pair cursor; it saves every ``checkpoint_every`` pairs and at the
+        end."""
+        cfg = self.cfg
+        if checkpoint is not None and (cfg.okam or cfg.output_bubbles):
+            raise ValueError("checkpointing run_file covers counting mode "
+                             "only: pass -ka and no -bu")
+        batches = iter_fasta_pairs(
+            path, cfg.cth + cfg.ksize - 1, self.drp.nloci, cfg.simmode,
+            cfg.reads_per_batch // 2, is_fastq=cfg.is_fastq)
+        chunks = (self._pack_chunk(batch[i: i + self.P])
+                  for batch in batches
+                  for i in range(0, len(batch), self.P))
+        self.run_batches(chunks, reads=True, checkpoint=checkpoint,
+                         checkpoint_every=checkpoint_every)
+
+    def _pack_chunk(self, pairs) -> tuple:
+        """One run_batches record of up to P pairs of iter_fasta_pairs
+        records: codes cut to L and padded with 255, rlen, n, the records
+        (in an object array), and the phred+33 quality rows for fastq."""
+        P, L = self.P, self.L
+        codes = np.full((2 * P, L), 255, dtype=np.uint8)
+        rlen = np.zeros(2 * P, dtype=np.int32)
+        quals = (np.zeros((2 * P, L), dtype=np.uint8) if self.cfg.is_fastq
+                 else None)
+        recs = np.empty(len(pairs), dtype=object)
+        for i, rec in enumerate(pairs):
+            recs[i] = rec
+            for m in (0, 1):
+                c = K.encode_bases(rec[1 + m])[:L]
+                codes[2 * i + m, : len(c)] = c
+                rlen[2 * i + m] = len(c)
+                if quals is not None:
+                    q = np.frombuffer(rec[4 + m].encode(), np.uint8)[:L]
+                    quals[2 * i + m, : len(q)] = q
+        return codes, rlen, len(pairs), recs, quals
 
     def _with_titles(self) -> bool:
         """Titles ride along for .kam and .aln rows and the simmode src."""
@@ -362,12 +421,17 @@ class DeviceAlignRunner:
 
     def run_batches(self, batches, prefilter: bool = False,
                     checkpoint: str | None = None,
-                    checkpoint_every: int | None = None):
+                    checkpoint_every: int | None = None,
+                    reads: bool = False):
         """Runs packed batches (codes (2n', L) u8, rlen (2n',) i32, n
         live pairs[, titles[, quals]]) of ``dispatch_pairs(prefilter)``
         rows each through the funnel; the file path feeds it the native
         reader.  Titles are '>'-stripped (None without them), quals the
-        (2n', L) u8 phred+33 rows.
+        (2n', L) u8 phred+33 rows.  With ``reads`` (run_file) the titles'
+        place holds the pairs' iter_fasta_pairs records, and the host
+        takes titles, sources, sequences and quality strings from them
+        in full; unclean threading pairs then go to the host engine pair
+        by pair.
 
         With ``checkpoint`` the run resumes from that file when it exists
         (batches up to its pair cursor are skipped; a resume under another
@@ -382,8 +446,9 @@ class DeviceAlignRunner:
         thr = cfg.threading
         okam = self.okam
         bub = bool(cfg.output_bubbles)
-        ordered = thr or okam or bub
-        wt, wq = self._with_titles(), self._with_quals()
+        ext = bool(cfg.extract)
+        ordered = thr or okam or bub or ext
+        wt, wq = reads or self._with_titles(), self._with_quals()
         sim = cfg.simmode
         nloci = self.drp.nloci
         lead = self.lead
@@ -410,7 +475,8 @@ class DeviceAlignRunner:
             if hasattr(ref, "flush"):
                 ref_call(ref.flush)
         aux_keys = (("referee_pack",)
-                    + (THR_KEYS if thr else KAM_KEYS if okam else ())
+                    + (THR_KEYS if thr else KAM_KEYS if okam
+                       else EXT_KEYS if ext else ())
                     + (BUB_KEYS if bub else ()))
 
         def new_buffers(n):
@@ -456,7 +522,7 @@ class DeviceAlignRunner:
         # at its end (one worker = one call in flight; its own threads
         # give the parallelism)
         thr_batch_pool = None
-        if thr and self.nthr is not None:
+        if thr and self.nthr is not None and not reads:
             from concurrent.futures import ThreadPoolExecutor
 
             thr_batch_pool = ThreadPoolExecutor(1)
@@ -475,22 +541,35 @@ class DeviceAlignRunner:
                 return parse_read_name_sim1(title)
             return -1
 
-        def title_of(titles, i):
-            # native titles come '>'-stripped and pruned
-            return ">" + titles[i] if titles is not None else ">r"
+        def title_src(titles, i):
+            """Pair i's title and source locus: from its record, or from
+            the native title ('>'-stripped and pruned)."""
+            if reads:
+                return titles[i][0], titles[i][3]
+            title = ">" + titles[i] if titles is not None else ">r"
+            return title, pair_src(title) if sim else -1
 
-        def ref_effect(codes, rlen, quals, titles, i):
-            """The referee call's inputs, captured now; the call runs at
-            apply time so its .kam / .aln row and bubbles land in pair
-            order."""
+        def host_reads(codes, rlen, quals, titles, i):
+            """Pair i's (seq1, seq2, (qual1, qual2)) as the host sees
+            them: from its record, or decoded from the packed rows."""
+            if reads:
+                rec = titles[i]
+                return (rec[1], rec[2],
+                        tuple(rec[4:6]) if len(rec) > 4 else (None, None))
             qs = (None, None)
             if quals is not None:
                 qs = (_decode_qual(quals[2 * i], rlen[2 * i]),
                       _decode_qual(quals[2 * i + 1], rlen[2 * i + 1]))
-            title = title_of(titles, i)
-            return ("ref", title, _decode(codes[2 * i], rlen[2 * i]),
-                    _decode(codes[2 * i + 1], rlen[2 * i + 1]),
-                    pair_src(title) if sim else -1, qs)
+            return (_decode(codes[2 * i], rlen[2 * i]),
+                    _decode(codes[2 * i + 1], rlen[2 * i + 1]), qs)
+
+        def ref_effect(codes, rlen, quals, titles, i):
+            """The referee call's inputs, captured now; the call runs at
+            apply time so its .kam / .aln / extract row and bubbles land
+            in pair order."""
+            title, src = title_src(titles, i)
+            s1, s2, qs = host_reads(codes, rlen, quals, titles, i)
+            return ("ref", title, s1, s2, src, qs)
 
         def apply_effect(e):
             tag = e[0]
@@ -501,16 +580,22 @@ class DeviceAlignRunner:
                 self._add_bubbles_codes(*e[1:])
             elif tag == "aln":
                 self.aln_rows.append(e[1])
+            elif tag == "ext":
+                _, title, s1, s2, dst0_i, qs = e
+                host._record_extract(title, s1, s2, dst0_i, qs)
+                self.extract_rows.append(host.extract_rows.pop())
             elif tag == "thr":
-                # -gcc: the Python engine walks and checks the pair here
+                # -gcc, or the Python ingest: the host engine walks (and
+                # with -gcc checks) the pair here
                 _, title, s1, s2, src, dst0_i = e
                 self.n_host_thread += 1
                 host.stats["nThreadingReads"] += 2
-                rows = host.aln_rows
+                rows, sink = ((host.extract_rows, self.extract_rows) if ext
+                              else (host.aln_rows, self.aln_rows))
                 n0 = len(rows)
                 host._thread_pair(title, s1, s2, src, dst0_i)
                 if len(rows) > n0:
-                    self.aln_rows.append(rows.pop())
+                    sink.append(rows.pop())
             elif tag == "thrb":
                 # batched fallback: the C++ call did the walks,
                 # corrections and k-mer counting for the whole step; the
@@ -550,7 +635,8 @@ class DeviceAlignRunner:
                 # the referee's freshly appended row moves into the
                 # runner's sink in pair order
                 rows, sink = ((host.kam_rows, self.kam_rows) if okam else
-                              (host.aln_rows, self.aln_rows))
+                              (host.extract_rows, self.extract_rows) if ext
+                              else (host.aln_rows, self.aln_rows))
                 n0 = len(rows)
                 self.n_resolved += 1
                 ref_call(ref.process_pair, title, s1, s2, src, qs)
@@ -615,25 +701,28 @@ class DeviceAlignRunner:
                     effs = referee_pair(codes, rlen, quals, titles, i)
                 elif alive[i]:
                     dst0_i = int(ko["dst0"][i])
-                    title = title_of(titles, i)
-                    srcv = pair_src(title) if sim else -1
-                    if clean[i]:
+                    title, srcv = title_src(titles, i)
+                    if clean[i] and ext:
+                        # a clean walk: both mates feasible
+                        s1, s2, qs = host_reads(codes, rlen, quals, titles, i)
+                        effs.append(("ext", title, s1, s2, dst0_i, qs))
+                    elif clean[i]:
                         if cfg.aln:
+                            s1, s2, _ = host_reads(codes, rlen, quals,
+                                                   titles, i)
                             effs.append(("aln", self._thread_aln_row(
-                                ko, i, codes, rlen, title, srcv)))
+                                ko, i, s1, s2, title, srcv)))
                     elif thr_batch is not None:
                         # sequences are only needed for the .aln row
                         s1 = s2 = None
                         if cfg.aln:
-                            s1 = _decode(codes[2 * i], rlen[2 * i])
-                            s2 = _decode(codes[2 * i + 1], rlen[2 * i + 1])
+                            s1, s2, _ = host_reads(codes, rlen, quals,
+                                                   titles, i)
                         effs.append(("thrb", title, s1, s2, srcv, dst0_i,
                                      thr_batch[0], thr_batch[1][i]))
                     else:
-                        effs.append((
-                            "thr", title, _decode(codes[2 * i], rlen[2 * i]),
-                            _decode(codes[2 * i + 1], rlen[2 * i + 1]),
-                            srcv, dst0_i))
+                        s1, s2, _ = host_reads(codes, rlen, quals, titles, i)
+                        effs.append(("thr", title, s1, s2, srcv, dst0_i))
                 emit(int(ords[i]), effs)
 
         def count_effects(ko, referee, codes, rlen, quals, titles, n, lo,
@@ -661,9 +750,30 @@ class DeviceAlignRunner:
                                     np.unpackbits(novp[ridx])))
                     if okam:
                         row = self._kam_device_row(
-                            ko, codes, rlen, quals, titles, i, pair_src)
+                            ko, i, title_src(titles, i),
+                            lambda: host_reads(codes, rlen, quals, titles, i))
                         if row is not None:
                             effs.append(("kam", row))
+                emit(int(ords[i]), effs)
+
+        def extract_effects(ko, referee, codes, rlen, quals, titles, n, lo,
+                            ords):
+            """The ordinal-buffered effects of one -e step (JAX
+            _post_chunk_extract): the referee call, or the row of a pair
+            that passed the vote, at dst0."""
+            keep = (ko["nonshort"][:n] & ~ko["sub_drop"][:n]
+                    & ko["pair_alive"][:n] & ko["vote_pass"][:n])
+            for i in range(lo, n):
+                if ords[i] < 0:
+                    continue
+                effs = []
+                if referee[i]:
+                    effs = referee_pair(codes, rlen, quals, titles, i)
+                elif lead and keep[i]:
+                    title, _ = title_src(titles, i)
+                    s1, s2, qs = host_reads(codes, rlen, quals, titles, i)
+                    effs.append(("ext", title, s1, s2, int(ko["dst0"][i]),
+                                 qs))
                 emit(int(ords[i]), effs)
 
         def defer_pair(t, codes, rlen, quals, titles, i, o):
@@ -715,6 +825,9 @@ class DeviceAlignRunner:
             if thr:
                 thread_effects(ko, referee, codes, rlen, quals, titles, n,
                                lo, ords)
+            elif ext:
+                extract_effects(ko, referee, codes, rlen, quals, titles, n,
+                                lo, ords)
             elif ordered:
                 count_effects(ko, referee, codes, rlen, quals, titles, n,
                               lo, ords)
@@ -848,15 +961,21 @@ class DeviceAlignRunner:
 
         def save_ckpt():
             nonlocal since, last_save
-            # every effect up to the cursor lands first; ordered mode also
-            # steps its repack buffer and drains the ladder, so no pending
-            # effect (or title) needs saving
-            if ordered:
+            # every effect up to the cursor lands first; ordered mode and
+            # the Python ingest also step the repack buffer and drain the
+            # ladder, so no pending effect (or record) needs saving
+            if ordered or reads:
                 step_buf()
                 drain_ladder()
             else:
                 drain_steps()
             ref_flush()
+            if reads:
+                # the JAX run_file's checkpoint: the cursor and the counts
+                self._save_checkpoint(checkpoint, cursor, defer=True)
+                since = 0
+                last_save = time.time()
+                return
             extra = dict(cfg_P=P, cfg_retry_E=sum(self.retry_E),
                          cfg_prefilter=int(bool(prefilter)),
                          cfg_okam=int(okam), cfg_bub=int(bub))
@@ -1151,26 +1270,23 @@ class DeviceAlignRunner:
 
     # -- okam rows and bubbles --
 
-    def _kam_device_row(self, ko, codes, rlen, quals, titles, i, pair_src):
-        """The .kam row of a device-resolved pair (JAX _kam_device_row and
-        _kam_from_device): the funnel filters over the fetched planes,
-        reads decoded only for emitted rows.  Returns the row, or None
-        when the pair emits nothing."""
+    def _kam_device_row(self, ko, i, title_src, host_reads):
+        """The .kam row of device-resolved pair i (JAX _kam_device_row and
+        _kam_from_device): the funnel filters over the fetched planes.
+        ``title_src`` is the pair's (title, source locus); ``host_reads()``
+        gives its (seq1, seq2, (qual1, qual2)), called only for an emitted
+        row.  Returns the row, or None when the pair emits nothing."""
         nloci = self.drp.nloci
         if not ko["nonshort"][i] or ko["sub_drop"][i] \
                 or not ko["pair_alive"][i] or ko["qc_drop"][i]:
             return None
-        title = ">" + titles[i]
-        src = pair_src(title) if self.cfg.simmode else -1
+        title, src = title_src
         dest = int(ko["dest"][i]) if ko["counted"][i] else nloci
         if not ko["vote_pass"][i]:
             dest = nloci
         if not ((src != nloci and src != -1) or dest != nloci):
             return None
-        qs = (".", ".")
-        if quals is not None:
-            qs = (_decode_qual(quals[2 * i], rlen[2 * i]),
-                  _decode_qual(quals[2 * i + 1], rlen[2 * i + 1]))
+        s1, s2, (q1, q2) = host_reads()
         # the assignTRkmc fields are set whenever the pair passed the vote
         # (even if both mates were then removed); pairs that failed it
         # keep the struct defaults (reference :2056-2062)
@@ -1188,9 +1304,7 @@ class DeviceAlignRunner:
                 r.as_ = ko["ann"][ridx][: int(ko["nk"][ridx])].tolist()
             rs.append(r)
         return _kam_row(title, src, dest, int(ko["dst0"][i]), rs[0], rs[1],
-                        _decode(codes[2 * i], rlen[2 * i]),
-                        _decode(codes[2 * i + 1], rlen[2 * i + 1]),
-                        self.cfg.is_fastq, qs[0], qs[1])
+                        s1, s2, self.cfg.is_fastq, q1 or ".", q2 or ".")
 
     def _add_bubbles_codes(self, dest, codes_row, rl, novel_bits):
         """Inserts a mate's novel edges into the batch-local bubble map of
@@ -1212,13 +1326,11 @@ class DeviceAlignRunner:
         tm = ko["tr_member"][ridx][:nk]
         return write_annot(["=" if x else "." for x in tm])
 
-    def _thread_aln_row(self, ko, i, codes, rlen, title, src):
-        """The .aln row of a device-clean pair: a clean DFA walk is an
+    def _thread_aln_row(self, ko, i, s1, s2, title, src):
+        """The .aln row of device-clean pair i: a clean DFA walk is an
         all-match CIGAR, annotations come from the tr_member plane."""
         src_s = "." if src == -1 else str(src)
         dst0 = int(ko["dst0"][i])
-        s1 = _decode(codes[2 * i], rlen[2 * i])
-        s2 = _decode(codes[2 * i + 1], rlen[2 * i + 1])
         ann2 = self._annot_str(ko, 2 * i + 1)
         ann1 = self._annot_str(ko, 2 * i)
         return (f"{src_s}\t{dst0}\t{title}\t{s2}\t{s1}\t"
@@ -1259,6 +1371,11 @@ class DeviceAlignRunner:
         from ..io.rowsink import finalize_rows
 
         finalize_rows(self.aln_rows, path)
+
+    def write_extract(self, fh):
+        from ..io.rowsink import finalize_rows_fh
+
+        finalize_rows_fh(self.extract_rows, fh)
 
     def write_kam(self, path):
         from ..io.rowsink import finalize_rows

@@ -1091,16 +1091,17 @@ def novel_edges(edge, evalid, si_, ei_, rm, counted, dst0, tre):
 # ---------------------------------------------------------------------------
 
 def check_ported_config(cfg: AlignConfig) -> None:
-    """Raises NotImplementedError for every mode the port does not run yet
-    (ROADMAP.md, port queue)."""
-    unported = [
-        (cfg.extract, "extract mode (-e)", "okam/simmode"),
-        (cfg.track_bait, "bait tracking (-tb)", "bait/QC/fastq"),
-    ]
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP: port queue, {item})")
+    """Raises NotImplementedError for bait tracking (-tb), the one align
+    mode the device engine does not run: its step does not track the
+    first-violator bait k-mers, and the JAX DeviceAlignRunner has no
+    write_btk either (ROADMAP.md, queue 3, inherited).  The host engine
+    runs it."""
+    if cfg.track_bait:
+        raise NotImplementedError(
+            "bait tracking (-tb) runs on the host engine only (drop "
+            "--device): the device step does not track first-violator "
+            "bait k-mers, and the JAX device runner has no write_btk "
+            "(ROADMAP: queue 3, inherited)")
 
 
 def _as(x, dtype, dev) -> torch.Tensor:

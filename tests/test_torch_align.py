@@ -103,14 +103,21 @@ def test_fuzz_referee_matches_host(tmp_path):
 
 
 def test_unported_options_raise():
-    """The runner options still unported (-e, -tb) raise, naming their
-    ROADMAP item; the retry ladder and checkpoints are ported
+    """The one runner option the device engine refuses, -tb, raises,
+    naming its ROADMAP item; -e runs on run_file and is refused on the
+    native reader path; the retry ladder and checkpoints are ported
     (tests/test_torch_retry.py, tests/test_torch_checkpoint.py)."""
     rpgg = RPGG(os.path.join(GOLDEN, "pan"))
-    for kw in (dict(extract=1), dict(bait=True, track_bait=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DeviceAlignRunner(rpgg, AlignConfig(**{**KW, **kw}),
-                              retry_expand=4096, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DeviceAlignRunner(rpgg, AlignConfig(**KW, bait=True,
+                                            track_bait=True),
+                          retry_expand=4096, device="cpu")
+    run = DeviceAlignRunner(rpgg, AlignConfig(**KW, extract=1),
+                            batch_pairs=64, max_read_len=192, device="cpu")
+    assert not run.okam
+    with pytest.raises(ValueError, match="uses run_file"):
+        run.run_file_native(os.path.join(GOLDEN, "reads.fa"),
+                            prefilter=True)
     run = DeviceAlignRunner(rpgg, AlignConfig(**KW), batch_pairs=64,
                             max_read_len=192, retry_expand=4096,
                             device="cpu")

@@ -164,15 +164,15 @@ def test_step_matches_jax(models, batches, E):
 
 def test_unported_modes_raise(models):
     _, td = models
-    for kw in (dict(extract=1), dict(extract=2), dict(bait=True,
-                                                      track_bait=True),
-               dict(threading=True, extract=1)):
-        cfg = AlignConfig(**{**KW, **kw})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tda.make_step(td, cfg, P, L, device="cpu")
-    # okam, simmode, bait, QC, fastq and bubbles are ported
+    # bait tracking (-tb) is the one mode the device step refuses
+    cfg = AlignConfig(**{**KW, "bait": True, "track_bait": True})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tda.make_step(td, cfg, P, L, device="cpu")
+    # okam, simmode, bait, QC, fastq, bubbles and extract are ported
+    # (threading with -e: tests/test_torch_extract.py)
     for kw in (dict(okam=True), dict(bait=True), dict(output_bubbles=True),
-               dict(qc=True), dict(simmode=2), dict(is_fastq=True)):
+               dict(qc=True), dict(simmode=2), dict(is_fastq=True),
+               dict(extract=1), dict(extract=2)):
         tda.make_step(td, AlignConfig(**{**KW, **kw}), P, L, device="cpu")
 
 

@@ -49,14 +49,17 @@ def test_cli_raises_without_card(monkeypatch, tmp_path):
             os.path.join(GOLDEN, "reads.fa"), "-o", str(tmp_path / "o")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(argv)
-    # the same run on the CPU only when asked; unported modes name their
-    # ROADMAP item instead of being dropped
-    for extra in (["-e", "1"], ["-b", "-tb"], ["-t", "1"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(argv + extra + ["--torch-device", "cpu"])
+    # the same run on the CPU only when asked; the refusals left name
+    # their reason: -e on the native reader path (extract runs on
+    # run_file), -tb on the device engine (the host engine runs it)
+    with pytest.raises(ValueError, match="extract mode uses run_file"):
+        cli.main(argv + ["-e", "1", "--torch-device", "cpu"])
+    with pytest.raises(NotImplementedError, match="host engine only"):
+        cli.main(argv + ["-b", "-tb", "--torch-device", "cpu"])
     # --device --prefilter without --native-io runs the native reader path,
-    # as the JAX CLI does; --native-io without --device is refused, and
-    # --device with neither flag is not ported
+    # as the JAX CLI does; --native-io and --checkpoint without --device
+    # are refused, and --device with neither flag (run_file, the Python
+    # ingest) asks for the card too
     cli.main([a for a in argv if a != "--native-io"]
              + ["-kf", "4", "1", "--torch-device", "cpu"])
     with open(tmp_path / "o.trkmc.ar", "rb") as f, \
@@ -65,9 +68,12 @@ def test_cli_raises_without_card(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="need --device"):
         cli.main([a for a in argv if a != "--device"]
                  + ["--torch-device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([a for a in argv if a not in ("--native-io", "--prefilter")]
-                 + ["--torch-device", "cpu"])
+    host_argv = [a for a in argv
+                 if a not in ("--device", "--native-io", "--prefilter")]
+    with pytest.raises(ValueError, match="needs --device"):
+        cli.main(host_argv + ["--checkpoint", str(tmp_path / "ck.npz")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([a for a in argv if a not in ("--native-io", "--prefilter")])
     # pred, with or without the JAX CLI's --jax, needs the card too
     from danbing_tk_tpu_torch.tools.scale_pred import write_golden_cohort
 

@@ -26,7 +26,23 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      .tr.summary.txt), the default okam (.kam) and -ka --checkpoint, and a
      checkpointed run_file stopped after five steps and resumed, all
      byte-equal; KA-KD launched in every run
-  5. the production-size counting funnel: >= 1M read pairs (5% from the
+  4c. RPGG construction and bait QC on cuda through the CLI: (a) the
+     tests/golden_qc stages 3-8 from its frozen *.annot.fa (extract -e 1,
+     raw map -s 2, baitbuilder v1.pf and v2, ktools serialize-bt, bait
+     map -b), every file byte-equal to tests/golden_qc/; (b) a seeded
+     scenario (danbing_tk_tpu_torch/tools/build_scenario.py: 256 loci in 2
+     genomes, k = 21, FS = 700, TRWINDOW = 800, 64 decoys a haplotype of
+     the control genome) built with ``build --paf --prune-reads -p 2
+     --device`` and QC'd with ``qc --device``, each of its 7 align calls
+     run again on the host engine (stdout and files byte-equal), in one
+     worker process started after phase 2's kernel build and joined
+     before phase 3 (it runs beside the scale index build, and no kernel
+     window is taken while it runs); FPSkmer non-empty and the bait map
+     dropping the control genome's decoy pairs; each stage's seconds
+     (host stages and align calls apart, with the pairs each align call
+     took and its host engine's seconds), the launches of the build
+     (KA-KE) and the qc (KA-KD, KF)
+ 5. the production-size counting funnel: >= 1M read pairs (5% from the
      TR pool, 95% random background, 150 bp in L = 160 rows) through the
      host-sampled prefilter, survivor repack and the full step; flagged
      pairs are resolved by the pooled native referee over the flat host
@@ -112,9 +128,10 @@ Phases; any failure exits non-zero (nothing is caught and continued):
   9. the kernels line (JSON): KA-KJ and KC's large-E instance; each
      kernel's ``launches`` is the sum over its paths' runs (per path in
      ``launches_by_path``: the counting, sharded, threading and okam
-     funnel runs, the site scorer's run and phase 5b's run_file, and for
-     KH the pred file run), the counts set to 0 just before each run and
-     read just after it
+     funnel runs, the site scorer's run, phase 5b's run_file and phase
+     4c's device build (``build_prune``) and qc (``qc``), and for KH the
+     pred file run), the counts set to 0 just before each run and read
+     just after it (4c (b)'s in its worker process)
  10. the last line: {"ok": true, "device": {...}}
 
 Needs a CUDA card; exits 1 without one, or without the package beside it.
@@ -136,6 +153,9 @@ COUNTING = ("KA", "KB", "KC", "KD")     # the counting path's kernels
 THREADING = COUNTING + ("KE",)
 OKAM = COUNTING + ("KF", "KG")          # -b -qc -bu adds KF and KG
 SHARDED = ("KA", "KC", "KD", "KI")      # shard_index: KI in place of KB
+BUILD_PRUNE = THREADING                 # build's align -g (run_file)
+QC = COUNTING + ("KF",)                 # qc's -e 1, -s 2 and -b maps
+BQ_NLOCI, BQ_COV, BQ_PROCS = 256, 2, 2  # phase 4c (b)'s scenario and run
 
 
 def log(msg: str) -> None:
@@ -239,6 +259,7 @@ def main() -> int:
     secs = build.build_kernels()
     build.native_lib()
     build.thread_lib()
+    build.align_lib()
     log(f"[2] kernels built in {time.time() - t0:.2f}s "
         f"(per source {secs})")
     for name, out in build.build_logs.items():
@@ -246,7 +267,23 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[2] {name}: {line.strip()}")
 
-    res = align_phases(args, dev, smi)
+    bq = start_build_qc()
+    try:
+        return run_phases(args, dev, kind, smi, t_start, bq)
+    finally:
+        if bq["proc"].poll() is None:
+            bq["proc"].kill()
+            bq["proc"].wait()
+        import shutil
+
+        shutil.rmtree(bq["root"], ignore_errors=True)
+
+
+def run_phases(args, dev, kind, smi, t_start, bq) -> int:
+    """Phases 2 (scale index) to 10."""
+    import torch
+
+    res = align_phases(args, dev, smi, bq)
     # ---- 8. pred ----
     # every device tensor of phases 2-7 died with align_phases
     import gc
@@ -259,7 +296,7 @@ def main() -> int:
     return finish(res, kh, kh_launches, kind, smi, t_start)
 
 
-def align_phases(args, dev, smi: str) -> dict:
+def align_phases(args, dev, smi: str, bq: dict) -> dict:
     """Phases 2 (scale index) to 7; returns the kernel results and the
     launch counts of every path."""
     import numpy as np
@@ -291,6 +328,8 @@ def align_phases(args, dev, smi: str) -> dict:
         f"slots={drp.nslots} dbi_keys_levels={len(drp.dbi_tab.levels)} "
         f"tables={tab_bytes / 1e9:.3f} GB vv={len(drp.vv)} "
         f"build={t_index:.1f}s upload={t_upload:.1f}s")
+    # ---- 4c (b), joined before any kernel window ----
+    bq_launches = finish_build_qc(bq, smi)
 
     # ---- 3. kernels against their plain versions ----
     P, L, E, k, RL = 4096, 160, 512, 21, 150
@@ -535,6 +574,8 @@ def align_phases(args, dev, smi: str) -> dict:
         f"{time.time() - t0:.1f}s, launches {golden_thr_counts}")
     # ---- 4b. golden, Python ingest (run_file), through the CLI ----
     golden_py_counts = python_ingest_golden(gold, smi)
+    # ---- 4c. RPGG construction and bait QC ----
+    golden_qc_counts = golden_qc_stages(smi)
 
     # ---- 5. production-size funnel ----
     # the referee's host view: the flat arrays of the device tables
@@ -962,8 +1003,10 @@ def align_phases(args, dev, smi: str) -> dict:
     return dict(results=results, launches=launches, tlaunches=tlaunches,
                 olaunches=olaunches, slaunches=sharded["launches"],
                 jlaunches=jlaunches, plaunches=plaunches,
+                bq_launches=bq_launches,
                 golden=(golden_counts, golden_thr_counts,
-                        golden_okam_counts, golden_py_counts))
+                        golden_okam_counts, golden_py_counts,
+                        golden_qc_counts))
 
 
 def python_ingest_golden(gold: str, smi: str) -> dict:
@@ -1073,6 +1116,164 @@ def python_ingest_golden(gold: str, smi: str) -> dict:
         f"byte-equal; seconds {secs}; phase_s={time.time() - t_phase:.1f} "
         f"launches {total}; card {smi}")
     return total
+
+
+def golden_qc_stages(smi: str) -> dict:
+    """Phase 4c (a): tests/golden_qc's stages 3-8 through the CLI on cuda,
+    from its frozen *.annot.fa and 1-locus pan: extract (-cth 5 -e 1, rows
+    on stdout), raw map (-cth 10 -c 40 -s 2), baitbuilder v1.pf (--tp for
+    each genome, both profiles for the control hs1) and v2, ktools
+    serialize-bt and the bait map (-b): every file byte-equal to
+    tests/golden_qc/.  Returns the align calls' launch counts; each of
+    them must have launched KA-KD, and the bait maps KF."""
+    import contextlib
+
+    import torch
+
+    from danbing_tk_tpu_torch.apps import cli
+    from danbing_tk_tpu_torch.kernels import build
+
+    t_phase = time.time()
+    gqc = os.path.join(ROOT, "tests", "golden_qc")
+    gs, ref = ("HG002", "hs1"), "hs1"
+    total: dict = {}
+
+    def align(what, argv, need=COUNTING):
+        build.reset_launch_counts()
+        cli.main(["align", "-qs", pan] + argv + ["--device"])
+        torch.cuda.synchronize()
+        c = build.launch_counts()
+        if min(c[t] for t in need) <= 0:
+            fail(f"phase 4c (a) {what} skipped a kernel: {c}")
+        for key, v in c.items():
+            total[key] = total.get(key, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="dtk_smoke_") as d:
+        for suf in (".kmers.dbi", ".fl.kdb", ".tre.kdb", ".tr.kmers"):
+            os.symlink(os.path.join(gqc, "pan" + suf),
+                       os.path.join(d, "pan" + suf))
+        pan = os.path.join(d, "pan")
+        out = {g: os.path.join(d, g) for g in gs}
+        for g in gs:
+            with open(out[g] + ".extract.fa", "w") as fh, \
+                    contextlib.redirect_stdout(fh):
+                align(f"{g} -e 1", ["-cth", "5", "-e", "1", "-fa",
+                                    os.path.join(gqc, f"{g}.annot.fa")])
+            align(f"{g} raw", ["-cth", "10", "-c", "40", "-s", "2", "-fa",
+                               out[g] + ".extract.fa", "-o",
+                               out[g] + ".raw"])
+            cli.main(["baitbuilder", "v1.pf", "--kam", out[g] + ".raw.kam",
+                      "--nloci", "1", "--out",
+                      os.path.join(d, f"profile.{g}"), "--tp"])
+        cli.main(["baitbuilder", "v1.pf", "--kam", out[ref] + ".raw.kam",
+                  "--nloci", "1", "--out", os.path.join(d, f"map.{ref}")])
+        cli.main(["baitbuilder", "v2", "--nloci", "1", "--out",
+                  os.path.join(d, "FPSkmer.v0.tsv"), "--fp-pf",
+                  os.path.join(d, f"map.{ref}.FP_pf.txt"), "--tp-pfs",
+                  os.path.join(d, f"map.{ref}.TP_pf.txt")]
+                 + [os.path.join(d, f"profile.{g}.TP_pf.txt") for g in gs])
+        cli.main(["ktools", "serialize-bt", os.path.join(d, "FPSkmer.v0.tsv"),
+                  "1", pan])
+        for g in gs:
+            align(f"{g} -b", ["-b", "-cth", "10", "-c", "40", "-s", "2",
+                              "-fa", out[g] + ".extract.fa", "-o",
+                              out[g] + ".bait"], QC)
+        names = ["FPSkmer.v0.tsv", "pan.bt.kmdb", f"map.{ref}.FP_pf.txt",
+                 f"map.{ref}.TP_pf.txt"] + [
+            f"profile.{g}.TP_pf.txt" for g in gs]
+        for g in gs:
+            names += [f"{g}.extract.fa"] + [
+                f"{g}.{st}{x}" for st in ("raw", "bait")
+                for x in (".kam", ".trkmc.ar", ".tr.summary.txt")]
+        for name in names:
+            with open(os.path.join(d, name), "rb") as f, \
+                    open(os.path.join(gqc, name), "rb") as g:
+                if f.read() != g.read():
+                    fail(f"phase 4c (a): {name} differs from "
+                         f"tests/golden_qc/{name}")
+    log(f"[4c] (a) golden_qc stages 3-8 on cuda through the CLI: "
+        f"{len(names)} files byte-equal to tests/golden_qc/; "
+        f"phase_s={time.time() - t_phase:.1f} launches {total}; card {smi}")
+    return total
+
+
+def start_build_qc() -> dict:
+    """Phase 4c (b), started after phase 2's kernel build: the seeded
+    scenario built and QC'd through the CLI with --device on cuda by one
+    worker process (tools/build_scenario.py --run --device), each align
+    call held to the host engine's (the same argv without --device: stdout
+    and files byte-equal).  It runs beside phase 2's scale index build and
+    is joined before phase 3, so no kernel window of this script is taken
+    while it uses the card or the host."""
+    root = tempfile.mkdtemp(prefix="dtk_smoke_bq_")
+    log_f = open(os.path.join(root, "run.log"), "w")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "danbing_tk_tpu_torch.tools.build_scenario",
+         "--out", os.path.join(root, "run"), "--nloci", str(BQ_NLOCI),
+         "--run", "--cov", str(BQ_COV), "-p", str(BQ_PROCS), "--device",
+         "--torch-device", "cuda"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), stdout=log_f,
+        stderr=subprocess.STDOUT)
+    log(f"[2] phase 4c (b) started: build + qc --device of {BQ_NLOCI} loci "
+        f"in a worker process, each align call held to the host engine")
+    return dict(root=root, proc=p, log=log_f, t0=time.time())
+
+
+def finish_build_qc(bq: dict, smi: str) -> dict:
+    """Phase 4c (b), joined before phase 3: waits for the run, checks that
+    every align call was held to the host engine, that the decoys made an
+    FPSkmer and that the bait map dropped pairs; prints each stage's
+    seconds, each align call's seconds and pairs, and the launches.
+    Returns the launch counts by path."""
+    t_wait = time.time()
+    try:
+        rc = bq["proc"].wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("phase 4c (b) did not finish in 600 s")
+    waited = time.time() - t_wait
+    bq["log"].close()
+    with open(bq["log"].name) as f:
+        lines = f.read().splitlines()
+    if rc != 0 or not lines:
+        print("\n".join(lines[-40:]), file=sys.stderr)
+        fail(f"phase 4c (b) exited {rc}")
+    r = json.loads(lines[-1])
+    if len(r["aligns"]) != 7 or not all("host_s" in a for a in r["aligns"]):
+        fail(f"phase 4c (b): not every align call was held to the host "
+             f"engine: {r['aligns']}")
+    qc_dir = os.path.join(bq["root"], "run", "qc")
+
+    def rows(name):
+        with open(os.path.join(qc_dir, name)) as f:
+            return sum(1 for _ in f)
+
+    n_fps = rows("FPSkmer.v0.tsv")
+    ctrl = "g1"
+    raw, bait = rows(f"{ctrl}.raw.kam"), rows(f"{ctrl}.bait.kam")
+    if n_fps == 0 or bait >= raw:
+        fail(f"phase 4c (b): FPSkmer rows {n_fps}, control raw.kam rows "
+             f"{raw}, bait.kam rows {bait}")
+    launches = r["launches"]
+    for path, need in (("build_prune", BUILD_PRUNE), ("qc", QC)):
+        if min(launches[path][t] for t in need) <= 0:
+            fail(f"phase 4c (b) {path} skipped a kernel: {launches[path]}")
+    nfiles = sum(a["files"] for a in r["aligns"])
+    log(f"[4c] (b) scenario: nloci={r['nloci']} genomes=2 k=21 FS=700 "
+        f"TRWINDOW=800 bases={r['nbases']} prune_pairs={r['prune_pairs']} "
+        f"qc_cov={BQ_COV} mbe_procs={BQ_PROCS}; 7 align calls --device == "
+        f"host engine, {nfiles} outputs byte-equal; FPSkmer rows={n_fps}, "
+        f"{ctrl} raw.kam rows={raw} bait.kam rows={bait}; run wall="
+        f"{r['wall']:.1f}s (started {t_wait - bq['t0']:.1f}s before the "
+        f"join, which waited {waited:.1f}s); card {smi}")
+    host = {k: round(v, 2) for k, v in r["stages"].items()}
+    aligns = [f"{a['stage']}:{a['what']} pairs={a['pairs']} "
+              f"s={a['s']:.2f} host_engine_s={a['host_s']:.2f}"
+              for a in r["aligns"]]
+    log(f"[4c] (b) build={r['build_s']:.1f}s qc={r['qc_s']:.1f}s; host stage "
+        f"seconds {host}; align calls: {'; '.join(aligns)}")
+    log(f"[4c] (b) launches: build_prune {launches['build_prune']} qc "
+        f"{launches['qc']}")
+    return launches
 
 
 def python_ingest_scale(drp, flat, batches, cfg, P, L, E, dev,
@@ -1825,7 +2026,9 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
     paths = {"counting": res["launches"], "sharded": res["slaunches"],
              "threading": res["tlaunches"], "okam": res["olaunches"],
              "site_scorer": res["jlaunches"],
-             "python_ingest": res["plaunches"]}
+             "python_ingest": res["plaunches"],
+             "build_prune": res["bq_launches"]["build_prune"],
+             "qc": res["bq_launches"]["qc"]}
     kern = [dict(name=names[t], route="cuda",
                  launches=sum(c[t] for c in paths.values()),
                  launches_by_path={p: c[t] for p, c in paths.items()},
@@ -1833,11 +2036,12 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
     kern.append(dict(name="KH bias_correct", route="cuda",
                      launches=kh_launches,
                      launches_by_path={"pred": kh_launches}, **kh))
-    golden_counts, golden_thr_counts, golden_okam_counts, golden_py = \
-        res["golden"]
+    golden_counts, golden_thr_counts, golden_okam_counts, golden_py, \
+        golden_qc = res["golden"]
     log(f"[9] golden launches {golden_counts} / threading "
         f"{golden_thr_counts} / okam {golden_okam_counts} / Python ingest "
-        f"{golden_py}; card {smi}; smoke wall {time.time() - t_start:.1f}s")
+        f"{golden_py} / golden_qc {golden_qc}; card {smi}; smoke wall "
+        f"{time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kern}), flush=True)
     # ---- 10. last line ----
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,26 @@ package's: ``serialize PREF`` (.kmers.dbi, .fl.kdb, .tre.kdb),
 ``fa2kmers``, ``genpankmers``, ``ktools`` (ksi, sum [-f], extract,
 extract-bt, serialize, serialize-bt, raava), ``mapkmers``, ``simreads``
 and ``bam2pe``.
+
+RPGG construction and bait QC, byte-identical to the JAX package's:
+
+    build WORKDIR INDIR GENOMES REFTR [--paf G=H0.paf,H1.paf]
+          [--prune-reads G=READS] [--device [--torch-device D]]
+    build-ref WORKDIR REF_FA REFTR [-g NAME]
+    qc INDIR WORKDIR G1,G2 REF_GENOME [--device [--torch-device D]]
+    baitbuilder (v1.pf --kam KAM [--tp] | v2 --fp-pf FP --tp-pfs TP ...)
+          --nloci N --out OUT
+    liftbed-clean LIFTBED
+    select-regions BED FASTA OUT
+
+``build`` runs the RPGG build (``--paf``: the native LiftTR from minimap2
+PAFs; ``--prune-reads``: each genome's own reads threaded through its raw
+graph, the count-0 k-mers pruned); ``qc`` runs the bait-building loop
+whose ``pan.bt.kmdb`` ``align -b`` loads.  Their align calls go through
+this CLI's ``align``: with ``--device`` on the device engine on
+``--torch-device`` (default ``cuda``; without a card they raise before any
+stage runs unless ``--torch-device cpu`` is given), else on the host
+engine with no card work.
 """
 
 from __future__ import annotations
@@ -208,6 +228,79 @@ def _cmd_ktools(args):
         kt.raava(a[0], int(a[1]))
 
 
+def _cmd_build(args):
+    from ..pipeline.build import build_rpgg
+
+    if args.device:          # before the LiftTR, the first stage
+        from .._device import resolve_device
+
+        resolve_device(args.torch_device)
+    gs = [line.split()[0] for line in open(args.genomes)]
+    if args.paf:
+        from ..pipeline.liftover import lift_tr
+
+        for kv in args.paf:
+            g, paths = kv.split("=", 1)
+            lift_tr(paths.split(","), args.refTR,
+                    os.path.join(args.workdir, g),
+                    min_len=args.lift_min_len)
+    prune_reads = dict(kv.split("=", 1) for kv in args.prune_reads or [])
+    pan = build_rpgg(args.workdir, args.indir, gs, args.refTR, ksize=args.k,
+                     FS=args.fs, TRWINDOW=args.trwindow,
+                     dist_merge=args.dist_merge, nproc=args.p,
+                     prune_reads=prune_reads or None, cth=args.cth,
+                     thcth=args.thcth, use_device=args.device,
+                     device=args.torch_device)
+    print(pan)
+
+
+def _cmd_build_ref(args):
+    from ..pipeline.ref_graph import build_ref_rpgg
+
+    pref = build_ref_rpgg(args.workdir, args.ref_fa, args.refTR, g=args.g,
+                          ksize=args.k, FS=args.fs,
+                          TRWINDOW=args.trwindow,
+                          dist_merge=args.dist_merge, nproc=args.p)
+    print(pref)
+
+
+def _cmd_qc(args):
+    from ..pipeline.qc import run_qc_harness
+
+    produced = run_qc_harness(
+        args.indir, args.workdir, args.genomes.split(","), args.ref_genome,
+        ksize=args.k, cov=args.cov, min_ctg=args.min_ctg,
+        extract_cth=args.extract_cth, map_cth=args.map_cth,
+        use_device=args.device, device=args.torch_device)
+    for name in sorted(produced):
+        print(name, "->", produced[name])
+
+
+def _cmd_bait(args):
+    from ..apps.baitbuilder import build_profiles, enrichment_filter
+
+    if args.mode == "v1.pf":
+        build_profiles(args.kam, args.nloci, args.k, args.out,
+                       tp_only=args.tp)
+    else:
+        enrichment_filter(args.nloci, args.k, args.out, args.fp_pf,
+                          args.tp_pfs)
+
+
+def _cmd_liftbed(args):
+    from ..apps.liftbed_clean import liftbed_clean
+
+    rows = [line.split("\t") for line in
+            open(args.liftbed).read().splitlines()]
+    liftbed_clean(rows, sys.stdout)
+
+
+def _cmd_select_regions(args):
+    from ..apps.select_regions import select_regions
+
+    select_regions(args.bed, args.fasta, args.out)
+
+
 def _cmd_mapkmers(args):
     from ..apps.mapkmers import mapkmers
 
@@ -293,6 +386,72 @@ def main(argv=None):
                          "version)")
     pr.set_defaults(fn=_cmd_pred)
 
+    b = sub.add_parser("build", help="build an RPGG from assemblies+beds")
+    b.add_argument("workdir")
+    b.add_argument("indir")
+    b.add_argument("genomes")
+    b.add_argument("refTR")
+    b.add_argument("-k", type=int, default=21)
+    b.add_argument("-fs", type=int, default=700)
+    b.add_argument("--trwindow", type=int, default=100000)
+    b.add_argument("--dist-merge", type=int, default=700)
+    b.add_argument("-p", type=int, default=1,
+                   help="MBE worker processes")
+    b.add_argument("--paf", action="append", metavar="G=H0.paf,H1.paf",
+                   help="run native LiftTR from minimap2 PAFs "
+                        "(minimap2 {asm} {ref} -x asm5 -c --cs=long) to "
+                        "produce the per-genome tmp1 beds, replacing "
+                        "paftools.js+bedtools")
+    b.add_argument("--lift-min-len", type=int, default=50_000,
+                   help="liftover alignment-length gate (paftools -l)")
+    b.add_argument("--prune-reads", action="append", metavar="G=READS",
+                   help="genome=reads-path; enables the raw->prune->PB "
+                   "graph path (GenRaw/GenPrunedGenomeGraph) per genome")
+    b.add_argument("-cth", type=int, default=45,
+                   help="prune-alignment count threshold")
+    b.add_argument("--thcth", type=int, default=50,
+                   help="prune-alignment threading count threshold")
+    b.add_argument("--device", action="store_true",
+                   help="run the prune alignment on the device engine")
+    b.add_argument("--torch-device", default="cuda",
+                   help="torch device of the --device engine (default "
+                        "cuda; cpu runs the kernels' plain versions)")
+    b.set_defaults(fn=_cmd_build)
+
+    br = sub.add_parser("build-ref",
+                        help="build a reference-genome RPGG (RefGraph)")
+    br.add_argument("workdir")
+    br.add_argument("ref_fa")
+    br.add_argument("refTR")
+    br.add_argument("-g", default="hg38")
+    br.add_argument("-k", type=int, default=21)
+    br.add_argument("-fs", type=int, default=700)
+    br.add_argument("--trwindow", type=int, default=100000)
+    br.add_argument("--dist-merge", type=int, default=700)
+    br.add_argument("-p", type=int, default=1)
+    br.set_defaults(fn=_cmd_build_ref)
+
+    qc = sub.add_parser(
+        "qc", help="QC/bait-build harness: the fn1a->fn2a3 loop of the "
+        "reference's test/QC/*.sh (sim -> annotate -> extract -> raw map "
+        "-> profiles -> FPSkmer -> serialize-bt -> bait map)")
+    qc.add_argument("indir", help="dir with <g>.<h>.fa + serialized pan.*")
+    qc.add_argument("workdir")
+    qc.add_argument("genomes", help="comma-separated genome names")
+    qc.add_argument("ref_genome",
+                    help="negative-control genome defining the FP profile")
+    qc.add_argument("-k", type=int, default=21)
+    qc.add_argument("-c", "--cov", type=int, default=15)
+    qc.add_argument("-ml", "--min-ctg", type=int, default=500)
+    qc.add_argument("--extract-cth", type=int, default=5)
+    qc.add_argument("--map-cth", type=int, default=10)
+    qc.add_argument("--device", action="store_true",
+                    help="run the align stages on the device engine")
+    qc.add_argument("--torch-device", default="cuda",
+                    help="torch device of the --device engine (default "
+                         "cuda; cpu runs the kernels' plain versions)")
+    qc.set_defaults(fn=_cmd_qc)
+
     s = sub.add_parser("serialize", help="ktools serialize equivalent")
     s.add_argument("pref")
     s.set_defaults(fn=_cmd_serialize)
@@ -317,6 +476,17 @@ def main(argv=None):
     g.add_argument("-tr", action="store_true")
     g.add_argument("-tre", action="store_true")
     g.set_defaults(fn=_cmd_genpankmers)
+
+    bt = sub.add_parser("baitbuilder")
+    bt.add_argument("mode", choices=["v1.pf", "v2"])
+    bt.add_argument("--kam")
+    bt.add_argument("--nloci", type=int, required=True)
+    bt.add_argument("-k", type=int, default=21)
+    bt.add_argument("--out", required=True)
+    bt.add_argument("--tp", action="store_true")
+    bt.add_argument("--fp-pf")
+    bt.add_argument("--tp-pfs", nargs="+")
+    bt.set_defaults(fn=_cmd_bait)
 
     sr = sub.add_parser("simreads")
     sr.add_argument("-i", required=True)
@@ -350,6 +520,16 @@ def main(argv=None):
     mk.add_argument("kmers")
     mk.add_argument("outpref")
     mk.set_defaults(fn=_cmd_mapkmers)
+
+    lb = sub.add_parser("liftbed-clean")
+    lb.add_argument("liftbed")
+    lb.set_defaults(fn=_cmd_liftbed)
+
+    sr2 = sub.add_parser("select-regions")
+    sr2.add_argument("bed")
+    sr2.add_argument("fasta")
+    sr2.add_argument("out")
+    sr2.set_defaults(fn=_cmd_select_regions)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1280,28 +1280,28 @@ class DeviceAlignRunner:
         if not ko["nonshort"][i] or ko["sub_drop"][i] \
                 or not ko["pair_alive"][i] or ko["qc_drop"][i]:
             return None
+        # a pair that failed the vote emits no row, as in HostAligner and
+        # both referees (the JAX device runner writes one for a known
+        # source: ROADMAP queue 3, inherited)
+        if not ko["vote_pass"][i]:
+            return None
         title, src = title_src
         dest = int(ko["dest"][i]) if ko["counted"][i] else nloci
-        if not ko["vote_pass"][i]:
-            dest = nloci
         if not ((src != nloci and src != -1) or dest != nloci):
             return None
         s1, s2, (q1, q2) = host_reads()
         # the assignTRkmc fields are set whenever the pair passed the vote
-        # (even if both mates were then removed); pairs that failed it
-        # keep the struct defaults (reference :2056-2062)
-        ran_asgn = bool(ko["vote_pass"][i])
+        # (even if both mates were then removed)
         rs = []
         for ridx in (2 * i, 2 * i + 1):
             r = ReadAsgn()
             r.kf, r.hf, r.bf = (int(ko["kf"][ridx]), int(ko["hf"][ridx]),
                                 int(ko["bf"][ridx]))
             r.rm, r.af = int(ko["rm"][ridx]), int(ko["af"][ridx])
-            if ran_asgn:
-                r.nt, r.bs, r.ti = (int(ko["nt"][ridx]), int(ko["bs"][ridx]),
-                                    int(ko["ti"][ridx]))
-                r.si, r.ei = int(ko["si"][ridx]), int(ko["ei"][ridx])
-                r.as_ = ko["ann"][ridx][: int(ko["nk"][ridx])].tolist()
+            r.nt, r.bs, r.ti = (int(ko["nt"][ridx]), int(ko["bs"][ridx]),
+                                int(ko["ti"][ridx]))
+            r.si, r.ei = int(ko["si"][ridx]), int(ko["ei"][ridx])
+            r.as_ = ko["ann"][ridx][: int(ko["nk"][ridx])].tolist()
             rs.append(r)
         return _kam_row(title, src, dest, int(ko["dst0"][i]), rs[0], rs[1],
                         s1, s2, self.cfg.is_fastq, q1 or ".", q2 or ".")

@@ -74,6 +74,29 @@ def test_cli_raises_without_card(monkeypatch, tmp_path):
         cli.main(host_argv + ["--checkpoint", str(tmp_path / "ck.npz")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main([a for a in argv if a not in ("--native-io", "--prefilter")])
+    # build and qc with --device ask for the card before any stage runs,
+    # and run their align calls on the CPU when asked
+    from danbing_tk_tpu_torch.tools.build_scenario import (make_scenario,
+                                                           qc_input)
+
+    sc = make_scenario(str(tmp_path / "sc"), nloci=2, FS=50, TRWINDOW=500,
+                       decoys=1, prune_cov=20, prune_skip=3, seed=8)
+    build = ["build", sc["work"], sc["indir"], sc["genomes"], sc["ref_bed"],
+             "-fs", "50", "--trwindow", "500", "--dist-merge", "50",
+             "--prune-reads", f"g0={sc['reads']}", "-cth", "1", "--thcth",
+             "1", "--device"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(build)
+    assert not os.path.exists(os.path.join(sc["work"], "checkpoint"))
+    cli.main(build + ["--torch-device", "cpu"])
+    assert os.path.getsize(os.path.join(sc["work"], "g0.prune.kmers"))
+    qin = qc_input(sc["work"], sc["indir"], str(tmp_path / "qcin"))
+    qc = ["qc", qin, str(tmp_path / "qc"), "g0,g1", "g1", "--device"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(qc)
+    assert not os.path.exists(tmp_path / "qc")
+    cli.main(qc + ["--torch-device", "cpu"])
+    assert os.path.getsize(tmp_path / "qc" / "g1.bait.kam")
     # pred, with or without the JAX CLI's --jax, needs the card too
     from danbing_tk_tpu_torch.tools.scale_pred import write_golden_cohort
 

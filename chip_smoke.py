@@ -42,6 +42,21 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      (host stages and align calls apart, with the pairs each align call
      took and its host engine's seconds), the launches of the build
      (KA-KE) and the qc (KA-KD, KF)
+ 4d. the downstream analyses on cuda through the CLI, in this process
+     after 4b: (a) ``align --device --native-io --prefilter -ka -bu -on``
+     of tests/golden_analysis/reads.fa.gz (4,442 read pairs over the golden
+     panel's 24 loci with planted substitutions,
+     danbing_tk_tpu_torch/tools/analysis_scenario.py), .tr.kmers and
+     .bub.kmdb byte-equal to the JAX package's, KA-KD and KG launched;
+     the .bub text and count-only file; ``ktools raava`` byte-equal; and
+     ``call --torch-device cuda`` with the golden sklearn SVM pickles, the
+     callset equal to the JAX package's; (b) ``length`` byte-equal and
+     ``eqtl`` (over the committed raw genotype cache) with its non-float
+     fields equal and its %.4e fields within one unit of the last digit,
+     numpy's and scipy's versions printed; (c) both golden SVMs (11 and
+     49 support vectors: not a production model's) on 100,000 seeded rows
+     each, on cuda: labels equal to sklearn's committed labels and to the
+     CPU's, the largest decision difference and ms; each step's seconds
  5. the production-size counting funnel: >= 1M read pairs (5% from the
      TR pool, 95% random background, 150 bp in L = 160 rows) through the
      host-sampled prefilter, survivor repack and the full step; flagged
@@ -129,7 +144,8 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      kernel's ``launches`` is the sum over its paths' runs (per path in
      ``launches_by_path``: the counting, sharded, threading and okam
      funnel runs, the site scorer's run, phase 5b's run_file and phase
-     4c's device build (``build_prune``) and qc (``qc``), and for KH the
+     4c's device build (``build_prune``) and qc (``qc``), phase 4d's align
+     -bu run (``analysis``), and for KH the
      pred file run), the counts set to 0 just before each run and read
      just after it (4c (b)'s in its worker process)
  10. the last line: {"ok": true, "device": {...}}
@@ -574,6 +590,8 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
         f"{time.time() - t0:.1f}s, launches {golden_thr_counts}")
     # ---- 4b. golden, Python ingest (run_file), through the CLI ----
     golden_py_counts = python_ingest_golden(gold, smi)
+    # ---- 4d. the downstream analyses: call, length, eqtl ----
+    alaunches = analysis_phase(gold, smi)
     # ---- 4c. RPGG construction and bait QC ----
     golden_qc_counts = golden_qc_stages(smi)
 
@@ -1003,7 +1021,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     return dict(results=results, launches=launches, tlaunches=tlaunches,
                 olaunches=olaunches, slaunches=sharded["launches"],
                 jlaunches=jlaunches, plaunches=plaunches,
-                bq_launches=bq_launches,
+                alaunches=alaunches, bq_launches=bq_launches,
                 golden=(golden_counts, golden_thr_counts,
                         golden_okam_counts, golden_py_counts,
                         golden_qc_counts))
@@ -1116,6 +1134,185 @@ def python_ingest_golden(gold: str, smi: str) -> dict:
         f"byte-equal; seconds {secs}; phase_s={time.time() - t_phase:.1f} "
         f"launches {total}; card {smi}")
     return total
+
+
+def analysis_phase(gold: str, smi: str) -> dict:
+    """Phase 4d: the downstream analyses on cuda, in this process.  (a)
+    ``align --device --native-io --prefilter -ka -bu -on`` of the
+    planted-variant reads over the golden panel (tests/golden_analysis/,
+    written by danbing_tk_tpu_torch/tools/analysis_scenario.py), its
+    .tr.kmers and .bub.kmdb byte-equal to the JAX package's, KA-KD and KG
+    launched; the harness's .bub text and count-only file; ``ktools
+    raava`` (.bi_tr/.bi_fl.kdb byte-equal to tests/golden/); ``call
+    --torch-device cuda`` (both SVM stages on the card), the callset equal
+    to the JAX package's; (b) ``length`` byte-equal to the golden TSV, and
+    ``eqtl`` over the committed raw genotype cache: every non-float field
+    equal and every %.4e field within one unit of its last digit (scipy's
+    t.sf may differ between versions), and the genotype files' columns in
+    this file system's glob order each equal to the cache's column of its
+    genome; (c) both golden SVMs on 100,000 seeded rows each (a
+    production batch's row count; the golden models have 11 and 49
+    support vectors, not a production model's), on cuda and on the CPU:
+    the cuda labels equal sklearn's (tests/golden_analysis/svm_labels.npy)
+    and the CPU's, the largest decision difference, ms.
+    Returns the align run's launch counts."""
+    import contextlib
+    import glob
+    import io
+    import pickle
+    import shutil
+
+    import numpy as np
+    import scipy
+    import torch
+
+    from danbing_tk_tpu_torch.analysis.eqtl_pipeline import (
+        read_genotype_matrix)
+    from danbing_tk_tpu_torch.apps import cli
+    from danbing_tk_tpu_torch.kernels import build
+    from danbing_tk_tpu_torch.models.svm import load_model
+    from danbing_tk_tpu_torch.tools import analysis_scenario as sc
+
+    t_phase = time.time()
+    ga = os.path.join(ROOT, "tests", "golden_analysis")
+    secs = {}
+
+    def same(path, want, what):
+        with open(path, "rb") as f, open(want, "rb") as g:
+            if f.read() != g.read():
+                fail(f"phase 4d {what}: {os.path.basename(path)} differs "
+                     f"from {os.path.relpath(want, ROOT)}")
+
+    with tempfile.TemporaryDirectory(prefix="dtk_smoke_") as d:
+        out = os.path.join(d, "out")
+        reads = sc.gunzip(os.path.join(ga, "reads.fa.gz"),
+                          os.path.join(d, "reads.fa"))
+        build.reset_launch_counts()
+        t0 = time.time()
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli.main(["align", "--device", "--native-io", "--prefilter",
+                      "-ka", "-bu", "-cth", "20", "-kf", "4", "1", "-qs",
+                      os.path.join(gold, "pan"), "-fa", reads, "-on", out])
+        torch.cuda.synchronize()
+        launches = build.launch_counts()
+        secs["align"] = time.time() - t0
+        if min(launches[t] for t in COUNTING + ("KG",)) <= 0:
+            fail(f"phase 4d align -bu skipped a kernel: {launches}")
+        for x in (".tr.kmers", ".bub.kmdb"):
+            same(out + x, os.path.join(ga, "out" + x), "align -bu")
+        t0 = time.time()
+        sc.bub_text(out + ".bub.kmdb", os.path.join(d, "gt.bub"))
+        sc.counts_text(out + ".tr.kmers", os.path.join(d, "gt.counts"))
+        pan = os.path.join(d, "pan")
+        for x in (".tr.kmers", ".fl.kmers", ".reindex.tr.kmers"):
+            os.symlink(os.path.join(gold, "pan" + x), pan + x)
+        cli.main(["ktools", "raava", pan, "21"])
+        for x in (".bi_tr.kdb", ".bi_fl.kdb", ".reindex.tr.kdb"):
+            same(pan + x, os.path.join(gold, "pan" + x), "ktools raava")
+        secs["bub+raava"] = time.time() - t0
+        t0 = time.time()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            cli.main(["call", pan, os.path.join(d, "gt.counts"),
+                      out + ".tr.kmers", os.path.join(d, "gt.bub"),
+                      os.path.join(ga, "br.svm"), os.path.join(ga, "bp.svm"),
+                      os.path.join(d, "calls.pickle"),
+                      "--torch-device", "cuda"])
+        torch.cuda.synchronize()
+        secs["call"] = time.time() - t0
+        with open(os.path.join(d, "calls.pickle"), "rb") as f:
+            calls = pickle.load(f)
+        with open(os.path.join(ga, "callset.txt")) as f:
+            if sc.callset_text(calls) != f.read():
+                fail("phase 4d: call's callset differs from "
+                     "tests/golden_analysis/callset.txt")
+        ncalled = {li: len(v[0]) for li, v in sorted(calls.items())}
+
+        # ---- (b) length and eqtl ----
+        t0 = time.time()
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli.main(["length"] + sc.length_argv(
+                os.path.join(ga, "length"), os.path.join(d, "length")))
+        same(os.path.join(d, "length", "estimated_TR_len.tsv"),
+             os.path.join(ga, "length", "estimated_TR_len.tsv"), "length")
+        secs["length"] = time.time() - t0
+        t0 = time.time()
+        eq, eqin = os.path.join(d, "eqtl"), os.path.join(ga, "eqtl")
+        os.makedirs(eq)
+        for name in ("ctrl.cov", "rawGenotype.pickle"):
+            shutil.copy(os.path.join(eqin, name), eq)
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli.main(["eqtl"] + sc.eqtl_argv(eqin, eq))
+        worst = 0.0
+        for t in sc.EQ_TISSUES:
+            name = f"{t}.v8.egenes.txt"
+            got = open(os.path.join(eq, name)).read().splitlines()
+            want = open(os.path.join(eqin, name)).read().splitlines()
+            if len(got) != len(want) or got[:1] != want[:1]:
+                fail(f"phase 4d eqtl: {name} has {len(got)} lines, the "
+                     f"golden {len(want)}")
+            for gl, wl in zip(got[1:], want[1:]):
+                gf, wf = gl.split("\t"), wl.split("\t")
+                if gf[:10] != wf[:10]:
+                    fail(f"phase 4d eqtl: {name} row {wl!r} is {gl!r}")
+                for a, b in zip(gf[10:], wf[10:]):
+                    exp = min(int(a.split("e")[1]), int(b.split("e")[1]))
+                    worst = max(worst, abs(float(a) - float(b))
+                                / 10.0 ** (exp - 4))
+        if worst > 1.0 + 1e-6:
+            fail(f"phase 4d eqtl: a %.4e field is {worst:.2f} units of its "
+                 f"last digit from the golden")
+        gen = os.path.join(eqin, "gen")
+        genomes = open(os.path.join(eqin, "genomes.txt")).read().split()
+        with open(os.path.join(eqin, "rawGenotype.pickle"), "rb") as f:
+            raw = pickle.load(f)
+        cols = read_genotype_matrix(gen, raw.shape[0], len(genomes))
+        for fi, fn in enumerate(glob.glob(f"{gen}/*.tr.kmers")):
+            g = genomes.index(os.path.basename(fn).split(".")[0])
+            if not np.array_equal(cols[:, fi], raw[:, g]):
+                fail(f"phase 4d eqtl: genotype column {fi} ({fn}) is not "
+                     f"the raw cache's column {g}")
+        secs["eqtl"] = time.time() - t0
+
+    # ---- (c) the golden SVMs at a production batch's row count ----
+    n = sc.SVM_ROWS
+    batch = dict(zip(("br", "bp"), sc.svm_batch(n, sc.SEED)))
+    sk = sc.read_labels(os.path.join(ga, "svm_labels.npy"))
+    svm_line = []
+    for name, X in batch.items():
+        path = os.path.join(ga, f"{name}.svm")
+        m_gpu, m_cpu = load_model(path, "cuda"), load_model(path, "cpu")
+        xg, xc = torch.from_numpy(X).cuda(), torch.from_numpy(X)
+        dg = m_gpu.decision_function(xg)
+        lg, lc = m_gpu.predict(xg).cpu(), m_cpu.predict(xc)
+        nsk = int((lg != torch.from_numpy(sk[name])).sum())
+        if nsk:
+            fail(f"phase 4d {name}.svm: {nsk} of {n} cuda labels differ "
+                 f"from sklearn's (tests/golden_analysis/svm_labels.npy)")
+        if not torch.equal(lg, lc):
+            fail(f"phase 4d {name}.svm: {int((lg != lc).sum())} of {n} "
+                 f"labels differ between cuda and the CPU")
+        diff = float((dg.cpu() - m_cpu.decision_function(xc)).abs().max())
+        ms = cuda_ms(lambda: m_gpu.predict(xg), n=5, reps=3)
+        t0 = time.perf_counter()
+        m_cpu.predict(xc)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        svm_line.append(
+            f"{name}.svm ({m_gpu.kernel}, {m_gpu.support_vectors_.shape[0]} "
+            f"SVs x {m_gpu.n_features_in_}) rows={n} accepted="
+            f"{int(lc.sum())} labels = sklearn's = the CPU's, "
+            f"max |decision cuda - cpu|="
+            f"{diff:.3e}, cuda ms={ms:.3f} cpu ms={cpu_ms:.1f}")
+    log(f"[4d] (a) align -bu of 4,442 planted-variant read pairs on cuda: "
+        f".tr.kmers and .bub.kmdb "
+        f"byte-equal, raava byte-equal, call --torch-device cuda callset = "
+        f"the JAX package's (edges by locus {ncalled}); (b) length "
+        f"byte-equal, eqtl within {worst:.3f} units of the last digit "
+        f"(numpy {np.__version__} scipy {scipy.__version__}; goldens from "
+        f"numpy 2.0.2 scipy 1.17.0); (c) {'; '.join(svm_line)}; seconds "
+        f"{ {k: round(v, 2) for k, v in secs.items()} } phase_s="
+        f"{time.time() - t_phase:.1f} launches {launches}; card {smi}")
+    return launches
 
 
 def golden_qc_stages(smi: str) -> dict:
@@ -2027,6 +2224,7 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "threading": res["tlaunches"], "okam": res["olaunches"],
              "site_scorer": res["jlaunches"],
              "python_ingest": res["plaunches"],
+             "analysis": res["alaunches"],
              "build_prune": res["bq_launches"]["build_prune"],
              "qc": res["bq_launches"]["qc"]}
     kern = [dict(name=names[t], route="cuda",

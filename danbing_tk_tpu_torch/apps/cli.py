@@ -44,6 +44,21 @@ RPGG construction and bait QC, byte-identical to the JAX package's:
     liftbed-clean LIFTBED
     select-regions BED FASTA OUT
 
+The downstream analyses, byte-identical to the JAX package's:
+
+    call PREF TR_KMERS TR_INDEX BUB BR_SVM BP_SVM OUT [--th N]
+         [--graph-size-limit N] [--torch-device D]
+    length --outdir D --ksize K --kmers LIST --trbed BED --LSB LSB
+           --cov COV (--ksi KSI | --qs PAN) [--seqruns T [--db-seqruns T]]
+           [--bad-donors I,J]
+    eqtl --TRbed ... --NL1 N --NL2 N    (the JAX CLI's flags)
+
+``call`` (rare-variant calling) runs both SVM stages on ``--torch-device``
+(default ``cuda``; without a card it raises before any stage runs unless
+``--torch-device cpu`` is given); its SVMs are the JAX package's sklearn
+pickles, read without sklearn.  ``length`` and ``eqtl`` are host numpy
+and scipy, with no card work.
+
 ``build`` runs the RPGG build (``--paf``: the native LiftTR from minimap2
 PAFs; ``--prune-reads``: each genome's own reads threaded through its raw
 graph, the count-0 k-mers pruned); ``qc`` runs the bait-building loop
@@ -301,6 +316,43 @@ def _cmd_select_regions(args):
     select_regions(args.bed, args.fasta, args.out)
 
 
+def _cmd_call(args):
+    import pickle
+
+    from .._device import resolve_device
+    from ..analysis.rarevariant import build_metadata, call_rare_variants
+
+    device = resolve_device(args.torch_device)
+    qcf, trks, ntrks = build_metadata(args.pref)
+    out = call_rare_variants(
+        qcf, trks, ntrks, args.tr_kmers, args.tr_index, args.bub,
+        args.br_svm, args.bp_svm, len(trks), th=args.th,
+        graph_size_limit=args.graph_size_limit, device=device)
+    with open(args.out, "wb") as f:
+        pickle.dump(out, f)
+    print(f"{sum(len(v[0]) for v in out.values())} edges in callset",
+          file=sys.stderr)
+
+
+def _cmd_length(args):
+    from ..analysis.length_pipeline import run_length
+
+    bad = tuple(int(x) for x in args.bad_donors.split(",") if x)
+    run_length(args.outdir, args.ksize, args.kmers, args.trbed,
+               args.LSB, args.cov, ksi_path=args.ksi, qs=args.qs,
+               seqruns=args.seqruns, db_seqruns=args.db_seqruns,
+               bad_donors=bad)
+    print(f"length done -> {args.outdir}/estimated_TR_len.tsv",
+          file=sys.stderr)
+
+
+def _cmd_eqtl(args):
+    from ..analysis.eqtl_pipeline import run_eqtl
+
+    for path in run_eqtl(args):
+        print(path, file=sys.stderr)
+
+
 def _cmd_mapkmers(args):
     from ..apps.mapkmers import mapkmers
 
@@ -530,6 +582,64 @@ def main(argv=None):
     sr2.add_argument("fasta")
     sr2.add_argument("out")
     sr2.set_defaults(fn=_cmd_select_regions)
+
+    eq = sub.add_parser(
+        "eqtl", help="single-tissue eQTL mapping (eqtl.noPerm.py "
+        "equivalent; writes {tissue}.v8.egenes.txt)")
+    for name, req in (("TRbed", True), ("geneBed", True), ("pair", True),
+                      ("expDir", True), ("resDir", False),
+                      ("genDir", True), ("covDir", True), ("outDir", True),
+                      ("phenotype", True), ("genomes", True),
+                      ("tissues", True), ("genMat", False),
+                      ("SNPPC", False), ("ctrlbed", False)):
+        eq.add_argument(f"--{name}", required=req)
+    eq.add_argument("--NL1", required=True, type=int)
+    eq.add_argument("--NL2", required=True, type=int)
+    eq.set_defaults(fn=_cmd_eqtl)
+
+    ln = sub.add_parser(
+        "length", help="VNTR length prediction from kmer dosage via "
+        "precomputed locus-specific biases (the intended flow of the "
+        "reference's bit-rotted script/kmc2length.py main; writes "
+        "{outdir}/estimated_TR_len.tsv)")
+    ln.add_argument("--outdir", required=True)
+    ln.add_argument("--ksize", required=True, type=int)
+    ln.add_argument("--kmers", required=True,
+                    help="file listing per-sample count-only kmer files")
+    ln.add_argument("--trbed", required=True)
+    ln.add_argument("--LSB", required=True)
+    ln.add_argument("--cov", required=True)
+    ln.add_argument("--covbed", default=None,
+                    help="accepted for reference-CLI parity (the "
+                    "reference main never reads it; ctrl sizes come "
+                    "from the LSB row names)")
+    ln.add_argument("--ksi", default=None,
+                    help="per-locus cumulative kmer index (ktools ksi)")
+    ln.add_argument("--qs", default=None,
+                    help="RPGG prefix to derive the ksi from "
+                    "pan.tr.kmers (alternative to --ksi)")
+    ln.add_argument("--seqruns", default=None,
+                    help="sample->sequencing-run table: switches the "
+                    "LSB-donor pick to the LOO seqrun prior")
+    ln.add_argument("--db-seqruns", default=None)
+    ln.add_argument("--bad-donors", default="",
+                    help="comma-separated donor indices to exclude")
+    ln.set_defaults(fn=_cmd_length)
+
+    ca = sub.add_parser("call", help="rare-variant (novel bubble) calling")
+    ca.add_argument("pref", help="RPGG prefix (needs .bi_tr/.bi_fl.kdb)")
+    ca.add_argument("tr_kmers")
+    ca.add_argument("tr_index")
+    ca.add_argument("bub")
+    ca.add_argument("br_svm")
+    ca.add_argument("bp_svm")
+    ca.add_argument("out")
+    ca.add_argument("--th", type=int, default=10)
+    ca.add_argument("--graph-size-limit", type=int, default=10000)
+    ca.add_argument("--torch-device", default="cuda",
+                    help="torch device of the two SVM stages (default "
+                    "cuda; cpu runs them on the host)")
+    ca.set_defaults(fn=_cmd_call)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -742,3 +742,29 @@ def test_kg_adversarial_matches_plain(cuda, NE):
     want = da.novel_edges_plain(*kg_args(case, cuda))
     assert torch.equal(got, want)
     assert bool(want.any())
+
+
+@pytest.mark.parametrize("name", ["br", "bp"])
+def test_golden_svms_on_cuda_match_cpu(cuda, name):
+    """The golden SVM pickles (tests/golden_analysis/, read without
+    sklearn) on cuda: on the 100,000 seeded rows of the production-batch
+    check the labels equal sklearn's (svm_labels.npy) and the CPU's,
+    decisions within 1e-9 relative or 1e-13 of their terms' magnitudes."""
+    from danbing_tk_tpu_torch.models.svm import load_model
+    from danbing_tk_tpu_torch.tools import analysis_scenario as sc
+
+    ga = os.path.join(os.path.dirname(__file__), "golden_analysis")
+    path = os.path.join(ga, f"{name}.svm")
+    X = torch.from_numpy(sc.svm_batch(sc.SVM_ROWS, sc.SEED)[
+        0 if name == "br" else 1])
+    want = torch.from_numpy(sc.read_labels(
+        os.path.join(ga, "svm_labels.npy"))[name])
+    mg, mc = load_model(path, cuda), load_model(path, "cpu")
+    assert mg.support_vectors_.is_cuda
+    got = mg.predict(X.to(cuda)).cpu()
+    assert torch.equal(got, want)
+    assert torch.equal(got, mc.predict(X))
+    dg = mg.decision_function(X.to(cuda)).cpu()
+    dc = mc.decision_function(X)
+    terms = (mc._kernel(X) * mc.dual_coef_[0]).abs().sum(1)
+    assert bool(((dg - dc).abs() <= 1e-9 * dc.abs() + 1e-13 * terms).all())

@@ -1,6 +1,7 @@
-"""The port imports neither JAX nor the JAX package, raises without a card
-unless the CPU is asked for, and carries a launch counter and a source note
-on every kernel."""
+"""The port imports neither JAX nor the JAX package (nor sklearn or pandas,
+which the card's machine lacks), raises without a card unless the CPU is
+asked for, and carries a launch counter and a source note on every
+kernel."""
 
 import os
 import subprocess
@@ -24,10 +25,16 @@ for m in ("engine.threading", "engine.native_thread", "tools.scale_index",
           "tools.profile_funnel", "tools.ab_assign_count", "analysis.pred",
           "tools.scale_pred", "tools.ab_bias_correct", "parallel.mesh",
           "parallel.sharded_index", "parallel.runner", "parallel.multihost",
-          "tools.multihost_worker", "ops.correct"):
+          "tools.multihost_worker", "ops.correct", "models", "models.svm",
+          "analysis.bubblecalling", "analysis.rarevariant",
+          "analysis.kmc2length", "analysis.length_pipeline", "analysis.eqtl",
+          "analysis.eqtl_pipeline", "analysis.dotplot",
+          "pipeline.leave_one_out", "utils.config", "utils.observability",
+          "tools.analysis_scenario"):
     assert pkg.__name__ + "." + m in sys.modules, m
-bad = sorted(n for n in sys.modules if n == "jax" or n.startswith("jax.")
-             or n == "danbing_tk_tpu" or n.startswith("danbing_tk_tpu."))
+# the card's machine has neither sklearn nor pandas
+bad = sorted(n for n in sys.modules if n.split(".")[0] in (
+    "jax", "danbing_tk_tpu", "sklearn", "pandas"))
 print("BAD", bad)
 """
 
@@ -97,6 +104,23 @@ def test_cli_raises_without_card(monkeypatch, tmp_path):
     assert not os.path.exists(tmp_path / "qc")
     cli.main(qc + ["--torch-device", "cpu"])
     assert os.path.getsize(tmp_path / "qc" / "g1.bait.kam")
+    # call asks for the card before it reads anything, and runs its SVMs
+    # on the CPU when asked
+    from danbing_tk_tpu_torch.tools.analysis_scenario import (bub_text,
+                                                               counts_text)
+
+    ga = os.path.join(ROOT, "tests", "golden_analysis")
+    bub_text(os.path.join(ga, "out.bub.kmdb"), str(tmp_path / "gt.bub"))
+    counts_text(os.path.join(ga, "out.tr.kmers"), str(tmp_path / "gt.c"))
+    call = ["call", os.path.join(GOLDEN, "pan"), str(tmp_path / "gt.c"),
+            os.path.join(ga, "out.tr.kmers"), str(tmp_path / "gt.bub"),
+            os.path.join(ga, "br.svm"), os.path.join(ga, "bp.svm"),
+            str(tmp_path / "calls.pickle")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(call)
+    assert not os.path.exists(tmp_path / "calls.pickle")
+    cli.main(call + ["--torch-device", "cpu"])
+    assert os.path.getsize(tmp_path / "calls.pickle")
     # pred, with or without the JAX CLI's --jax, needs the card too
     from danbing_tk_tpu_torch.tools.scale_pred import write_golden_cohort
 

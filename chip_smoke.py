@@ -5,10 +5,20 @@
 
 Phases; any failure exits non-zero (nothing is caught and continued):
   1. environment: torch / CUDA / nvcc versions, the card and its power limit
-  2. build: the ten CUDA kernels (nvcc, in parallel, -Xptxas -v) and the
-     native host runtime and threading engine (g++); then the synthetic
-     production-size index (danbing_tk_tpu_torch/tools/scale_index.py)
-  3. every kernel of the counting step against its plain torch version on
+  2. build through the code ``warmup`` runs (utils/compile_cache.py's
+     enable_compile_cache, kernels/build.py's build_all): the ten CUDA
+     kernels (nvcc, -Xptxas -v) and the host runtime, threading and
+     referee engines (g++), all compilers at once, each library's seconds;
+     then the synthetic production-size index
+     (danbing_tk_tpu_torch/tools/scale_index.py), and beside it, in a
+     thread joined before phase 3, phase 6's graph table and phase 7's
+     tre table (host arrays until their phases upload them)
+  3. first, phase 5's flat view and ``warmup``'s step pass
+     (align_runner.warmup_steps) on the scale index in counting mode: the
+     full step (P = 4096, L = 160, E = 512), the retry tier (E = 4096) and
+     the prefilter dispatch (4P), each step's first-call ms beside its warm
+     ms, the runner's state zero afterwards; then
+     every kernel of the counting step against its plain torch version on
      the same inputs at the main path's shapes (P = 4096 pairs, L = 160,
      k = 21, E = 512, prefilter dispatch 4P), on the production-size
      index: KA (the counting instance the step launches, and the
@@ -49,14 +59,21 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      danbing_tk_tpu_torch/tools/analysis_scenario.py), .tr.kmers and
      .bub.kmdb byte-equal to the JAX package's, KA-KD and KG launched;
      the .bub text and count-only file; ``ktools raava`` byte-equal; and
-     ``call --torch-device cuda`` with the golden sklearn SVM pickles, the
-     callset equal to the JAX package's; (b) ``length`` byte-equal and
+     ``call --torch-device cuda`` with the golden sklearn SVM pickles, and
+     again with the 3-class mc.svm as the bubble-path model, each callset
+     equal to the JAX package's; (b) ``length`` byte-equal and
      ``eqtl`` (over the committed raw genotype cache) with its non-float
      fields equal and its %.4e fields within one unit of the last digit,
-     numpy's and scipy's versions printed; (c) both golden SVMs (11 and
-     49 support vectors: not a production model's) on 100,000 seeded rows
-     each, on cuda: labels equal to sklearn's committed labels and to the
-     CPU's, the largest decision difference and ms; each step's seconds
+     numpy's and scipy's versions printed; (c) the golden SVMs (br and bp,
+     11 and 49 support vectors: not a production model's; mc, 3 classes,
+     1,280) on 100,000 seeded rows each, on cuda: labels equal to
+     sklearn's committed labels and to the CPU's, the largest difference
+     of the one-vs-one decisions and ms; each step's seconds
+ 4e. ``python -m danbing_tk_tpu_torch warmup`` on cuda over the golden
+     panel (P = 4096, L = 160, --prefilter, --retry-expand 4096), in -ka
+     and okam (-b -qc -bu -fq) form, two processes at once: exit 0, every
+     library reported cached (phase 2 built them), the JAX command's
+     lines printed; the phase's seconds
  5. the production-size counting funnel: >= 1M read pairs (5% from the
      TR pool, 95% random background, 150 bp in L = 160 rows) through the
      host-sampled prefilter, survivor repack and the full step; flagged
@@ -92,8 +109,9 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      its resolved pairs, the collectives' ms per step, peak memory; KI and
      KC[large-E] launched, KI's launches by table
   6. the production-size threading funnel (-gc 85 3): the index's graph
-     table (the fa2kmers -g rule over the loci's sequences), built and
-     uploaded only now, so the counting phases never hold it; the
+     table (the fa2kmers -g rule over the loci's sequences), built on the
+     host in phase 2 and uploaded only now, so the counting phases never
+     hold it on the card; the
      threading step's KD (threading mode) and KE (the graph probe, the
      walk and the count scatter in one launch) against their plain
      versions as in phase 3, on TR pairs with 0.5% substitutions, and KB
@@ -119,7 +137,7 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      output (the default) and -bu, with -fq -b -s 2 and with -qc -s 2, all
      outputs byte-equal, KF and KG launched; (b) after the graph table's
      device copy is dropped, the index's tre table (the fa2kmers tre
-     rule), a bait table of 64 of each locus's own k-mers and a QC mask
+     rule, built on the host in phase 2), a bait table of 64 of each locus's own k-mers and a QC mask
      failing 5% of the loci; KF (bait, and its QC-only instance), KG and
      KD with the ann plane against
      their plain versions as in phase 3, on TR pairs with 0.5%
@@ -142,7 +160,8 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      the device's share of the wall
   9. the kernels line (JSON): KA-KJ and KC's large-E instance; each
      kernel's ``launches`` is the sum over its paths' runs (per path in
-     ``launches_by_path``: the counting, sharded, threading and okam
+     ``launches_by_path``: phase 3's warmup pass (``warmup``), the
+     counting, sharded, threading and okam
      funnel runs, the site scorer's run, phase 5b's run_file and phase
      4c's device build (``build_prune``) and qc (``qc``), phase 4d's align
      -bu run (``analysis``), and for KH the
@@ -270,14 +289,16 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"[1] card: {smi}")
 
-    # ---- 2. build ----
+    # ---- 2. build, through warmup's code ----
+    from danbing_tk_tpu_torch.utils.compile_cache import enable_compile_cache
+
     t0 = time.time()
-    secs = build.build_kernels()
-    build.native_lib()
-    build.thread_lib()
-    build.align_lib()
-    log(f"[2] kernels built in {time.time() - t0:.2f}s "
-        f"(per source {secs})")
+    enable_compile_cache()
+    libs = build.build_all()
+    log(f"[2] libraries built by build_all in {time.time() - t0:.2f}s "
+        f"into {build.BUILD_ROOT}: " + ", ".join(
+            f"{n} {'cached' if c else f'{s:.2f}s'}"
+            for n, (s, c) in libs.items()))
     for name, out in build.build_logs.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -327,9 +348,10 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     from danbing_tk_tpu_torch.kernels import build
     from danbing_tk_tpu_torch.ops import kmers as km
     from danbing_tk_tpu_torch.tools.scale_index import (
-        ScaleThreadView, build_scale_bait, build_scale_graph, build_scale_qc,
-        build_scale_rpgg, build_scale_tre, sample_read_batch, sim_titles)
+        ScaleThreadView, build_scale_bait, build_scale_qc, build_scale_rpgg,
+        sample_read_batch, sim_titles)
 
+    tables = start_table_builds(args.nloci, args.seed)
     t0 = time.time()
     drp, seqs = build_scale_rpgg(args.nloci, 1500, seed=args.seed,
                                  verbose=False)
@@ -344,8 +366,10 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
         f"slots={drp.nslots} dbi_keys_levels={len(drp.dbi_tab.levels)} "
         f"tables={tab_bytes / 1e9:.3f} GB vv={len(drp.vv)} "
         f"build={t_index:.1f}s upload={t_upload:.1f}s")
-    # ---- 4c (b), joined before any kernel window ----
+    # ---- 4c (b) and the graph and tre tables, joined before any kernel
+    # window ----
     bq_launches = finish_build_qc(bq, smi)
+    finish_table_builds(tables)
 
     # ---- 3. kernels against their plain versions ----
     P, L, E, k, RL = 4096, 160, 512, 21, 150
@@ -353,6 +377,12 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     Pp = 4 * P
     NKW = L - k + 1
     cfg = AlignConfig(ksize=k, cth=20, n_filter=4, nm_filter=1, okam=False)
+    # the referee's host view of phases 5-7 (the flat arrays of the device
+    # tables), built first: the warmup pass's runner needs one
+    t0 = time.time()
+    flat = FlatRPGG.from_device_tables(drp)
+    t_flat = time.time() - t0
+    wlaunches = warmup_pass(drp, flat, cfg, P, L, E, dev, smi)
     # reads draw from their own stream: the index's sequences came from
     # default_rng(seed), and the same stream would copy them into the
     # "random" background
@@ -594,12 +624,10 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     alaunches = analysis_phase(gold, smi)
     # ---- 4c. RPGG construction and bait QC ----
     golden_qc_counts = golden_qc_stages(smi)
+    # ---- 4e. the warmup command ----
+    warmup_cli(gold, smi)
 
     # ---- 5. production-size funnel ----
-    # the referee's host view: the flat arrays of the device tables
-    t0 = time.time()
-    flat = FlatRPGG.from_device_tables(drp)
-    t_flat = time.time() - t0
     runner = DeviceAlignRunner(flat, cfg, batch_pairs=P, max_read_len=L,
                                expand_cap=E, drp=drp, device=dev)
     if type(runner.referee).__name__ != "ParallelReferee":
@@ -669,14 +697,13 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
         ref_share=ref_share, flat=flat))
 
     # ---- 6. production-size threading funnel ----
-    t0 = time.time()
-    drp.graph_tab, n_graph = build_scale_graph(seqs, verbose=False)
-    t_graph = time.time() - t0
+    (drp.graph_tab, n_graph), t_graph = tables.pop("graph")
     t0 = time.time()
     drp.tables(dev, graph=True)
     torch.cuda.synchronize()
     log(f"[6] graph table: entries={n_graph} bytes={drp.graph_tab.nbytes} "
-        f"levels={len(drp.graph_tab.levels)} build={t_graph:.1f}s "
+        f"levels={len(drp.graph_tab.levels)} build={t_graph:.1f}s (beside "
+        f"the index) "
         f"upload={time.time() - t0:.1f}s")
     # the threading step (-gc 85 3, the reference README's setting) on TR
     # pairs with substitutions, so both clean and corrected walks occur
@@ -847,9 +874,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     drp.release(dev, "graph")
     drp.graph_tab = None
     torch.cuda.empty_cache()
-    t0 = time.time()
-    drp.tre_tab, n_tre = build_scale_tre(seqs, verbose=False)
-    t_tre = time.time() - t0
+    (drp.tre_tab, n_tre), t_tre = tables.pop("tre")
     t0 = time.time()
     drp.bait_tab, n_bait = build_scale_bait(seqs, seed=args.seed)
     drp.qc = build_scale_qc(args.nloci, seed=args.seed)
@@ -858,7 +883,8 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     drp.tables(dev, bait=True, qc=True, tre=True)
     torch.cuda.synchronize()
     log(f"[7] tre table: entries={n_tre} bytes={drp.tre_tab.nbytes} "
-        f"levels={len(drp.tre_tab.levels)} build={t_tre:.1f}s; bait table: "
+        f"levels={len(drp.tre_tab.levels)} build={t_tre:.1f}s (beside the "
+        f"index); bait table: "
         f"entries={n_bait} bytes={drp.bait_tab.nbytes} build+qc="
         f"{t_bait:.1f}s; qc fails {int((drp.qc == 0).sum())} loci; upload="
         f"{time.time() - t0:.1f}s")
@@ -1018,13 +1044,51 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     results["KC[large-E]"] = dict(
         sharded["KCL"], source="danbing_tk_tpu_torch/csrc/pair_vote.cu",
         replaces="danbing_tk_tpu/engine/device_align.py:618")
-    return dict(results=results, launches=launches, tlaunches=tlaunches,
+    return dict(results=results, launches=launches, wlaunches=wlaunches,
+                tlaunches=tlaunches,
                 olaunches=olaunches, slaunches=sharded["launches"],
                 jlaunches=jlaunches, plaunches=plaunches,
                 alaunches=alaunches, bq_launches=bq_launches,
                 golden=(golden_counts, golden_thr_counts,
                         golden_okam_counts, golden_py_counts,
                         golden_qc_counts))
+
+
+def warmup_pass(drp, flat, cfg, P, L, E, dev, smi: str) -> dict:
+    """Phase 3's first window: ``warmup``'s step pass
+    (engine/align_runner.warmup_steps) over the scale index in counting
+    (-ka) mode at P = 4096, L = 160, E = 512, the retry tier E = 4096 and
+    the prefilter dispatch 4P, on a runner over phase 5's flat view: each
+    step's first call (kernel libraries loaded, first launches) beside the
+    same step warm (the median of three more passes), in ms.  The state
+    must be zero afterwards.  Returns the first pass's launches."""
+    import statistics
+
+    import torch
+
+    from danbing_tk_tpu_torch.engine.align_runner import (DeviceAlignRunner,
+                                                          warmup_steps)
+    from danbing_tk_tpu_torch.kernels import build
+
+    runner = DeviceAlignRunner(flat, cfg, batch_pairs=P, max_read_len=L,
+                               expand_cap=E, retry_expand=4096, drp=drp,
+                               device=dev)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    first = warmup_steps(runner, prefilter=True)
+    launches = build.launch_counts()
+    if min(launches[t] for t in COUNTING + ("KC[large-E]",)) <= 0:
+        fail(f"the warmup pass skipped a kernel: {launches}")
+    warm = [warmup_steps(runner, prefilter=True) for _ in range(3)]
+    bad = [key for key, t in runner.state.items() if bool(t.any())]
+    if bad:
+        fail(f"the warmup pass left state {bad} non-zero")
+    log(f"[3] warmup pass (counting, scale index): " + "; ".join(
+        f"{name} first_ms={1e3 * s:.2f} warm_ms="
+        f"{1e3 * statistics.median(w[name] for w in warm):.3f}"
+        for name, s in first.items())
+        + f"; state zero after it; launches {launches}; card {smi}")
+    return launches
 
 
 def python_ingest_golden(gold: str, smi: str) -> dict:
@@ -1210,23 +1274,26 @@ def analysis_phase(gold: str, smi: str) -> dict:
         for x in (".bi_tr.kdb", ".bi_fl.kdb", ".reindex.tr.kdb"):
             same(pan + x, os.path.join(gold, "pan" + x), "ktools raava")
         secs["bub+raava"] = time.time() - t0
-        t0 = time.time()
-        err = io.StringIO()
-        with contextlib.redirect_stderr(err):
-            cli.main(["call", pan, os.path.join(d, "gt.counts"),
-                      out + ".tr.kmers", os.path.join(d, "gt.bub"),
-                      os.path.join(ga, "br.svm"), os.path.join(ga, "bp.svm"),
-                      os.path.join(d, "calls.pickle"),
-                      "--torch-device", "cuda"])
-        torch.cuda.synchronize()
-        secs["call"] = time.time() - t0
-        with open(os.path.join(d, "calls.pickle"), "rb") as f:
-            calls = pickle.load(f)
-        with open(os.path.join(ga, "callset.txt")) as f:
-            if sc.callset_text(calls) != f.read():
-                fail("phase 4d: call's callset differs from "
-                     "tests/golden_analysis/callset.txt")
-        ncalled = {li: len(v[0]) for li, v in sorted(calls.items())}
+        ncalled = {}
+        # the binary bubble-path model, then the 3-class one (mc.svm)
+        for bp, golden in (("bp", "callset.txt"), ("mc", "callset.mc.txt")):
+            t0 = time.time()
+            with contextlib.redirect_stderr(io.StringIO()):
+                cli.main(["call", pan, os.path.join(d, "gt.counts"),
+                          out + ".tr.kmers", os.path.join(d, "gt.bub"),
+                          os.path.join(ga, "br.svm"),
+                          os.path.join(ga, f"{bp}.svm"),
+                          os.path.join(d, "calls.pickle"),
+                          "--torch-device", "cuda"])
+            torch.cuda.synchronize()
+            secs[f"call {bp}"] = time.time() - t0
+            with open(os.path.join(d, "calls.pickle"), "rb") as f:
+                calls = pickle.load(f)
+            with open(os.path.join(ga, golden)) as f:
+                if sc.callset_text(calls) != f.read():
+                    fail(f"phase 4d: call's callset with {bp}.svm differs "
+                         f"from tests/golden_analysis/{golden}")
+            ncalled[bp] = {li: len(v[0]) for li, v in sorted(calls.items())}
 
         # ---- (b) length and eqtl ----
         t0 = time.time()
@@ -1276,43 +1343,99 @@ def analysis_phase(gold: str, smi: str) -> dict:
 
     # ---- (c) the golden SVMs at a production batch's row count ----
     n = sc.SVM_ROWS
-    batch = dict(zip(("br", "bp"), sc.svm_batch(n, sc.SEED)))
+    Xr, Xp = sc.svm_batch(n, sc.SEED)
     sk = sc.read_labels(os.path.join(ga, "svm_labels.npy"))
+    sk["mc"] = np.load(os.path.join(ga, "mc_labels.npy"))
     svm_line = []
-    for name, X in batch.items():
+    for name, X in (("br", Xr), ("bp", Xp), ("mc", Xp)):
         path = os.path.join(ga, f"{name}.svm")
         m_gpu, m_cpu = load_model(path, "cuda"), load_model(path, "cpu")
         xg, xc = torch.from_numpy(X).cuda(), torch.from_numpy(X)
-        dg = m_gpu.decision_function(xg)
-        lg, lc = m_gpu.predict(xg).cpu(), m_cpu.predict(xc)
+        t0 = time.perf_counter()
+        lc = m_cpu.predict(xc)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        dg = m_gpu.ovo_decision(xg)
+        lg = m_gpu.predict(xg).cpu()
         nsk = int((lg != torch.from_numpy(sk[name])).sum())
         if nsk:
             fail(f"phase 4d {name}.svm: {nsk} of {n} cuda labels differ "
-                 f"from sklearn's (tests/golden_analysis/svm_labels.npy)")
+                 f"from sklearn's (tests/golden_analysis/"
+                 f"{'mc' if name == 'mc' else 'svm'}_labels.npy)")
         if not torch.equal(lg, lc):
             fail(f"phase 4d {name}.svm: {int((lg != lc).sum())} of {n} "
                  f"labels differ between cuda and the CPU")
-        diff = float((dg.cpu() - m_cpu.decision_function(xc)).abs().max())
+        diff = float((dg.cpu() - m_cpu.ovo_decision(xc)).abs().max())
         ms = cuda_ms(lambda: m_gpu.predict(xg), n=5, reps=3)
-        t0 = time.perf_counter()
-        m_cpu.predict(xc)
-        cpu_ms = (time.perf_counter() - t0) * 1e3
+        nclass = len(m_gpu.classes_)
         svm_line.append(
-            f"{name}.svm ({m_gpu.kernel}, {m_gpu.support_vectors_.shape[0]} "
-            f"SVs x {m_gpu.n_features_in_}) rows={n} accepted="
-            f"{int(lc.sum())} labels = sklearn's = the CPU's, "
-            f"max |decision cuda - cpu|="
+            f"{name}.svm ({m_gpu.kernel}, {nclass} classes, "
+            f"{m_gpu.support_vectors_.shape[0]} SVs x "
+            f"{m_gpu.n_features_in_}) rows={n} labels by class="
+            f"{torch.bincount(lc.long(), minlength=nclass).tolist()} = "
+            f"sklearn's = the CPU's, max |ovo decision cuda - cpu|="
             f"{diff:.3e}, cuda ms={ms:.3f} cpu ms={cpu_ms:.1f}")
     log(f"[4d] (a) align -bu of 4,442 planted-variant read pairs on cuda: "
         f".tr.kmers and .bub.kmdb "
-        f"byte-equal, raava byte-equal, call --torch-device cuda callset = "
-        f"the JAX package's (edges by locus {ncalled}); (b) length "
+        f"byte-equal, raava byte-equal, call --torch-device cuda callsets "
+        f"= the JAX package's with bp.svm and with the 3-class mc.svm "
+        f"(edges by locus {ncalled}); (b) length "
         f"byte-equal, eqtl within {worst:.3f} units of the last digit "
         f"(numpy {np.__version__} scipy {scipy.__version__}; goldens from "
         f"numpy 2.0.2 scipy 1.17.0); (c) {'; '.join(svm_line)}; seconds "
         f"{ {k: round(v, 2) for k, v in secs.items()} } phase_s="
         f"{time.time() - t_phase:.1f} launches {launches}; card {smi}")
     return launches
+
+
+def warmup_cli(gold: str, smi: str) -> None:
+    """Phase 4e: ``python -m danbing_tk_tpu_torch warmup`` on cuda over the
+    golden panel at P = 4096, L = 160, the prefilter and the E = 4096
+    tier, in counting (-ka) and okam (-b -qc -bu -fq) form, two processes
+    at once over phase 2's build cache: each exits 0, reports every
+    library cached and prints the JAX command's lines."""
+    t0 = time.time()
+    from danbing_tk_tpu_torch.kernels import build
+
+    base = ["-qs", os.path.join(gold, "pan"), "-P", "4096", "-L", "160",
+            "--prefilter", "--retry-expand", "4096"]
+    forms = {"-ka": ["-ka"],
+             "okam": ["-b", "-qc", os.path.join(gold, "qc.txt"), "-bu",
+                      "-fq", os.path.join(gold, "reads.sim.fq")]}
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               DTK_COMPILE_CACHE=build.BUILD_ROOT)
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "danbing_tk_tpu_torch", "warmup"] + base
+        + flags, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, flags in forms.items()}
+    want = ["align step P=4096 E=512 compiled+cached in",
+            "retry tier step P=2048 E=4096 compiled+cached in",
+            "prefilter P=16384 compiled+cached in",
+            f"warmup done -> {build.BUILD_ROOT}"]
+    libs = list(build.KERNELS) + ["dtk_native", "dtk_thread", "dtk_align"]
+    firsts = {}
+    for name, p in procs.items():
+        try:
+            _, err = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            fail(f"phase 4e warmup {name} did not finish in 120 s")
+        if p.returncode != 0:
+            print(err[-3000:], file=sys.stderr)
+            fail(f"phase 4e warmup {name} exited {p.returncode}")
+        lines = err.splitlines()
+        missing = [w for w in want if not any(w in x for x in lines)] + [
+            f"warmup: {lib} cached" for lib in libs
+            if f"warmup: {lib} cached" not in lines]
+        if missing:
+            print(err[-3000:], file=sys.stderr)
+            fail(f"phase 4e warmup {name}: no line {missing}")
+        firsts[name] = [x.split("warmup: ")[1] for x in lines
+                        if "compiled+cached" in x]
+    wall = time.time() - t0
+    log(f"[4e] warmup CLI on cuda (-ka; -b -qc -bu -fq), two processes: "
+        f"exit 0, all {len(libs)} libraries cached, the JAX lines present: "
+        f"{firsts}; phase_s={wall:.1f}; card {smi}")
 
 
 def golden_qc_stages(smi: str) -> dict:
@@ -1414,6 +1537,47 @@ def start_build_qc() -> dict:
     log(f"[2] phase 4c (b) started: build + qc --device of {BQ_NLOCI} loci "
         f"in a worker process, each align call held to the host engine")
     return dict(root=root, proc=p, log=log_f, t0=time.time())
+
+
+def start_table_builds(nloci: int, seed: int) -> dict:
+    """Phase 6's graph table and phase 7's tre table (host numpy, pure
+    functions of the index's sequences), built one after the other in a
+    thread beside phase 2's index build (numpy's sorts and copies release
+    the interpreter lock) and joined before phase 3, so no kernel window
+    is taken while it runs; the tables stay on the host until their
+    phases upload them."""
+    import threading
+
+    from danbing_tk_tpu_torch.tools.scale_index import (
+        build_scale_graph, build_scale_tre, scale_seqs)
+
+    box: dict = {"t0": time.time()}
+
+    def run():
+        try:
+            seqs = scale_seqs(nloci, 1500, seed=seed)
+            for name, fn in (("graph", build_scale_graph),
+                             ("tre", build_scale_tre)):
+                t0 = time.time()
+                box[name] = (fn(seqs, verbose=False), time.time() - t0)
+        except BaseException as e:        # re-raised by the join
+            box["error"] = e
+
+    box["thread"] = threading.Thread(target=run, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def finish_table_builds(box: dict) -> None:
+    """Joins start_table_builds' thread; fails if it raised."""
+    t_wait = time.time()
+    box.pop("thread").join()
+    if "error" in box:
+        fail(f"the graph and tre table builds raised {box['error']!r}")
+    log(f"[2] graph and tre tables built beside the index in "
+        f"{box['graph'][1]:.1f}s and {box['tre'][1]:.1f}s (started "
+        f"{t_wait - box.pop('t0'):.1f}s before the join, which waited "
+        f"{time.time() - t_wait:.1f}s)")
 
 
 def finish_build_qc(bq: dict, smi: str) -> dict:
@@ -2220,7 +2384,8 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "KD": "KD assign_count", "KE": "KE thread_walk",
              "KF": "KF read_filter", "KG": "KG novel_edges",
              "KI": "KI sharded_lookup", "KJ": "KJ site_scorer"}
-    paths = {"counting": res["launches"], "sharded": res["slaunches"],
+    paths = {"warmup": res["wlaunches"],
+             "counting": res["launches"], "sharded": res["slaunches"],
              "threading": res["tlaunches"], "okam": res["olaunches"],
              "site_scorer": res["jlaunches"],
              "python_ingest": res["plaunches"],

@@ -27,6 +27,14 @@ correction, with KH on the card; its files are byte-identical to the JAX
 package's default (numpy) ``pred``.  ``--jax`` is accepted so that JAX
 command lines run unchanged: the port has the one device path.
 
+``warmup -qs PAN [align's mode flags] [-P N] [-L N] [--prefilter]
+[--expand-cap E] [--retry-expand E1,E2]`` takes the JAX ``warmup``'s
+flags and prints its lines: it builds the kernels and host engines into
+the build cache (utils/compile_cache.py: ``<repo>/build`` or
+``DTK_COMPILE_CACHE``, which ``align --device`` honours too) and runs
+each step of the shape set once on an empty batch, on ``--torch-device``
+(default ``cuda``; without a card it raises unless ``cpu`` is given).
+
 The index and read tools are host code, byte-identical to the JAX
 package's: ``serialize PREF`` (.kmers.dbi, .fl.kdb, .tre.kdb),
 ``fa2kmers``, ``genpankmers``, ``ktools`` (ksi, sum [-f], extract,
@@ -106,9 +114,11 @@ def _cmd_align(args):
     if args.device:
         from .._device import resolve_device
         from ..engine import device_align as da
+        from ..utils.compile_cache import enable_compile_cache
 
         device = resolve_device(args.torch_device)
         da.check_ported_config(cfg)
+        enable_compile_cache()
     rpgg = RPGG(args.qs, bait=args.b, qc_file=args.qc, trim=args.t)
     if args.device:
         from ..engine.align_runner import DeviceAlignRunner
@@ -165,6 +175,55 @@ def _cmd_align(args):
             print(f"threading pairs: {al.n_device_thread} device-clean, "
                   f"{al.n_host_thread} host engine", file=sys.stderr)
     print(f"align done -> {pref}", file=sys.stderr)
+
+
+def _cmd_warmup(args):
+    """Builds every library a device run loads and runs each step of a
+    (P, E, mode) shape set once, ahead of a production run: the kernels
+    (nvcc) and host engines (g++) land in the build cache
+    (utils/compile_cache.py), so the run, a crash-resume, or a deploy
+    image built with this command needs no compiler and pays no first
+    use.  The JAX ``warmup``'s flags and lines; its seconds are each
+    step's first call on the card."""
+    import time
+
+    from .._device import resolve_device
+    from ..engine.align_runner import DeviceAlignRunner, warmup_steps
+    from ..engine.host_align import AlignConfig, RPGG
+    from ..kernels import build
+    from ..utils.compile_cache import enable_compile_cache
+
+    device = resolve_device(args.torch_device)
+    cache = enable_compile_cache()
+    cuda = device.type == "cuda"
+    for name, (secs, cached) in build.build_all(kernels=cuda).items():
+        print(f"warmup: {name} " + ("cached" if cached else
+                                    f"built in {secs:.1f}s"),
+              file=sys.stderr)
+    if not cuda:
+        print("warmup: no CUDA kernel built: the CPU runs their plain "
+              "versions", file=sys.stderr)
+    if not args.ka:
+        # the JAX command's words: the okam step is another program
+        print("warmup: warming the okam (.kam output, annotated) step "
+              "variant; a -ka counting run compiles a different program "
+              "— pass -ka here to warm that one", file=sys.stderr)
+    cfg = AlignConfig(
+        ksize=args.k, cth=args.cth, n_filter=args.kf[0],
+        nm_filter=args.kf[1], nm_tr=args.c, okam=not args.ka,
+        bait=args.b, qc=bool(args.qc), output_bubbles=args.bu,
+        is_fastq=bool(args.fq), qth=args.qth)
+    rpgg = RPGG(args.qs, bait=args.b, qc_file=args.qc, trim=args.t)
+    t0 = time.time()
+    al = DeviceAlignRunner(rpgg, cfg, batch_pairs=args.P,
+                           max_read_len=args.L, expand_cap=args.expand_cap,
+                           retry_expand=args.retry_expand, device=device)
+    print(f"warmup: index + tables ready in {time.time() - t0:.1f}s "
+          f"(cache={cache})", file=sys.stderr)
+    for name, secs in warmup_steps(al, args.prefilter).items():
+        print(f"warmup: {name} compiled+cached in {secs:.1f}s",
+              file=sys.stderr)
+    print(f"warmup done -> {cache}", file=sys.stderr)
 
 
 def _cmd_pred(args):
@@ -423,6 +482,43 @@ def main(argv=None):
                    help="torch device of the --device engine (default "
                         "cuda; cpu runs the kernels' plain versions)")
     a.set_defaults(fn=_cmd_align)
+
+    w = sub.add_parser(
+        "warmup", help="build the kernels and host engines into the build "
+        "cache and run each step of a (P, E, mode) shape set once")
+    w.add_argument("-qs", required=True)
+    w.add_argument("-k", type=int, default=21)
+    w.add_argument("-kf", type=int, nargs=2, default=[4, 1])
+    w.add_argument("-cth", type=int, default=10)
+    w.add_argument("-c", type=int, default=40)
+    w.add_argument("-b", action="store_true")
+    w.add_argument("-qc")
+    w.add_argument("-bu", action="store_true")
+    w.add_argument("-ka", action="store_true")
+    w.add_argument("-fq", nargs="?", const=True, default=False,
+                   metavar="READS",
+                   help="warm the fastq (quality-masked) step variant; "
+                        "an optional READS operand is accepted (and "
+                        "ignored) so production align flags can be "
+                        "copied verbatim")
+    w.add_argument("-qth", type=int, default=20)
+    w.add_argument("-t", type=int, default=0)
+    w.add_argument("-P", type=int, default=4096,
+                   help="full-step batch pairs (align batch_pairs)")
+    w.add_argument("-L", type=int, default=256,
+                   help="max read length (align max_read_len)")
+    w.add_argument("--prefilter", action="store_true",
+                   help="also warm the prefilter dispatch shape "
+                        "(P x PREFILTER_MULT)")
+    w.add_argument("--expand-cap", type=int, default=512)
+    w.add_argument("--retry-expand",
+                   type=lambda v: [int(x) for x in v.split(",")],
+                   default=0)
+    w.add_argument("--torch-device", default="cuda",
+                   help="torch device of the steps (default cuda; cpu "
+                        "builds only the host engines and runs the "
+                        "kernels' plain versions)")
+    w.set_defaults(fn=_cmd_warmup)
 
     pr = sub.add_parser("pred", help="bias correction")
     pr.add_argument("gt_meta")

@@ -304,6 +304,22 @@ class DeviceAlignRunner:
     def _init_state(self):
         return da.init_state(self.drp, self.device)
 
+    def _retry_step(self, t: int):
+        """Retry tier t's step, built on first use (an okam tier carries
+        the annotation plane for .kam rows)."""
+        if self.retry_steps[t] is None:
+            self.retry_steps[t] = self._build_step(
+                self.retry_E[t], with_annot=self.okam,
+                with_qual=self.with_qual, P=self.retry_P[t])
+        return self.retry_steps[t]
+
+    def _prefilter(self, Pp: int):
+        """The prefilter dispatch of Pp pairs, built on first use."""
+        if self.prefilter_P != Pp:
+            self.prefilter_step = self._build_prefilter(Pp)
+            self.prefilter_P = Pp
+        return self.prefilter_step
+
     def _build_prefilter(self, Pp: int):
         """Returns step(codes, rlen, live) -> survive (Pp,) on the device:
         host-sampled queries (native sampler), KB on the member table."""
@@ -456,9 +472,8 @@ class DeviceAlignRunner:
             raise ValueError("a checkpoint does not hold the .aln rows: run "
                              "threading with -a/-ae without --checkpoint")
         Pp = self.dispatch_pairs(prefilter)
-        if prefilter and self.prefilter_P != Pp:
-            self.prefilter_step = self._build_prefilter(Pp)
-            self.prefilter_P = Pp
+        if prefilter:
+            self._prefilter(Pp)
         # counting mode submits referee calls to the native pool (their
         # count adds commute); ordered modes call it synchronously, so a
         # pair's row lands in pair order.  The pool is flushed before a
@@ -866,12 +881,8 @@ class DeviceAlignRunner:
             if not r["n"]:
                 return
             Pt = self.retry_P[t]
-            if self.retry_steps[t] is None:
-                self.retry_steps[t] = self._build_step(
-                    self.retry_E[t], with_annot=okam,
-                    with_qual=self.with_qual, P=Pt)
             ret[t] = new_buffers(Pt)
-            run_step(self.retry_steps[t], Pt, r, r["n"], 0,
+            run_step(self._retry_step(t), Pt, r, r["n"], 0,
                      t + 1 if t + 1 < ntier else None)
 
         def drain_ladder():
@@ -1410,3 +1421,53 @@ def stop_after_prefilter(runner: DeviceAlignRunner, n_ok: int) -> None:
         return step
 
     runner._build_prefilter = counted
+
+
+def warmup_steps(runner: DeviceAlignRunner, prefilter: bool) -> dict:
+    """Runs each step a run of ``runner`` can launch once, on the JAX
+    warmup's empty batch (codes 255, rlen 0, every pair live; with the
+    quality mask when the step takes one): the full step, each retry
+    tier's step and, with ``prefilter``, the prefilter dispatch of
+    dispatch_pairs(True) pairs, the last two built and kept on the runner
+    as run_batches builds them.  Returns {step:
+    seconds of its first call, synchronized}, named as the JAX ``warmup``
+    prints them.  Empty reads count no k-mer, but the live empty pairs
+    add to the read statistics and the trash slots (each accumulator's
+    last entry, which no output reads): both are put back, so the
+    runner's state is as it was."""
+    cfg, L, dev = runner.cfg, runner.L, runner.device
+
+    def empty(Pb):
+        return (np.full((2 * Pb, L), 255, dtype=np.uint8),
+                np.zeros(2 * Pb, dtype=np.int32), np.ones(Pb, dtype=bool))
+
+    def first_call(fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    def run_step(fn, Pb):
+        codes, rlen, live = empty(Pb)
+        a = [runner.state, codes, rlen, live]
+        if runner.with_qual:
+            a.append(da.qmask_batch(np.zeros((2 * Pb, L), np.uint8), rlen,
+                                    cfg.qth, cfg.ksize))
+        (runner.state, _), s = first_call(fn, *a)
+        return s
+
+    kept = {key: (v if key == "stats" else v[-1:]).clone()
+            for key, v in runner.state.items()}
+    secs = {f"align step P={runner.P} E={runner.expand_cap}":
+            run_step(runner.step, runner.P)}
+    for t, (E, Pt) in enumerate(zip(runner.retry_E, runner.retry_P)):
+        secs[f"retry tier step P={Pt} E={E}"] = run_step(
+            runner._retry_step(t), Pt)
+    for key, v in kept.items():
+        runner.state[key][-len(v):] = v
+    if prefilter:
+        Pp = runner.dispatch_pairs(True)
+        secs[f"prefilter P={Pp}"] = first_call(runner._prefilter(Pp),
+                                               *empty(Pp))[1]
+    return secs

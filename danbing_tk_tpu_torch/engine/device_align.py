@@ -36,8 +36,10 @@ Decision equivalence with the reference is the JAX module's: ties,
 test2-only passes and expansion overflows are flagged for the host referee
 (engine/host_align.process_pair) and masked out of every device count;
 threading pairs whose walk is not clean go to the host threading engine.
-Extract (-e) and bait tracking (-tb) are not ported; make_step raises
-NotImplementedError for them.  The quality mask of fastq + bait runs
+Extract (-e) runs on the counting step (its rows come from the runner's
+planes); bait tracking (-tb) is the one mode the device engine refuses:
+check_ported_config raises NotImplementedError for it (the host engine
+runs it).  The quality mask of fastq + bait runs
 (qmask_batch) is computed on the host, as in the JAX package.
 
 K-mers are int64 with EMPTY = -1; u32 values (dbi vals, loci, counts) ride

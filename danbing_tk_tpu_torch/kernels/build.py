@@ -16,8 +16,11 @@
 Every library name carries a hash of its source and flags, so a stale or
 foreign build is never loaded; each build writes to a temporary file and
 renames it into place, so concurrent importers never load a half-written
-library.  Every CUDA entry point returns ``cudaGetLastError()``;
-``check()`` raises when it is not 0.
+library.  ``build/`` is the default root of both directories;
+``set_root`` moves them (utils/compile_cache.py, ``DTK_COMPILE_CACHE``)
+until the first library is loaded.  ``build_all()`` builds every library
+at once (``warmup``, the smoke's build phase).  Every CUDA entry point
+returns ``cudaGetLastError()``; ``check()`` raises when it is not 0.
 """
 
 from __future__ import annotations
@@ -28,14 +31,17 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
-KERNEL_DIR = os.path.join(ROOT, "build", "torch_kernels")
-NATIVE_DIR = os.path.join(ROOT, "build", "torch_native")
+DEFAULT_ROOT = os.path.join(ROOT, "build")
+BUILD_ROOT = DEFAULT_ROOT
+KERNEL_DIR = os.path.join(BUILD_ROOT, "torch_kernels")
+NATIVE_DIR = os.path.join(BUILD_ROOT, "torch_native")
 NATIVE_SRCS = {"native": os.path.join(ROOT, "native", "dtk_native.cpp"),
                "thread": os.path.join(ROOT, "native", "dtk_thread.cpp"),
                "align": os.path.join(ROOT, "native", "dtk_align.cpp")}
@@ -78,6 +84,25 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def set_root(path: str) -> str:
+    """Puts the kernel libraries under ``path/torch_kernels`` and the host
+    libraries under ``path/torch_native``; returns the absolute root.  Once
+    a library is loaded the root is fixed: another root raises."""
+    global BUILD_ROOT, KERNEL_DIR, NATIVE_DIR
+    path = os.path.abspath(path)
+    with _lock:
+        if path != BUILD_ROOT:
+            if _libs:
+                raise RuntimeError(
+                    f"the build root is {BUILD_ROOT}, and {sorted(_libs)} "
+                    f"are loaded from it: set the root ({path}) before "
+                    f"the first library is loaded")
+            BUILD_ROOT = path
+            KERNEL_DIR = os.path.join(path, "torch_kernels")
+            NATIVE_DIR = os.path.join(path, "torch_native")
+    return path
+
+
 def _kernel_target(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
     deps = [src] + sorted(os.path.join(CSRC, h) for h in os.listdir(CSRC)
@@ -87,34 +112,78 @@ def _kernel_target(name: str):
     return src, out
 
 
+def _host_target(name: str):
+    src = NATIVE_SRCS[name]
+    return src, os.path.join(
+        NATIVE_DIR, f"libdtk_{name}-{_digest([src], GXX_FLAGS)}.so")
+
+
+def _compile(jobs: dict) -> dict[str, float]:
+    """``jobs``: {name: (compiler argv, source, output)}.  Starts one
+    compiler per missing output, all at once, each writing a temporary
+    file that is renamed into place; waits for all of them.  Returns
+    {name: seconds since the start} of the ones built; each compiler's
+    output lands in ``build_logs[name]``; a failed build raises."""
+    t0 = time.time()
+    procs = {}
+    for name, (argv, src, out) in jobs.items():
+        if os.path.exists(out):
+            continue
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.tmp.{os.getpid()}"
+        procs[name] = (subprocess.Popen(
+            [*argv, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out)
+    secs, failed = {}, []
+    for name, (p, tmp, out) in procs.items():
+        build_logs[name], _ = p.communicate()
+        secs[name] = time.time() - t0
+        if p.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("build failed for " + "; ".join(
+            f"{jobs[n][1]}:\n{build_logs[n]}" for n in failed))
+    return secs
+
+
+def _kernel_jobs(names) -> dict:
+    """nvcc jobs of the kernel sources ``names`` (nvcc is looked up only
+    when a library is missing)."""
+    targets = {n: _kernel_target(n) for n in names}
+    nvcc = None
+    if not all(os.path.exists(out) for _, out in targets.values()):
+        nvcc = [nvcc_path(), *NVCC_FLAGS]
+    return {n: (nvcc, src, out) for n, (src, out) in targets.items()}
+
+
+def _host_jobs(names) -> dict:
+    """g++ jobs of the host libraries ``names``, as ``dtk_<name>``."""
+    return {f"dtk_{n}": (["g++", *GXX_FLAGS], *_host_target(n))
+            for n in names}
+
+
 def build_kernels(names=KERNELS) -> dict[str, float]:
     """Compiles every missing kernel library in parallel (one nvcc per
     source).  Returns {name: seconds}; the compiler's output (with
     ``-Xptxas -v``: registers, shared memory, spills) lands in
     ``build_logs[name]``."""
-    import time
+    return _compile(_kernel_jobs(names))
 
-    os.makedirs(KERNEL_DIR, exist_ok=True)
-    procs = {}
-    t0 = time.time()
-    for name in names:
-        src, out = _kernel_target(name)
-        if os.path.exists(out):
-            continue
-        tmp = f"{out}.tmp.{os.getpid()}"
-        procs[name] = (subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, out)
-    secs = {}
-    for name, (p, tmp, out) in procs.items():
-        log, _ = p.communicate()
-        secs[name] = time.time() - t0
-        build_logs[name] = log
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-        os.replace(tmp, out)
-    return secs
+
+def build_all(kernels: bool = True) -> dict[str, tuple[float, bool]]:
+    """Builds every missing library at once (one nvcc per kernel source
+    with ``kernels``, one g++ per host library) and loads the host
+    libraries.  Returns {library: (seconds, cached)}: the kernels by
+    source name, the host libraries as ``dtk_native``, ``dtk_thread`` and
+    ``dtk_align``; ``cached`` where the library was already built."""
+    jobs = {**(_kernel_jobs(KERNELS) if kernels else {}),
+            **_host_jobs(NATIVE_SRCS)}
+    secs = _compile(jobs)
+    for n in NATIVE_SRCS:
+        _host_lib(n)
+    return {name: (secs.get(name, 0.0), name not in secs) for name in jobs}
 
 
 def build_ab(src: str, name: str):
@@ -170,15 +239,8 @@ def _host_lib(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = NATIVE_SRCS[name]
-        out = os.path.join(
-            NATIVE_DIR, f"libdtk_{name}-{_digest([src], GXX_FLAGS)}.so")
-        if not os.path.exists(out):
-            os.makedirs(NATIVE_DIR, exist_ok=True)
-            tmp = f"{out}.tmp.{os.getpid()}"
-            subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, src], check=True)
-            os.replace(tmp, out)
-        lib = _libs[name] = ctypes.CDLL(out)
+        _compile(_host_jobs([name]))
+        lib = _libs[name] = ctypes.CDLL(_host_target(name)[1])
         return lib
 
 

@@ -18,15 +18,28 @@ numpy's array reconstructors, and the fitted attributes become a torch
 module on the caller's device (``cuda`` unless the caller asks for the
 CPU, as every entry point of the port):
 
-  SVCModel       the libsvm decision function of a binary SVC with an
-                 rbf, linear, poly or sigmoid kernel,
+  SVCModel       the libsvm decision function of an SVC with an rbf,
+                 linear, poly or sigmoid kernel.  Binary:
                      decision = K(X, support_vectors_) @ dual_coef_.T
                                 + intercept_
                  (sklearn's public pair; its private _dual_coef_ and
                  _intercept_ carry the opposite sign for two classes), and
                  the label classes_[1] where decision >= 0, else
-                 classes_[0], as libsvm votes (an exact 0 takes classes_[1])
-  ConstantModel  DummyClassifier's constant label
+                 classes_[0], as libsvm votes (an exact 0 takes
+                 classes_[1]).  k >= 3 classes: libsvm's one-vs-one
+                 planes, one a class pair (i < j) in libsvm's order, from
+                 the support vectors grouped by class (_n_support) and
+                 the (k - 1, n_SV) coefficient layout (no sign flip):
+                     dec[:, (i, j)] = K_i @ dual_coef_[j - 1, sv_i]
+                                      + K_j @ dual_coef_[i, sv_j]
+                                      + intercept_[(i, j)]
+                 predict is libsvm's vote (dec > 0 votes for i, else for
+                 j; the first class with the most votes wins), or with
+                 break_ties and decision_function_shape "ovr" the argmax
+                 of sklearn's ovr transform, which decision_function
+                 gives for "ovr" (the ovo planes for "ovo")
+  ConstantModel  DummyClassifier's label: the constant, or for
+                 most_frequent and prior classes_[argmax(class_prior_)]
 
 The kernel matrix is a plain product of float64 tensors: the JAX package
 evaluates it inside libsvm, on the host, not in a device stage.
@@ -79,36 +92,56 @@ def _labels(values, what: str) -> torch.Tensor:
 
 
 class SVCModel(nn.Module):
-    """A fitted binary sklearn SVC's decision function and labels."""
+    """A fitted sklearn SVC's decision function and labels."""
 
     def __init__(self, support_vectors, dual_coef, intercept, gamma: float,
                  kernel: str, degree: int, coef0: float, classes,
-                 feature_names=None, device=None):
+                 feature_names=None, device=None, n_support=None,
+                 decision_function_shape: str = "ovr",
+                 break_ties: bool = False):
         super().__init__()
         if kernel not in KERNELS:
             raise ValueError(f"SVC kernel {kernel!r} is not supported (the "
                              f"port evaluates {', '.join(KERNELS)})")
-        if len(classes) != 2:
-            raise NotImplementedError(
-                f"SVC with {len(classes)} classes: only binary models are "
-                f"evaluated (the rare-variant filters accept or reject; a "
-                f"multiclass model needs libsvm's one-vs-one vote)")
+        k = len(classes)
         dev = resolve_device(device)
         f64 = dict(dtype=torch.float64, device=dev)
         sv = np.asarray(support_vectors, dtype=np.float64)
-        dc = np.asarray(dual_coef, dtype=np.float64).reshape(1, -1)
-        if sv.ndim != 2 or dc.shape[1] != sv.shape[0]:
-            raise ValueError(f"support_vectors_ {sv.shape} and dual_coef_ "
-                             f"{dc.shape} do not agree")
+        dc = np.asarray(dual_coef, dtype=np.float64).reshape(k - 1, -1)
+        ic = np.asarray(intercept, dtype=np.float64).reshape(-1)
+        if sv.ndim != 2 or dc.shape[1] != sv.shape[0] \
+                or ic.size != k * (k - 1) // 2:
+            raise ValueError(f"support_vectors_ {sv.shape}, dual_coef_ "
+                             f"{dc.shape} and intercept_ {ic.shape} do not "
+                             f"agree for {k} classes")
+        self.pairs = tuple((i, j) for i in range(k) for j in range(i + 1, k))
+        if k > 2:
+            ns = np.asarray(n_support, dtype=np.int64).reshape(-1)
+            if ns.size != k or ns.sum() != sv.shape[0] or (ns < 0).any():
+                raise ValueError(f"_n_support {n_support} does not group "
+                                 f"{sv.shape[0]} support vectors into {k} "
+                                 f"classes")
+            if decision_function_shape not in ("ovo", "ovr"):
+                raise ValueError(f"decision_function_shape "
+                                 f"{decision_function_shape!r}")
+            # libsvm's pair (i, j) as one column: class i's support
+            # vectors take row j - 1 of the coefficients, class j's row i
+            cls = np.repeat(np.arange(k), ns)     # a support vector's class
+            dc = np.stack([np.where(cls == i, dc[j - 1],
+                                    np.where(cls == j, dc[i], 0.0))
+                           for i, j in self.pairs])
         self.register_buffer("support_vectors_", torch.tensor(sv, **f64))
+        # binary: (1, n_SV), sklearn's sign; k >= 3: (k(k-1)/2, n_SV), a
+        # row a class pair
         self.register_buffer("dual_coef_", torch.tensor(dc, **f64))
-        self.register_buffer("intercept_", torch.tensor(
-            np.asarray(intercept, dtype=np.float64).reshape(1), **f64))
+        self.register_buffer("intercept_", torch.tensor(ic, **f64))
         self.register_buffer("_gamma", torch.tensor(float(gamma), **f64))
         self.register_buffer("coef0", torch.tensor(float(coef0), **f64))
         self.register_buffer("classes_", _labels(classes, "classes_").to(dev))
         self.kernel = kernel
         self.degree = int(degree)
+        self.decision_function_shape = decision_function_shape
+        self.break_ties = bool(break_ties)
         self.feature_names_in_ = (None if feature_names is None
                                   else tuple(str(n) for n in feature_names))
 
@@ -145,21 +178,64 @@ class SVCModel(nn.Module):
             raise ValueError("Input X contains NaN or infinity.")
         return X
 
-    def decision_function(self, X: torch.Tensor) -> torch.Tensor:
-        """(n,) float64 decision values, sklearn's sign."""
+    def ovo_decision(self, X: torch.Tensor) -> torch.Tensor:
+        """libsvm's decision values: (n,) for two classes (sklearn's sign),
+        else the (n, k(k-1)/2) one-vs-one planes in libsvm's pair order;
+        one kernel matrix per row chunk."""
         X = self._check(X)
         nsv = max(1, self.support_vectors_.shape[0] * X.shape[1])
         rows = max(1, _CHUNK // nsv)
-        out = [self._kernel(X[i:i + rows]) @ self.dual_coef_[0]
+        coef = self.dual_coef_[0] if len(self.pairs) == 1 \
+            else self.dual_coef_.T
+        out = [self._kernel(X[i:i + rows]) @ coef
                for i in range(0, X.shape[0], rows)]
-        return torch.cat(out) + self.intercept_[0]
+        return torch.cat(out) + (self.intercept_[0] if len(self.pairs) == 1
+                                 else self.intercept_)
+
+    def _ovr(self, dec: torch.Tensor) -> torch.Tensor:
+        """sklearn's _ovr_decision_function(dec < 0, -dec, k): votes plus
+        the summed confidences mapped into (-1/3, 1/3), pair by pair in
+        its order."""
+        k = len(self.classes_)
+        votes = dec.new_zeros((dec.shape[0], k))
+        conf = dec.new_zeros((dec.shape[0], k))
+        for p, (i, j) in enumerate(self.pairs):
+            conf[:, i] += dec[:, p]
+            conf[:, j] -= dec[:, p]
+            votes[:, i] += dec[:, p] >= 0
+            votes[:, j] += dec[:, p] < 0
+        return votes + conf / (3 * (conf.abs() + 1))
+
+    def decision_function(self, X: torch.Tensor) -> torch.Tensor:
+        """float64 decision values as sklearn's: (n,) for two classes,
+        else the ovo planes or their ovr transform (n, k) per
+        decision_function_shape."""
+        dec = self.ovo_decision(X)
+        if dec.ndim == 2 and self.decision_function_shape == "ovr":
+            return self._ovr(dec)
+        return dec
 
     def predict(self, X: torch.Tensor) -> torch.Tensor:
-        return self.classes_[(self.decision_function(X) >= 0).long()]
+        if self.break_ties and self.decision_function_shape == "ovo":
+            raise ValueError("break_ties must be False when "
+                             "decision_function_shape is 'ovo'")
+        dec = self.ovo_decision(X)
+        if dec.ndim == 1:
+            return self.classes_[(dec >= 0).long()]
+        if self.break_ties:
+            return self.classes_[self._ovr(dec).argmax(1)]
+        votes = torch.zeros((dec.shape[0], len(self.classes_)),
+                            dtype=torch.int64, device=dec.device)
+        for p, (i, j) in enumerate(self.pairs):
+            votes[:, i] += dec[:, p] > 0
+            votes[:, j] += dec[:, p] <= 0
+        # argmax takes the first of equal maxima, as libsvm's vote
+        return self.classes_[votes.argmax(1)]
 
 
 class ConstantModel(nn.Module):
-    """DummyClassifier: one label for every row."""
+    """DummyClassifier (constant, most_frequent, prior): one label for
+    every row."""
 
     def __init__(self, constant, classes, device=None):
         super().__init__()
@@ -186,15 +262,27 @@ def from_attrs(kind: str, attrs: dict, device=None) -> nn.Module:
         return SVCModel(attrs["support_vectors_"], attrs["dual_coef_"],
                         attrs["intercept_"], attrs["_gamma"], attrs["kernel"],
                         attrs["degree"], attrs["coef0"], attrs["classes_"],
-                        attrs.get("feature_names_in_"), device)
+                        attrs.get("feature_names_in_"), device,
+                        attrs.get("_n_support", attrs.get("n_support_")),
+                        attrs.get("decision_function_shape", "ovr"),
+                        attrs.get("break_ties", False))
     if kind == "DummyClassifier":
         strategy = attrs.get("_strategy", attrs.get("strategy"))
-        if strategy != "constant" or attrs.get("n_outputs_", 1) != 1:
-            raise ValueError(f"DummyClassifier(strategy={strategy!r}, "
-                             f"n_outputs_={attrs.get('n_outputs_')}): only "
-                             f"the single-output constant model "
-                             f"(constant_model) is supported")
-        return ConstantModel(attrs["constant"], attrs["classes_"], device)
+        if attrs.get("n_outputs_", 1) != 1:
+            raise ValueError(f"DummyClassifier with n_outputs_="
+                             f"{attrs.get('n_outputs_')}: only single-output "
+                             f"models are supported")
+        if strategy == "constant":
+            return ConstantModel(attrs["constant"], attrs["classes_"], device)
+        if strategy in ("most_frequent", "prior"):
+            classes = np.asarray(attrs["classes_"])
+            return ConstantModel(
+                classes[int(np.argmax(attrs["class_prior_"]))], classes,
+                device)
+        raise ValueError(f"DummyClassifier(strategy={strategy!r}): its labels "
+                         f"are drawn from sklearn's random state, which the "
+                         f"port does not replay (constant, most_frequent "
+                         f"and prior are supported)")
     raise ValueError(f"unsupported model {kind!r}")
 
 

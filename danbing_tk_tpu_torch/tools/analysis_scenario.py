@@ -31,8 +31,13 @@ writes:
     bubble-path model an rbf SVC fitted on an array; each learns a
     one-feature threshold, so they have few support vectors (11 and 49
     at seed 14), far fewer than a model fitted on real snarls would.
-    And DIR/svm_labels.npy, sklearn's labels of both on
-    ``svm_batch(SVM_ROWS, SEED)``.
+    And DIR/mc.svm, a 3-class rbf SVC (0 rejects; 1 and 2 are two kinds
+    of accept) fitted on a DataFrame of MC_ROWS bubble-path rows whose
+    labels follow mcov and scov with MC_NOISE of them redrawn at random,
+    so it keeps 1,280 support vectors at seed 14: a kernel matrix of a
+    real model's size.  DIR/svm_labels.npy holds sklearn's labels of br
+    and bp on ``svm_batch(SVM_ROWS, SEED)``, DIR/mc_labels.npy mc's on
+    its path rows, as integers.
 
 The align run that ``call`` needs (``align -ka -bu -cth 20 -kf 4 1 -on
 OUT``) writes OUT.tr.kmers and OUT.bub.kmdb; ``bub_text`` turns the
@@ -204,6 +209,7 @@ PATH_RANGES = (("bbs", 1, 60), ("mcov", 0, 40), ("scov", 0, 10),
                ("fcmax", 0, 30), ("cdiff", -30, 40), ("n3gp", 0, 8),
                ("n4gp", 0, 8), ("bdir", 0, 1))
 BR_CUT, BP_CUT = 15.5, 16.0   # c_nv_e and mcov above which a row is true
+MC_ROWS, MC_NOISE, MC_SCOV = 1800, 0.3, 5.0   # mc.svm's training rows
 
 
 def _feature_rows(ranges, n, rng):
@@ -217,8 +223,9 @@ def _feature_rows(ranges, n, rng):
 
 
 def fit_svms(out: str) -> None:
-    """br.svm (linear, fitted on a DataFrame) and bp.svm (rbf, fitted on
-    an array); needs pandas and sklearn."""
+    """br.svm (linear, fitted on a DataFrame), bp.svm (rbf, fitted on an
+    array) and mc.svm (3-class rbf, fitted on a DataFrame); needs pandas
+    and sklearn."""
     import pandas as pd
 
     from ..models.svm import save_model, train_svm
@@ -231,6 +238,14 @@ def fit_svms(out: str) -> None:
     bp = train_svm(Xp, Xp[:, 1] > BP_CUT, kernel="rbf", C=10.0)
     save_model(br, os.path.join(out, "br.svm"))
     save_model(bp, os.path.join(out, "bp.svm"))
+    rng = np.random.default_rng([SEED, 6])
+    Xm = _feature_rows(PATH_RANGES, MC_ROWS, rng)
+    y = np.where(Xm[:, 1] > BP_CUT, np.where(Xm[:, 2] < MC_SCOV, 1, 2), 0)
+    redraw = rng.random(MC_ROWS) < MC_NOISE
+    y[redraw] = rng.integers(0, 3, int(redraw.sum()))
+    mc = train_svm(pd.DataFrame(Xm, columns=[r[0] for r in PATH_RANGES]),
+                   y, kernel="rbf")
+    save_model(mc, os.path.join(out, "mc.svm"))
 
 
 SVM_ROWS = 100_000       # rows of the card's production-batch check
@@ -245,21 +260,27 @@ def svm_batch(n: int, seed: int):
 
 
 def sklearn_labels(models: str, out: str) -> None:
-    """sklearn's ``predict`` of models/br.svm and models/bp.svm on
-    ``svm_batch(SVM_ROWS, SEED)`` -> out/svm_labels.npy, one np.packbits
-    row a model (br, bp); a model fitted on a DataFrame gets one with
+    """sklearn's ``predict`` on ``svm_batch(SVM_ROWS, SEED)`` of
+    models/br.svm and models/bp.svm -> out/svm_labels.npy, one np.packbits
+    row a model (br, bp), and of models/mc.svm (on the path rows) ->
+    out/mc_labels.npy as int8; a model fitted on a DataFrame gets one with
     its columns.  Needs pandas and sklearn."""
     import pandas as pd
 
-    rows = []
-    for name, X, ranges in zip(("br", "bp"), svm_batch(SVM_ROWS, SEED),
-                               (ROOT_RANGES, PATH_RANGES)):
+    def predict(name, X, ranges):
         with open(os.path.join(models, f"{name}.svm"), "rb") as f:
             clf = pickle.load(f)
         if getattr(clf, "feature_names_in_", None) is not None:
             X = pd.DataFrame(X, columns=[r[0] for r in ranges])
-        rows.append(np.packbits(clf.predict(X).astype(bool)))
+        return clf.predict(X)
+
+    Xr, Xp = svm_batch(SVM_ROWS, SEED)
+    rows = [np.packbits(predict(name, X, ranges).astype(bool))
+            for name, X, ranges in (("br", Xr, ROOT_RANGES),
+                                    ("bp", Xp, PATH_RANGES))]
     np.save(os.path.join(out, "svm_labels.npy"), np.stack(rows))
+    np.save(os.path.join(out, "mc_labels.npy"),
+            predict("mc", Xp, PATH_RANGES).astype(np.int8))
 
 
 def read_labels(path: str) -> dict:

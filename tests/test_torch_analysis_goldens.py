@@ -5,13 +5,15 @@ JAX package's outputs on inputs that the port's seeded generator writes.
 
 Inputs (danbing_tk_tpu_torch/tools/analysis_scenario.py, seed 14): the
 planted-variant reads over the golden panel, plants.tsv, the ``length``
-and ``eqtl`` inputs, and the two SVM pickles (``--svms``: fitted once with
-sklearn; they are the models ``call`` reads, and no test refits them)
-with svm_labels.npy, sklearn's labels of both on the card's 100,000-row
-batch.  Outputs, each from the JAX package: ``align -ka -bu -cth 20 -kf 4 1 -on out`` on the host
-engine (out.tr.kmers, out.bub.kmdb), ``call`` over them (callset.txt, the
-callset as sorted text), ``length`` (length/estimated_TR_len.tsv) and
-``eqtl`` with eqtl/rawGenotype.pickle in its --outDir (eqtl/*.egenes.txt).
+and ``eqtl`` inputs, and the three SVM pickles (``--svms``: fitted once
+with sklearn; they are the models ``call`` reads, and no test refits
+them) with svm_labels.npy and mc_labels.npy, sklearn's labels of them on
+the card's 100,000-row batch.  Outputs, each from the JAX package:
+``align -ka -bu -cth 20 -kf 4 1 -on out`` on the host engine
+(out.tr.kmers, out.bub.kmdb), ``call`` over them (callset.txt, the
+callset as sorted text; callset.mc.txt with the 3-class mc.svm as the
+bubble-path model), ``length`` (length/estimated_TR_len.tsv) and ``eqtl``
+with eqtl/rawGenotype.pickle in its --outDir (eqtl/*.egenes.txt).
 """
 
 import contextlib
@@ -27,7 +29,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(ROOT, "tests", "golden")
 GA = os.path.join(ROOT, "tests", "golden_analysis")
-OUTPUTS = ("out.tr.kmers", "out.bub.kmdb", "callset.txt",
+OUTPUTS = ("out.tr.kmers", "out.bub.kmdb", "callset.txt", "callset.mc.txt",
            "length/estimated_TR_len.tsv",
            "eqtl/Adipose_Test.v8.egenes.txt",
            "eqtl/Brain_Test.v8.egenes.txt")
@@ -51,16 +53,18 @@ def jax_outputs(inputs: str, out: str) -> None:
                     os.path.join(out, "gt.bub"))
         sc.counts_text(os.path.join(out, "out.tr.kmers"),
                        os.path.join(out, "gt.counts"))
-        jcli.main(["call", pan, os.path.join(out, "gt.counts"),
-                   os.path.join(out, "out.tr.kmers"),
-                   os.path.join(out, "gt.bub"),
-                   os.path.join(inputs, "br.svm"),
-                   os.path.join(inputs, "bp.svm"),
-                   os.path.join(out, "callset.pickle")])
-        with open(os.path.join(out, "callset.pickle"), "rb") as f:
-            calls = pickle.load(f)
-        with open(os.path.join(out, "callset.txt"), "w") as f:
-            f.write(sc.callset_text(calls))
+        for bp, name in (("bp.svm", "callset.txt"),
+                         ("mc.svm", "callset.mc.txt")):
+            jcli.main(["call", pan, os.path.join(out, "gt.counts"),
+                       os.path.join(out, "out.tr.kmers"),
+                       os.path.join(out, "gt.bub"),
+                       os.path.join(inputs, "br.svm"),
+                       os.path.join(inputs, bp),
+                       os.path.join(out, "callset.pickle")])
+            with open(os.path.join(out, "callset.pickle"), "rb") as f:
+                calls = pickle.load(f)
+            with open(os.path.join(out, name), "w") as f:
+                f.write(sc.callset_text(calls))
         jcli.main(["length"] + sc.length_argv(
             os.path.join(inputs, "length"), os.path.join(out, "length")))
         eq = os.path.join(out, "eqtl")
@@ -93,24 +97,34 @@ def test_generator_writes_the_committed_inputs(tmp_path):
 
 
 def test_sklearn_labels_the_committed_svm_batch(tmp_path):
-    """svm_labels.npy is sklearn's ``predict`` of the committed SVMs on
-    ``svm_batch(SVM_ROWS, SEED)`` (the card holds its labels to it), and
-    the port's ``load_model`` on the CPU gives the same labels."""
+    """svm_labels.npy and mc_labels.npy are sklearn's ``predict`` of the
+    committed SVMs on ``svm_batch(SVM_ROWS, SEED)`` (the card holds its
+    labels to them), and the port's ``load_model`` on the CPU gives the
+    same labels; mc.svm is a 3-class model of over 1,000 support vectors
+    that predicts each class."""
     import torch
 
     from danbing_tk_tpu_torch.models.svm import load_model
     from danbing_tk_tpu_torch.tools import analysis_scenario as sc
 
     sc.sklearn_labels(GA, str(tmp_path))
-    assert filecmp.cmp(str(tmp_path / "svm_labels.npy"),
-                       os.path.join(GA, "svm_labels.npy"), shallow=False)
+    for name in ("svm_labels.npy", "mc_labels.npy"):
+        assert filecmp.cmp(str(tmp_path / name), os.path.join(GA, name),
+                           shallow=False), name
     want = sc.read_labels(os.path.join(GA, "svm_labels.npy"))
-    for (name, labels), X in zip(want.items(),
-                                 sc.svm_batch(sc.SVM_ROWS, sc.SEED)):
+    batch = sc.svm_batch(sc.SVM_ROWS, sc.SEED)
+    for (name, labels), X in zip(want.items(), batch):
         got = load_model(os.path.join(GA, f"{name}.svm"), "cpu").predict(
             torch.from_numpy(X))
         assert np.array_equal(got.numpy(), labels), name
         assert 0 < labels.sum() < len(labels), name
+    mc = load_model(os.path.join(GA, "mc.svm"), "cpu")
+    labels = np.load(os.path.join(GA, "mc_labels.npy"))
+    assert mc.support_vectors_.shape[0] >= 1000
+    assert mc.classes_.tolist() == [0, 1, 2]
+    assert np.array_equal(mc.predict(torch.from_numpy(batch[1])).numpy(),
+                          labels)
+    assert (np.bincount(labels, minlength=3) > 0.2 * len(labels)).all()
 
 
 def test_jax_package_writes_the_committed_outputs(tmp_path):

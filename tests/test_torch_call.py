@@ -83,6 +83,10 @@ def _five_loci():
 
 
 def _fit(kind, nfeat, col, cut, seed, names=None):
+    """A constant model, or an SVC of kernel ``kind`` whose label is
+    column ``col`` above ``cut``; "mc-<kernel>" fits three classes (0
+    below ``cut``, 1 up to ``cut`` + 8, 2 above), which ``call`` reads as
+    reject, accept, accept."""
     from danbing_tk_tpu.models.svm import constant_model, train_svm
 
     if kind == "constant":
@@ -93,7 +97,11 @@ def _fit(kind, nfeat, col, cut, seed, names=None):
         import pandas as pd
 
         X = pd.DataFrame(X, columns=list(names))
-    y = np.asarray(X)[:, col] > cut
+    if kind.startswith("mc-"):
+        kind = kind[3:]
+        y = np.digitize(np.asarray(X)[:, col], [cut, cut + 8])
+    else:
+        y = np.asarray(X)[:, col] > cut
     return train_svm(X, y, kernel=kind, degree=2, coef0=1.0)
 
 
@@ -134,7 +142,8 @@ def test_call_single_locus_vs_jax(tmp_path):
 # (bubble-root kernel, bubble-path kernel); "named" fits the root model on
 # a DataFrame, so it carries feature_names_in_
 CASES = [("constant", "constant"), ("linear", "rbf"), ("rbf", "poly"),
-         ("sigmoid", "linear"), ("named-linear", "poly")]
+         ("sigmoid", "linear"), ("named-linear", "poly"),
+         ("named-mc-linear", "mc-rbf"), ("mc-rbf", "mc-poly")]
 
 
 @pytest.mark.parametrize("br_kind,bp_kind", CASES)
@@ -150,7 +159,7 @@ def test_call_five_loci_vs_jax(tmp_path, br_kind, bp_kind):
     want, got = _both_calls(tmp_path, _five_loci(), br, bp, th=10, th1=5,
                             th2=2, th3=8)
     assert got == want
-    if br_kind in ("constant", "linear", "named-linear"):
+    if br_kind in ("constant", "linear", "named-linear", "named-mc-linear"):
         assert want, "an empty callset tests nothing"
 
 
@@ -197,9 +206,88 @@ def test_load_model_matches_sklearn(tmp_path, kernel):
     assert torch.equal(dec2, torch.from_numpy(dec))
 
 
+@pytest.mark.parametrize("nclass", [3, 4])
+@pytest.mark.parametrize("kernel", ["rbf", "linear", "poly", "sigmoid"])
+def test_load_model_multiclass_matches_sklearn(tmp_path, kernel, nclass):
+    """A 3- or 4-class SVC (odd labels, so classes_ maps the vote; centred
+    rows, so every kernel predicts each class) with
+    decision_function_shape ovo, ovr, and ovr with break_ties, each saved
+    and loaded: on 10,000 seeded rows the labels equal clf.predict; the
+    ovo planes are within the binary test's bounds of
+    clf.decision_function, each pair's bound from its own terms, and the
+    ovr values within the sum of the bounds of the pairs of their class
+    (sklearn's transform is 1/3-Lipschitz, its votes equal)."""
+    from danbing_tk_tpu.models.svm import save_model
+    from danbing_tk_tpu_torch.models.svm import SVCModel, load_model
+
+    r = np.random.default_rng(nclass)
+    X = r.uniform(-1, 1, (300, 12))
+    y = 2 * np.digitize(X[:, 1] + 0.3 * X[:, 4],
+                        np.linspace(-1.3, 1.3, nclass + 1)[1:-1]) + 1
+    clf = _train(X, y, kernel)
+    Q = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1,
+                                                          (10_000, 12)))
+    npair = nclass * (nclass - 1) // 2
+    for shape, ties in (("ovo", False), ("ovr", False), ("ovr", True)):
+        clf.decision_function_shape, clf.break_ties = shape, ties
+        save_model(clf, tmp_path / "m.svm")
+        m = load_model(str(tmp_path / "m.svm"), "cpu")
+        assert isinstance(m, SVCModel) and len(m.pairs) == npair
+        labels, want = m.predict(Q).numpy(), clf.predict(Q.numpy())
+        assert labels.dtype == want.dtype and (labels == want).all(), shape
+        assert len(np.unique(want)) == nclass
+        dec = m.decision_function(Q).numpy()
+        ref = clf.decision_function(Q.numpy())
+        assert dec.shape == ref.shape == (
+            10_000, npair if shape == "ovo" else nclass)
+        ovo = m.ovo_decision(Q).numpy()
+        terms = (m._kernel(Q).abs() @ m.dual_coef_.abs().T).numpy()
+        bound = 1e-9 * np.abs(ovo) + 1e-13 * (terms
+                                              + m.intercept_.abs().numpy())
+        if shape == "ovo":
+            assert (np.abs(dec - ref) <= bound).all()
+            assert (np.abs(dec - ref) <= 1e-9 * np.abs(ref)).mean() > 0.999
+        else:
+            cls = np.zeros((npair, nclass))
+            for p, (i, j) in enumerate(m.pairs):
+                cls[p, [i, j]] = 1
+            assert (np.abs(dec - ref) <= bound @ cls).all()
+
+
+def _train(X, y, kernel):
+    from danbing_tk_tpu.models.svm import train_svm
+
+    return train_svm(X, y, kernel=kernel,
+                     degree=3 if kernel == "poly" else 2, coef0=0.5)
+
+
+@pytest.mark.parametrize("strategy", ["most_frequent", "prior"])
+def test_load_model_dummy_strategies(tmp_path, strategy):
+    """most_frequent and prior dummies give classes_[argmax(class_prior_)]
+    as sklearn does, the first of tied priors included, for integer,
+    float and boolean labels; call's accept flag is their truth value."""
+    from sklearn.dummy import DummyClassifier
+
+    from danbing_tk_tpu.models.svm import save_model
+    from danbing_tk_tpu_torch.models.svm import ConstantModel, load_model
+
+    Z = np.zeros((5, 8))
+    for y in ([4, 7, 7], [7, 4, 4, 7], [0.5, 2.5, 2.5], [False, True, True],
+              [3, 0, 0, 1]):
+        dummy = DummyClassifier(strategy=strategy).fit([[0]] * len(y), y)
+        save_model(dummy, tmp_path / "d.svm")
+        d = load_model(str(tmp_path / "d.svm"), "cpu")
+        assert isinstance(d, ConstantModel)
+        got, want = d.predict(torch.from_numpy(Z)).numpy(), dummy.predict(Z)
+        assert got.dtype == want.dtype and (got == want).all(), y
+        assert (d.predict(torch.from_numpy(Z)).bool().numpy()
+                == want.astype(bool)).all()
+
+
 def test_load_model_ties_dummies_and_checks(tmp_path):
     """An exact 0 decision takes classes_[1] as libsvm votes; constant
-    models give their constant (other dummy strategies raise); 0 rows, a
+    models give their constant, most_frequent the commonest label, and
+    the random strategies raise; 0 rows, a
     wrong width and NaN raise as sklearn does; a model fitted on other
     feature names, or on the same in another order, raises as
     ``clf.predict`` on the reference's DataFrame does."""
@@ -229,8 +317,14 @@ def test_load_model_ties_dummies_and_checks(tmp_path):
     save_model(DummyClassifier(strategy="most_frequent").fit([[0]] * 3,
                                                              [4, 7, 7]),
                tmp_path / "d.svm")
-    with pytest.raises(ValueError, match="most_frequent"):
-        load_model(str(tmp_path / "d.svm"), "cpu")
+    assert load_model(str(tmp_path / "d.svm"), "cpu").predict(
+        torch.zeros(2, 1)).tolist() == [7, 7]
+    for strategy in ("stratified", "uniform"):
+        save_model(DummyClassifier(strategy=strategy).fit([[0]] * 3,
+                                                          [4, 7, 7]),
+                   tmp_path / "d.svm")
+        with pytest.raises(ValueError, match="random state"):
+            load_model(str(tmp_path / "d.svm"), "cpu")
     for bad, msg in ((np.zeros((0, 1)), "0 sample"),
                      (np.zeros((2, 3)), "features"),
                      (np.array([[np.nan]]), "NaN")):
@@ -257,8 +351,9 @@ def test_load_model_ties_dummies_and_checks(tmp_path):
 
 def test_load_model_refuses_other_classes(tmp_path):
     """Any class but SVC and DummyClassifier (and numpy's arrays) raises
-    naming it, before it is built; a multiclass SVC and the kernels libsvm
-    evaluates elsewhere raise with the reason."""
+    naming it, before it is built; the kernels libsvm evaluates elsewhere
+    raise with the reason; a multiclass SVC loads and predicts as sklearn
+    does."""
     from sklearn import svm
     from sklearn.linear_model import LogisticRegression
 
@@ -277,8 +372,9 @@ def test_load_model_refuses_other_classes(tmp_path):
     multi = svm.SVC().fit(X, (X[:, 0] * 3).astype(int))
     with open(tmp_path / "m.svm", "wb") as f:
         pickle.dump(multi, f)
-    with pytest.raises(NotImplementedError, match="3 classes"):
-        load_model(str(tmp_path / "m.svm"), "cpu")
+    m = load_model(str(tmp_path / "m.svm"), "cpu")
+    assert m.predict(torch.from_numpy(X)).tolist() == \
+        multi.predict(X).tolist()
     pre = svm.SVC(kernel="precomputed").fit(X @ X.T, y)
     with open(tmp_path / "p.svm", "wb") as f:
         pickle.dump(pre, f)
@@ -342,3 +438,36 @@ def test_call_cli_without_sklearn_or_pandas(tmp_path):
                        cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=60)
     assert r.returncode != 0 and "refused" in r.stderr
+
+
+def test_call_cli_multiclass_vs_jax(tmp_path):
+    """Both CLIs' ``call`` on the golden scenario with the 3-class mc.svm
+    (1,280 support vectors) as the bubble-path model: the port's callset
+    (``--torch-device cpu``) equals the JAX CLI's and the golden
+    callset.mc.txt, which calls a locus the binary bp.svm rejects."""
+    import contextlib
+    import io
+
+    from danbing_tk_tpu.apps import cli as jcli
+    from danbing_tk_tpu_torch.apps import cli as pcli
+    from danbing_tk_tpu_torch.tools.analysis_scenario import (bub_text,
+                                                               callset_text,
+                                                               counts_text)
+
+    bub_text(os.path.join(GA, "out.bub.kmdb"), str(tmp_path / "gt.bub"))
+    counts_text(os.path.join(GA, "out.tr.kmers"), str(tmp_path / "gt.counts"))
+    args = ["call", os.path.join(GOLD, "pan"), str(tmp_path / "gt.counts"),
+            os.path.join(GA, "out.tr.kmers"), str(tmp_path / "gt.bub"),
+            os.path.join(GA, "br.svm"), os.path.join(GA, "mc.svm")]
+    with contextlib.redirect_stderr(io.StringIO()):
+        jcli.main(args + [str(tmp_path / "jax.pickle")])
+        pcli.main(args + [str(tmp_path / "port.pickle"), "--torch-device",
+                          "cpu"])
+    with open(tmp_path / "port.pickle", "rb") as f, \
+            open(tmp_path / "jax.pickle", "rb") as g:
+        got, want = pickle.load(f), pickle.load(g)
+    assert got == want
+    with open(os.path.join(GA, "callset.mc.txt")) as f:
+        assert callset_text(got) == f.read()
+    with open(os.path.join(GA, "callset.txt")) as f:
+        assert callset_text(got) != f.read()

@@ -30,8 +30,18 @@ for m in ("engine.threading", "engine.native_thread", "tools.scale_index",
           "analysis.kmc2length", "analysis.length_pipeline", "analysis.eqtl",
           "analysis.eqtl_pipeline", "analysis.dotplot",
           "pipeline.leave_one_out", "utils.config", "utils.observability",
-          "tools.analysis_scenario"):
+          "tools.analysis_scenario", "utils.compile_cache"):
     assert pkg.__name__ + "." + m in sys.modules, m
+# every command of the JAX CLI but bench, warmup among them
+import contextlib, io
+from danbing_tk_tpu_torch.apps import cli
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        cli.main(["warmup", "-h"])
+    except SystemExit:
+        pass
+assert "--retry-expand" in out.getvalue() and "-qs" in out.getvalue()
 # the card's machine has neither sklearn nor pandas
 bad = sorted(n for n in sys.modules if n.split(".")[0] in (
     "jax", "danbing_tk_tpu", "sklearn", "pandas"))
@@ -121,6 +131,10 @@ def test_cli_raises_without_card(monkeypatch, tmp_path):
     assert not os.path.exists(tmp_path / "calls.pickle")
     cli.main(call + ["--torch-device", "cpu"])
     assert os.path.getsize(tmp_path / "calls.pickle")
+    # warmup asks for the card before it builds anything
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["warmup", "-qs", os.path.join(GOLDEN, "pan"), "-P", "64",
+                  "-ka"])
     # pred, with or without the JAX CLI's --jax, needs the card too
     from danbing_tk_tpu_torch.tools.scale_pred import write_golden_cohort
 

@@ -6,7 +6,7 @@
 Phases; any failure exits non-zero (nothing is caught and continued):
   1. environment: torch / CUDA / nvcc versions, the card and its power limit
   2. build through the code ``warmup`` runs (utils/compile_cache.py's
-     enable_compile_cache, kernels/build.py's build_all): the ten CUDA
+     enable_compile_cache, kernels/build.py's build_all): the eleven CUDA
      kernels (nvcc, -Xptxas -v) and the host runtime, threading and
      referee engines (g++), all compilers at once, each library's seconds;
      then the synthetic production-size index
@@ -22,8 +22,11 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      the same inputs at the main path's shapes (P = 4096 pairs, L = 160,
      k = 21, E = 512, prefilter dispatch 4P), on the production-size
      index: KA (the counting instance the step launches, and the
-     all-planes instance), KB (dbi, member, trfl), KC and KD; exact equality
-     required; CUDA-event times of kernel and plain version (median of
+     all-planes instance), KB (dbi, member, trfl), KC and KD, and KK on
+     the prefilter dispatch's reads (its queries also equal to the host
+     sampler's, and the device-sampled dispatch's survivors to the
+     host-sampled one's); exact equality required; CUDA-event times of
+     kernel and plain version (median of
      10 windows of 10 back-to-back calls); KC's live entries and live
      events per pair (mean, p99, max)
   4. golden end to end on cuda through the CLI: ``align --device
@@ -59,8 +62,10 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      danbing_tk_tpu_torch/tools/analysis_scenario.py), .tr.kmers and
      .bub.kmdb byte-equal to the JAX package's, KA-KD and KG launched;
      the .bub text and count-only file; ``ktools raava`` byte-equal; and
-     ``call --torch-device cuda`` with the golden sklearn SVM pickles, and
-     again with the 3-class mc.svm as the bubble-path model, each callset
+     ``call --torch-device cuda`` with the golden sklearn SVM pickles,
+     again with the 3-class mc.svm as the bubble-path model, and with the
+     stratified and the uniform DummyClassifier pickles as both models
+     (labels drawn on the host from their random states), each callset
      equal to the JAX package's; (b) ``length`` byte-equal and
      ``eqtl`` (over the committed raw genotype cache) with its non-float
      fields equal and its %.4e fields within one unit of the last digit,
@@ -83,7 +88,13 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      resolved pairs are printed, resolved = flagged); then the first 256
      flagged pairs through the native referee and the Python HostAligner
      on two fresh copies of the view (okam): counts, stats and .kam rows
-     equal
+     equal; then the same batches again with DTK_PREFILTER_HOSTQ=0 (the
+     prefilter uploads the code rows and KK samples the queries) over a
+     fresh copy of the view: every dispatch's survivor mask, the count
+     state and the referee's pairs and host counts equal to the first
+     pass's, reads/s of both, and the first 8 dispatches' prefilter split
+     (host-sampled: native sampler + query upload + KB; device-sampled:
+     code upload + KK + KB)
  5b. the Python ingest at full width: phase 5's first 65,536 pairs as a
      FASTA file through run_file (-ka) and run_file_native (prefilter),
      each over a fresh copy of phase 5's flat view: equal counts, resolved
@@ -104,8 +115,9 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      pool; 512 threads a pair, the tables in shared memory) against
      pair_vote_plain, with what sets its work (live entries and events
      per pair); (d) phase 5's batches through ShardedAlignRunner
-     (shard_index, E = 512 -> [4096]) over a fresh copy of phase 5's flat
-     view: reads/s, retried pairs, the referee share beside phase 5's and
+     (shard_index, E = 512 -> [4096]; its prefilter samples on the card,
+     KK) over a fresh copy of phase 5's flat view: reads/s, retried
+     pairs, the referee share beside phase 5's and
      its resolved pairs, the collectives' ms per step, peak memory; KI and
      KC[large-E] launched, KI's launches by table
   6. the production-size threading funnel (-gc 85 3): the index's graph
@@ -158,10 +170,11 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      (failing when the temp disk cannot hold 8 samples' inputs and
      outputs), byte-equal to the host oracle, with each span's seconds and
      the device's share of the wall
-  9. the kernels line (JSON): KA-KJ and KC's large-E instance; each
+  9. the kernels line (JSON): KA-KK and KC's large-E instance; each
      kernel's ``launches`` is the sum over its paths' runs (per path in
      ``launches_by_path``: phase 3's warmup pass (``warmup``), the
-     counting, sharded, threading and okam
+     counting funnel's two passes (``counting``, host-sampled prefilter,
+     and ``counting_device_sampled``), the sharded, threading and okam
      funnel runs, the site scorer's run, phase 5b's run_file and phase
      4c's device build (``build_prune``) and qc (``qc``), phase 4d's align
      -bu run (``analysis``), and for KH the
@@ -187,7 +200,8 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM HBM3, published peak
 COUNTING = ("KA", "KB", "KC", "KD")     # the counting path's kernels
 THREADING = COUNTING + ("KE",)
 OKAM = COUNTING + ("KF", "KG")          # -b -qc -bu adds KF and KG
-SHARDED = ("KA", "KC", "KD", "KI")      # shard_index: KI in place of KB
+SHARDED = ("KA", "KC", "KD", "KI", "KK")  # shard_index: KI in place of KB,
+                                          # queries sampled by KK
 BUILD_PRUNE = THREADING                 # build's align -g (run_file)
 QC = COUNTING + ("KF",)                 # qc's -e 1, -s 2 and -b maps
 BQ_NLOCI, BQ_COV, BQ_PROCS = 256, 2, 2  # phase 4c (b)'s scenario and run
@@ -562,14 +576,42 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
         "KD": dict(kd, source="danbing_tk_tpu_torch/csrc/assign_count.cu",
                    replaces="danbing_tk_tpu/engine/device_align.py:1063"),
     }
+    # KK on the prefilter dispatch's reads: its queries are the host
+    # sampler's (q_mem), and it equals its plain version
+    pb_d = torch.from_numpy(pbatch).to(dev)
+    pr_d = torch.from_numpy(prlen).to(dev)
+    Bp = 2 * Pp
+    kq, kv, knk = km.prefilter_sample(pb_d, pr_d, k, 4)
+    if not (torch.equal(kq, q_mem)
+            and torch.equal(kv.cpu(), torch.from_numpy(qvalid))
+            and torch.equal((knk > 0).cpu(), torch.from_numpy(qnon))):
+        fail("KK's queries differ from the host sampler's on the "
+             "prefilter dispatch")
+    kk = compare("KK prefilter_sample",
+                 lambda: km.prefilter_sample(pb_d, pr_d, k, 4),
+                 lambda: km.prefilter_sample_plain(pb_d, pr_d, k, 4),
+                 Bp * L + 4 * Bp + Bp * 4 * 9 + 4 * Bp,
+                 f"shape=({Bp},{L}) nf=4 threads={Bp * 4} queries = the "
+                 f"host sampler's; launches/dispatch=1 (DTK_PREFILTER_"
+                 f"HOSTQ=0 and the sharded prefilter)")
+    results["KK"] = dict(
+        kk, source="danbing_tk_tpu_torch/csrc/prefilter_sample.cu",
+        replaces="danbing_tk_tpu/engine/device_align.py:343")
     pre_q = da.make_prefilter_step_q(drp, cfg, Pp, dev)
+    pre_d = da.make_prefilter_step(drp, cfg, Pp, L, dev)
     qv = torch.from_numpy(qvalid).to(dev)
     qn = torch.from_numpy(qnon).to(dev)
     pl = torch.ones(Pp, dtype=torch.bool, device=dev)
+    if not torch.equal(pre_d(pb_d, pr_d, pl), pre_q(q_mem, qv, qn, pl)):
+        fail("the device-sampled prefilter's survivors differ from the "
+             "host-sampled one's")
     pre_ms = cuda_ms(lambda: pre_q(q_mem, qv, qn, pl))
+    pre_dev_ms = cuda_ms(lambda: pre_d(pb_d, pr_d, pl))
     step_ms = cuda_ms(lambda: step(scratch, codes_d, rlen_d, live_d))
     log(f"[3] prefilter dispatch (Pp={Pp}, device tensors) "
-        f"ms={pre_ms:.4f}; full step (P={P}) ms={step_ms:.4f}")
+        f"ms={pre_ms:.4f} (host-sampled queries: KB + decision), "
+        f"{pre_dev_ms:.4f} (code rows: KK + KB + decision); full step "
+        f"(P={P}) ms={step_ms:.4f}")
 
     # ---- 4. golden end to end through the CLI ----
     from danbing_tk_tpu_torch.apps import cli
@@ -649,6 +691,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
                                  read_len=RL) + (Pd,) for _ in range(nbat)]
     t_data = time.time() - t0
     npairs = nbat * Pd
+    host_surv = record_survivors(runner, Pd)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
@@ -676,6 +719,8 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
         f"{runner.referee_s:.3f} (host wall in the calls and flushes), "
         f"host counts {int(flat.flat_counts().sum())}")
     referee_gate(flat, cfg, flagged)
+    dlaunches = device_sampled_pass(drp, flat, batches, cfg, P, L, E, dev,
+                                    runner, host_surv, wall, smi)
     log(f"[5] funnel: pairs={npairs} (data made in {t_data:.1f}s) "
         f"wall={wall:.3f}s reads/s={2 * npairs / wall:.0f} "
         f"prefilter_dispatches={nbat} ms/dispatch={pre_ms:.4f} "
@@ -1045,7 +1090,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
         sharded["KCL"], source="danbing_tk_tpu_torch/csrc/pair_vote.cu",
         replaces="danbing_tk_tpu/engine/device_align.py:618")
     return dict(results=results, launches=launches, wlaunches=wlaunches,
-                tlaunches=tlaunches,
+                dlaunches=dlaunches, tlaunches=tlaunches,
                 olaunches=olaunches, slaunches=sharded["launches"],
                 jlaunches=jlaunches, plaunches=plaunches,
                 alaunches=alaunches, bq_launches=bq_launches,
@@ -1088,6 +1133,131 @@ def warmup_pass(drp, flat, cfg, P, L, E, dev, smi: str) -> dict:
         f"{1e3 * statistics.median(w[name] for w in warm):.3f}"
         for name, s in first.items())
         + f"; state zero after it; launches {launches}; card {smi}")
+    return launches
+
+
+def record_survivors(runner, Pp: int) -> list:
+    """Builds ``runner``'s prefilter dispatch of Pp pairs and keeps each
+    dispatch's survivor mask (the device tensor the runner reads) in the
+    list returned."""
+    runner._prefilter(Pp)
+    step, kept = runner.prefilter_step, []
+
+    def recorded(codes, rlen, live):
+        surv = step(codes, rlen, live)
+        kept.append(surv)
+        return surv
+
+    runner.prefilter_step = recorded
+    return kept
+
+
+def device_sampled_pass(drp, flat, batches, cfg, P, L, E, dev, host,
+                        host_surv, host_wall, smi: str) -> dict:
+    """Phase 5's second pass: its batches through a runner built with
+    DTK_PREFILTER_HOSTQ=0, whose prefilter uploads the code rows and
+    samples the queries on the card (KK), over a fresh copy of the flat
+    view: every dispatch's survivor mask, the device count state, the
+    referee's pairs and its host counts equal the host-sampled pass's
+    (``host``); the reads/s of both.  Then the first 8 dispatches through
+    each prefilter's parts, synchronized apart (host clock): host-sampled
+    = native sampler + query upload + KB and decision, device-sampled =
+    code upload + KK + KB and decision.  Returns the pass's launches."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from danbing_tk_tpu_torch.engine import device_align as da
+    from danbing_tk_tpu_torch.engine.align_runner import DeviceAlignRunner
+    from danbing_tk_tpu_torch.io.native_reader import sample_queries
+    from danbing_tk_tpu_torch.kernels import build
+    from danbing_tk_tpu_torch.ops import kmers as km
+
+    t_phase = time.time()
+    view = flat.renew()
+    old = os.environ.get("DTK_PREFILTER_HOSTQ")
+    os.environ["DTK_PREFILTER_HOSTQ"] = "0"
+    try:
+        r = DeviceAlignRunner(view, cfg, batch_pairs=P, max_read_len=L,
+                              expand_cap=E, drp=drp, device=dev)
+        Pd = r.dispatch_pairs(True)
+        surv = record_survivors(r, Pd)
+    finally:
+        if old is None:
+            del os.environ["DTK_PREFILTER_HOSTQ"]
+        else:
+            os.environ["DTK_PREFILTER_HOSTQ"] = old
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.time()
+    r.run_batches(batches, prefilter=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = build.launch_counts()
+    if min(launches[t] for t in COUNTING + ("KK",)) <= 0:
+        fail(f"the device-sampled funnel skipped a kernel: {launches}")
+    if len(surv) != len(host_surv) or not all(
+            torch.equal(a, b) for a, b in zip(surv, host_surv)):
+        fail("a dispatch's survivors differ between the device-sampled "
+             "and the host-sampled prefilter")
+    for key, t in host.state.items():
+        if not torch.equal(t, r.state[key]):
+            fail(f"the device-sampled funnel's state {key} differs")
+    if (r.n_referee, r.n_resolved, r.n_step_pairs) != (
+            host.n_referee, host.n_resolved, host.n_step_pairs) or \
+            not np.array_equal(view.flat_counts(), flat.flat_counts()):
+        fail("the device-sampled funnel's referee pairs or host counts "
+             "differ")
+    npairs = sum(b[2] for b in batches)
+    pre_q = da.make_prefilter_step_q(drp, cfg, Pd, dev)
+    k, nf = cfg.ksize, cfg.n_filter
+    parts = {"host": [], "device": []}
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for codes, rlen, n in batches[:8]:
+        live = np.arange(Pd) < n
+        t0 = clock()
+        qlo, qhi, valid, nonshort = sample_queries(codes, rlen, k, nf)
+        t1 = clock()
+        up = [torch.from_numpy(x).to(dev) for x in (
+            da.query_int64(qlo, qhi), valid, nonshort, live)]
+        t2 = clock()
+        a = pre_q(*up)
+        t3 = clock()
+        parts["host"].append((t1 - t0, t2 - t1, t3 - t2))
+        t0 = clock()
+        c, rl, lv = (torch.from_numpy(x).to(dev) for x in (codes, rlen,
+                                                           live))
+        t1 = clock()
+        q, v, nk = km.prefilter_sample(c, rl, k, nf)
+        t2 = clock()
+        b = pre_q(q, v, nk > 0, lv)
+        t3 = clock()
+        parts["device"].append((t1 - t0, t2 - t1, t3 - t2))
+        if not torch.equal(a, b):
+            fail("the split's device-sampled survivors differ")
+    med = {p: [1e3 * statistics.median(x[i] for x in v) for i in range(3)]
+           for p, v in parts.items()}
+    B = 2 * Pd
+    log(f"[5] device-sampled pass (DTK_PREFILTER_HOSTQ=0, KK): pairs="
+        f"{npairs} wall={wall:.3f}s reads/s={2 * npairs / wall:.0f} "
+        f"(host-sampled: {2 * npairs / host_wall:.0f}); {len(surv)} "
+        f"dispatches' survivors, the count state, the referee's "
+        f"{r.n_referee} pairs and host counts = the host-sampled pass's; "
+        f"referee_s={r.referee_s:.3f} launches={launches}")
+    h, d = med["host"], med["device"]
+    log(f"[5] prefilter split, median of 8 dispatches of {Pd} pairs "
+        f"(host clock, synchronized apart): host-sampled "
+        f"sample_queries_ms={h[0]:.3f} query_upload_ms={h[1]:.3f} "
+        f"({B * nf * 9 + B + Pd} B) KB_decide_ms={h[2]:.3f} "
+        f"total={sum(h):.3f}; device-sampled code_upload_ms={d[0]:.3f} "
+        f"({B * (L + 4) + Pd} B) KK_ms={d[1]:.3f} KB_decide_ms={d[2]:.3f} "
+        f"total={sum(d):.3f}; phase_s={time.time() - t_phase:.1f}; "
+        f"card {smi}")
     return launches
 
 
@@ -1209,7 +1379,9 @@ def analysis_phase(gold: str, smi: str) -> dict:
     launched; the harness's .bub text and count-only file; ``ktools
     raava`` (.bi_tr/.bi_fl.kdb byte-equal to tests/golden/); ``call
     --torch-device cuda`` (both SVM stages on the card), the callset equal
-    to the JAX package's; (b) ``length`` byte-equal to the golden TSV, and
+    to the JAX package's, and again with mc.svm and with the stratified
+    and uniform DummyClassifier pickles as both models; (b) ``length``
+    byte-equal to the golden TSV, and
     ``eqtl`` over the committed raw genotype cache: every non-float field
     equal and every %.4e field within one unit of its last digit (scipy's
     t.sf may differ between versions), and the genotype files' columns in
@@ -1275,13 +1447,18 @@ def analysis_phase(gold: str, smi: str) -> dict:
             same(pan + x, os.path.join(gold, "pan" + x), "ktools raava")
         secs["bub+raava"] = time.time() - t0
         ncalled = {}
-        # the binary bubble-path model, then the 3-class one (mc.svm)
-        for bp, golden in (("bp", "callset.txt"), ("mc", "callset.mc.txt")):
+        # the binary bubble-path model, the 3-class one (mc.svm), and the
+        # sampled DummyClassifiers as both models (labels drawn on the
+        # host from the pickled random states, as sklearn draws them)
+        for br, bp, golden in (
+                ("br", "bp", "callset.txt"), ("br", "mc", "callset.mc.txt"),
+                ("br.stratified", "bp.stratified", "callset.stratified.txt"),
+                ("br.uniform", "bp.uniform", "callset.uniform.txt")):
             t0 = time.time()
             with contextlib.redirect_stderr(io.StringIO()):
                 cli.main(["call", pan, os.path.join(d, "gt.counts"),
                           out + ".tr.kmers", os.path.join(d, "gt.bub"),
-                          os.path.join(ga, "br.svm"),
+                          os.path.join(ga, f"{br}.svm"),
                           os.path.join(ga, f"{bp}.svm"),
                           os.path.join(d, "calls.pickle"),
                           "--torch-device", "cuda"])
@@ -1291,8 +1468,9 @@ def analysis_phase(gold: str, smi: str) -> dict:
                 calls = pickle.load(f)
             with open(os.path.join(ga, golden)) as f:
                 if sc.callset_text(calls) != f.read():
-                    fail(f"phase 4d: call's callset with {bp}.svm differs "
-                         f"from tests/golden_analysis/{golden}")
+                    fail(f"phase 4d: call's callset with {br}.svm and "
+                         f"{bp}.svm differs from "
+                         f"tests/golden_analysis/{golden}")
             ncalled[bp] = {li: len(v[0]) for li, v in sorted(calls.items())}
 
         # ---- (b) length and eqtl ----
@@ -1377,8 +1555,9 @@ def analysis_phase(gold: str, smi: str) -> dict:
     log(f"[4d] (a) align -bu of 4,442 planted-variant read pairs on cuda: "
         f".tr.kmers and .bub.kmdb "
         f"byte-equal, raava byte-equal, call --torch-device cuda callsets "
-        f"= the JAX package's with bp.svm and with the 3-class mc.svm "
-        f"(edges by locus {ncalled}); (b) length "
+        f"= the JAX package's with bp.svm, with the 3-class mc.svm and "
+        f"with the stratified and uniform DummyClassifiers (edges by "
+        f"locus {ncalled}); (b) length "
         f"byte-equal, eqtl within {worst:.3f} units of the last digit "
         f"(numpy {np.__version__} scipy {scipy.__version__}; goldens from "
         f"numpy 2.0.2 scipy 1.17.0); (c) {'; '.join(svm_line)}; seconds "
@@ -2383,9 +2562,12 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "KC": "KC pair_vote", "KC[large-E]": "KC pair_vote[large-E]",
              "KD": "KD assign_count", "KE": "KE thread_walk",
              "KF": "KF read_filter", "KG": "KG novel_edges",
-             "KI": "KI sharded_lookup", "KJ": "KJ site_scorer"}
+             "KI": "KI sharded_lookup", "KJ": "KJ site_scorer",
+             "KK": "KK prefilter_sample"}
     paths = {"warmup": res["wlaunches"],
-             "counting": res["launches"], "sharded": res["slaunches"],
+             "counting": res["launches"],
+             "counting_device_sampled": res["dlaunches"],
+             "sharded": res["slaunches"],
              "threading": res["tlaunches"], "okam": res["olaunches"],
              "site_scorer": res["jlaunches"],
              "python_ingest": res["plaunches"],

@@ -322,8 +322,13 @@ class DeviceAlignRunner:
 
     def _build_prefilter(self, Pp: int):
         """Returns step(codes, rlen, live) -> survive (Pp,) on the device:
-        host-sampled queries (native sampler), KB on the member table."""
+        host-sampled queries (native sampler), KB on the member table; with
+        DTK_PREFILTER_HOSTQ=0 (read here, once, as the JAX runner does)
+        the code rows go to the card and KK samples the queries there."""
         cfg = self.cfg
+        if os.environ.get("DTK_PREFILTER_HOSTQ", "1") == "0":
+            return da.make_prefilter_step(self.drp, cfg, Pp, self.L,
+                                          self.device)
         qstep = da.make_prefilter_step_q(self.drp, cfg, Pp, self.device)
         from ..io.native_reader import sample_queries
 

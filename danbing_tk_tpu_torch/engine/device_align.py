@@ -24,6 +24,15 @@ Pipeline per batch of P read pairs (2P reads, L columns):
    -> KG  novel_edges (with -bu): the tre probe of each counted mate's
           in-segment (k+1)-mer edges, bit-packed  (csrc/novel_edges.cu)
 
+The sampled-k-mer prefilter that runs before the step on 4P pairs takes
+its nf queries a read from the host sampler (make_prefilter_step_q) or,
+with DTK_PREFILTER_HOSTQ=0 and on the sharded runner, samples them on the
+card:
+
+   -> KK  prefilter_sample (make_prefilter_step)   (csrc/prefilter_sample.cu)
+   -> KB  lookup_bucket on the membership table (or KI's collective probe)
+   -> prefilter_decide                               (torch ops)
+
 In graph-threading mode (cfg.threading) KD stops at the tr_member and slot
 planes, and one launch follows:
 
@@ -60,7 +69,7 @@ from .._device import resolve_device
 from ..index import device_table as dt
 from ..kernels.build import (bind, check, kernel_lib, launched, ptr,
                              stream_of)
-from ..ops.kmers import EMPTY, extract_kmers
+from ..ops.kmers import EMPTY, extract_kmers, prefilter_sample
 from .host_align import AlignConfig, RPGG
 
 NAN32 = 0xFFFFFFFF
@@ -1119,6 +1128,22 @@ def query_int64(qlo, qhi) -> np.ndarray:
             | np.asarray(qlo, np.uint32)).view(np.int64)
 
 
+def prefilter_decide(found, valid, nonshort, live, nmf: int, P: int):
+    """The sampled-k-mer prefilter's decision (the JAX prefilter_decide,
+    with ``nonshort`` = nk > 0): a read passes with >= nmf valid sampled
+    k-mers found, a pair when both of its reads pass and it is live."""
+    read_pass = (found & valid).sum(1) >= nmf
+    return (read_pass & nonshort).view(P, 2).all(1) & live
+
+
+def _prefilter_probe(drp: DeviceRPGG, dev):
+    """KB on the membership table (the dbi table without one): q ->
+    found."""
+    tabs = drp.tables(dev)
+    ptab = tabs["member"] if "member" in tabs else tabs["dbi"]
+    return lambda q: dt.lookup_bucket(ptab, q)[0]
+
+
 def make_prefilter_step_q(drp: DeviceRPGG, cfg: AlignConfig, P: int,
                           device=None, probe=None):
     """Prefilter over host-sampled queries (kmers_np.sample_subfilter_
@@ -1130,22 +1155,41 @@ def make_prefilter_step_q(drp: DeviceRPGG, cfg: AlignConfig, P: int,
     bool, live (P,) bool) -> survive (P,) bool on the device.  ``q`` may
     also be given as its u32 (lo, hi) planes, a tuple."""
     dev = resolve_device(device)
-    if probe is None:
-        tabs = drp.tables(dev)
-        ptab = tabs["member"] if "member" in tabs else tabs["dbi"]
-
-        def probe(q):
-            return dt.lookup_bucket(ptab, q)[0]
+    probe = probe or _prefilter_probe(drp, dev)
     nmf = cfg.nm_filter
 
     def step(q, valid, nonshort, live):
         if isinstance(q, tuple):
             q = query_int64(*q)
         q = _as(q, torch.int64, dev)
-        found = probe(q)
-        read_pass = (found & _as(valid, torch.bool, dev)).sum(1) >= nmf
-        return (read_pass & _as(nonshort, torch.bool, dev)).view(
-            P, 2).all(1) & _as(live, torch.bool, dev)
+        return prefilter_decide(probe(q), _as(valid, torch.bool, dev),
+                                _as(nonshort, torch.bool, dev),
+                                _as(live, torch.bool, dev), nmf, P)
+
+    return step
+
+
+def make_prefilter_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
+                        device=None, probe=None):
+    """Prefilter over device-sampled queries (the JAX make_prefilter_step,
+    the runner's DTK_PREFILTER_HOSTQ=0): the L-byte code rows go to the
+    card, KK samples the nf queries of each read, then the probe and the
+    decision of make_prefilter_step_q.  Decision-identical to it.
+
+    Returns step(codes (2P, L) u8, rlen (2P,) i32, live (P,) bool) ->
+    survive (P,) bool on the device (``L`` None: any width)."""
+    dev = resolve_device(device)
+    probe = probe or _prefilter_probe(drp, dev)
+    k, nf, nmf = cfg.ksize, cfg.n_filter, cfg.nm_filter
+
+    def step(codes, rlen, live):
+        if L is not None and codes.shape[1] != L:
+            raise ValueError(f"code rows of {codes.shape[1]} columns, not "
+                             f"the step's L = {L}")
+        q, valid, nk = prefilter_sample(_as(codes, torch.uint8, dev),
+                                        _as(rlen, torch.int32, dev), k, nf)
+        return prefilter_decide(probe(q), valid, nk > 0,
+                                _as(live, torch.bool, dev), nmf, P)
 
     return step
 
@@ -1207,7 +1251,8 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
 
         # ---- subfilter / kfilter (K4) ----
         if nf and nmf:
-            S = nk // (nf - 1)
+            # nf = 1 samples nk - 1 alone: S is never read (-kf 1 x)
+            S = nk // max(nf - 1, 1)
             hits = torch.zeros(2 * P, dtype=torch.int64, device=dev)
             for i in range(nf):
                 idx = i * S if i != nf - 1 else nk - 1

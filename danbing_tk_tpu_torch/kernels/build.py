@@ -48,14 +48,14 @@ NATIVE_SRCS = {"native": os.path.join(ROOT, "native", "dtk_native.cpp"),
 
 KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
            "thread_walk", "read_filter", "novel_edges", "bias_correct",
-           "sharded_lookup", "site_scorer")
+           "sharded_lookup", "site_scorer", "prefilter_sample")
 
-# launches of each kernel (KA-KJ: KERNELS in order, and KC's large-E
+# launches of each kernel (KA-KK: KERNELS in order, and KC's large-E
 # instances, which pair_vote.cu builds beside KC: the retry tier's, and the
 # global-workspace mode past a block's shared memory); its wrapper adds one
 # where it launches the kernel, and nowhere else
 LAUNCHES = dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF", "KG", "KH",
-                          "KI", "KJ", "KC[large-E]"), 0)
+                          "KI", "KJ", "KK", "KC[large-E]"), 0)
 
 # no --use_fast_math: KH (bias_correct.cu) must divide and add in IEEE
 # round-to-nearest to give numpy's bytes
@@ -213,7 +213,7 @@ def kernel_lib(name: str) -> ctypes.CDLL:
 
 
 def launched(kernel: str) -> None:
-    """Counts one launch of ``kernel`` ("KA" ... "KJ", "KC[large-E]")."""
+    """Counts one launch of ``kernel`` ("KA" ... "KK", "KC[large-E]")."""
     LAUNCHES[kernel] += 1
 
 

@@ -13,10 +13,11 @@ Training (``train_svm``, ``save_model``, ``constant_model``) needs sklearn
 and runs on a host that has it; the model files are sklearn pickles.
 ``load_model`` reads those files without sklearn: a restricted unpickler
 admits only ``sklearn.svm._classes.SVC``, ``sklearn.dummy.
-DummyClassifier`` (as plain holders of their fitted attributes) and
-numpy's array reconstructors, and the fitted attributes become a torch
-module on the caller's device (``cuda`` unless the caller asks for the
-CPU, as every entry point of the port):
+DummyClassifier`` (as plain holders of their fitted attributes), numpy's
+RandomState constructor (MT19937) and numpy's array reconstructors, and
+the fitted attributes become a torch module on the caller's device
+(``cuda`` unless the caller asks for the CPU, as every entry point of the
+port):
 
   SVCModel       the libsvm decision function of an SVC with an rbf,
                  linear, poly or sigmoid kernel.  Binary:
@@ -40,6 +41,10 @@ CPU, as every entry point of the port):
                  gives for "ovr" (the ovo planes for "ovo")
   ConstantModel  DummyClassifier's label: the constant, or for
                  most_frequent and prior classes_[argmax(class_prior_)]
+  SampledDummyModel  DummyClassifier's stratified and uniform labels,
+                 drawn on the host from sklearn's random state as its
+                 predict draws them (the unpickler also admits numpy's
+                 RandomState constructor for a pickled random_state)
 
 The kernel matrix is a plain product of float64 tensors: the JAX package
 evaluates it inside libsvm, on the host, not in a device stage.
@@ -48,6 +53,7 @@ evaluates it inside libsvm, on the host, not in a device stage.
 from __future__ import annotations
 
 import functools
+import numbers
 import pickle
 
 import numpy as np
@@ -252,6 +258,53 @@ class ConstantModel(nn.Module):
         return self.constant.expand(X.shape[0]).clone()
 
 
+def check_random_state(seed):
+    """sklearn's check_random_state: numpy's global RandomState for None,
+    a fresh RandomState for an int, the instance itself for one."""
+    if seed is None or seed is np.random:
+        return np.random.mtrand._rand
+    if isinstance(seed, numbers.Integral):
+        return np.random.RandomState(seed)
+    if isinstance(seed, np.random.RandomState):
+        return seed
+    raise ValueError(f"{seed!r} cannot be used to seed a "
+                     f"numpy.random.RandomState instance")
+
+
+class SampledDummyModel(nn.Module):
+    """DummyClassifier (stratified, uniform): labels drawn on the host as
+    sklearn's ``predict`` draws them, then moved to the module's device.
+    Each predict takes ``check_random_state(random_state)``: an int seeds
+    a fresh RandomState every time, None draws from numpy's global one
+    and a RandomState (restored from the pickle) advances from call to
+    call.  stratified: the argmax of each row of
+    ``rs.multinomial(1, class_prior_, size=n)``; uniform:
+    ``rs.randint(n_classes_, size=n)``; each an index into classes_."""
+
+    def __init__(self, strategy: str, classes, class_prior, n_classes: int,
+                 random_state=None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.strategy = strategy
+        self.register_buffer("classes_", _labels(classes, "classes_").to(dev))
+        self.class_prior_ = np.asarray(class_prior, dtype=np.float64)
+        self.n_classes_ = int(n_classes)
+        self.random_state = random_state
+        self.feature_names_in_ = None
+
+    def predict(self, X: torch.Tensor) -> torch.Tensor:
+        if X.ndim != 2:
+            raise ValueError(f"expected a 2-D feature matrix, got shape "
+                             f"{tuple(X.shape)}")
+        n = int(X.shape[0])
+        rs = check_random_state(self.random_state)
+        if self.strategy == "stratified":
+            idx = rs.multinomial(1, self.class_prior_, size=n).argmax(1)
+        else:
+            idx = rs.randint(self.n_classes_, size=n)
+        return self.classes_[torch.from_numpy(idx).to(self.classes_.device)]
+
+
 def from_attrs(kind: str, attrs: dict, device=None) -> nn.Module:
     """The module of a fitted ``SVC`` or ``DummyClassifier`` from its
     fitted attributes (the estimator's ``__dict__``: numpy arrays and
@@ -272,6 +325,10 @@ def from_attrs(kind: str, attrs: dict, device=None) -> nn.Module:
             raise ValueError(f"DummyClassifier with n_outputs_="
                              f"{attrs.get('n_outputs_')}: only single-output "
                              f"models are supported")
+        if attrs.get("sparse_output_"):
+            raise ValueError("DummyClassifier with sparse_output_: its "
+                             "predict returns a sparse matrix, and only "
+                             "dense labels are supported")
         if strategy == "constant":
             return ConstantModel(attrs["constant"], attrs["classes_"], device)
         if strategy in ("most_frequent", "prior"):
@@ -279,10 +336,13 @@ def from_attrs(kind: str, attrs: dict, device=None) -> nn.Module:
             return ConstantModel(
                 classes[int(np.argmax(attrs["class_prior_"]))], classes,
                 device)
-        raise ValueError(f"DummyClassifier(strategy={strategy!r}): its labels "
-                         f"are drawn from sklearn's random state, which the "
-                         f"port does not replay (constant, most_frequent "
-                         f"and prior are supported)")
+        if strategy in ("stratified", "uniform"):
+            return SampledDummyModel(strategy, attrs["classes_"],
+                                     attrs["class_prior_"],
+                                     attrs["n_classes_"],
+                                     attrs.get("random_state"), device)
+        raise ValueError(f"DummyClassifier(strategy={strategy!r}) is not "
+                         f"supported")
     raise ValueError(f"unsupported model {kind!r}")
 
 
@@ -322,19 +382,48 @@ def _numpy_globals() -> dict:
     return out
 
 
+_MT19937 = "MT19937"      # the one bit generator a RandomState pickle names
+
+
+def _bit_generator_ctor(name=_MT19937):
+    """numpy.random._pickle.__bit_generator_ctor, for MT19937 alone."""
+    if name != _MT19937:
+        raise pickle.UnpicklingError(f"bit generator {name!r} is not "
+                                     f"allowed in a model file (MT19937)")
+    return np.random.MT19937()
+
+
+def _randomstate_ctor(bit_generator=_MT19937, bit_generator_ctor=None):
+    """numpy.random._pickle.__randomstate_ctor: a RandomState over a
+    fresh MT19937 (the pickle's state is set on it afterwards), from
+    numpy 2's restored bit generator or numpy 1's name."""
+    if not isinstance(bit_generator, np.random.MT19937):
+        bit_generator = _bit_generator_ctor(bit_generator)
+    return np.random.RandomState(bit_generator)
+
+
 class _ModelUnpickler(pickle.Unpickler):
     _ESTIMATORS = {("sklearn.svm._classes", "SVC"): _SVCState,
                    ("sklearn.dummy", "DummyClassifier"): _DummyState}
+    # a DummyClassifier's random_state may be a RandomState: its
+    # constructor, whose bit generator numpy 2 names by its class
+    _RANDOM_STATE = {
+        ("numpy.random._pickle", "__randomstate_ctor"): _randomstate_ctor,
+        ("numpy.random._pickle", "__bit_generator_ctor"):
+            _bit_generator_ctor,
+        ("numpy.random._mt19937", "MT19937"): _MT19937}
 
     def find_class(self, module, name):
         cls = self._ESTIMATORS.get((module, name))
+        if cls is None:
+            cls = self._RANDOM_STATE.get((module, name))
         if cls is None:
             cls = _numpy_globals().get((module, name))
         if cls is None:
             raise pickle.UnpicklingError(
                 f"{module}.{name} is not allowed in a model file (only "
-                f"sklearn.svm._classes.SVC, sklearn.dummy.DummyClassifier "
-                f"and numpy arrays)")
+                f"sklearn.svm._classes.SVC, sklearn.dummy.DummyClassifier, "
+                f"numpy's RandomState and numpy arrays)")
         return cls
 
 

@@ -7,7 +7,10 @@ reference's -1ULL.  A (k+1)-mer edge of k = 31 uses all 64 bits, so edges
 compare as unsigned.
 
 ``extract_kmers`` launches the CUDA kernel ``csrc/kmers.cu`` for a CUDA
-tensor and runs ``extract_kmers_plain`` for a CPU tensor.
+tensor and runs ``extract_kmers_plain`` for a CPU tensor;
+``prefilter_sample`` (kernel KK, ``csrc/prefilter_sample.cu``) and
+``prefilter_sample_plain`` likewise give the sampled-k-mer prefilter's
+queries.
 """
 
 from __future__ import annotations
@@ -139,3 +142,66 @@ def extract_kmers(codes: torch.Tensor, rlen: torch.Tensor, k: int,
              ptr(out["any_valid"]), stream_of(codes)), "extract_kmers")
     launched("KA")
     return out
+
+
+def prefilter_sample_plain(codes: torch.Tensor, rlen: torch.Tensor, k: int,
+                           nf: int):
+    """Plain torch version of KK: the arithmetic of
+    kmers_np.sample_subfilter_queries in int64 (same outputs as
+    ``prefilter_sample``)."""
+    if nf < 1:
+        raise ValueError(f"the prefilter samples nf >= 1 k-mers, not {nf}")
+    B, L = codes.shape
+    dev = codes.device
+    rl = rlen.long()
+    nk = torch.clamp(rl - (k - 1), min=0)
+    j = torch.arange(nf, device=dev)
+    # with nf = 1 the one start is nk - 1: the step S is never used
+    S = nk // max(nf - 1, 1)
+    starts = torch.where(j == nf - 1, (nk - 1)[:, None], j * S[:, None])
+    starts = starts.clamp(0, L - k)
+    win = codes.long().gather(
+        1, (starts[..., None] + torch.arange(k, device=dev)).view(B, -1)
+    ).view(B, nf, k)
+    ok = (win <= 3).all(-1) & (starts + k <= rl[:, None]) \
+        & (starts < nk[:, None])
+    c = win & 3
+    fwd = torch.zeros((B, nf), dtype=torch.int64, device=dev)
+    rc = torch.zeros_like(fwd)
+    for i in range(k):
+        fwd |= c[..., i] << (2 * (k - 1 - i))
+        rc |= (3 - c[..., i]) << (2 * i)
+    q = torch.where(ok, torch.minimum(fwd, rc), EMPTY)
+    return q, ok, nk.int()
+
+
+def prefilter_sample(codes: torch.Tensor, rlen: torch.Tensor, k: int,
+                     nf: int):
+    """The sampled-k-mer prefilter's queries of a read batch (the JAX
+    prefilter_sample, reference subfilter): the nf evenly spaced windows
+    of each read, starts j * (nk // (nf - 1)) for j < nf - 1 and nk - 1,
+    clipped to [0, L - k].  Returns
+      q     (B, nf) int64  canonical k-mer, EMPTY where not valid
+      valid (B, nf) bool   window of codes 0-3 inside the read, start < nk
+      nk    (B,)    int32  number of k-mer positions (rlen-k+1, >= 0)
+    The decision reads ``nk > 0`` (kmers_np's nonshort)."""
+    if codes.device.type == "cpu":
+        return prefilter_sample_plain(codes, rlen, k, nf)
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise ValueError("codes must be a (B, L) uint8 tensor")
+    if not 1 <= k <= 31 or codes.shape[1] < k or nf < 1:
+        raise ValueError(f"unsupported k={k}, nf={nf} for "
+                         f"L={codes.shape[1]}")
+    codes = codes.contiguous()
+    rlen = rlen.to(torch.int32).contiguous()
+    B, L = codes.shape
+    dev = codes.device
+    q = torch.empty((B, nf), dtype=torch.int64, device=dev)
+    valid = torch.empty((B, nf), dtype=torch.bool, device=dev)
+    nk = torch.empty(B, dtype=torch.int32, device=dev)
+    fn = bind(kernel_lib("prefilter_sample"), "dtk_prefilter_sample",
+              "ppiiiipppp")
+    check(fn(ptr(codes), ptr(rlen), B, L, k, nf, ptr(q), ptr(valid),
+             ptr(nk), stream_of(codes)), "prefilter_sample")
+    launched("KK")
+    return q, valid, nk

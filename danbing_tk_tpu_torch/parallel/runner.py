@@ -78,7 +78,7 @@ class ShardedAlignRunner(DeviceAlignRunner):
         from .sharded_index import make_sharded_prefilter
 
         return make_sharded_prefilter(self.drp, self.cfg, self.mesh, Pp,
-                                      shard_index=self.shard_index)[0]
+                                      self.L, shard_index=self.shard_index)[0]
 
     def _outputs(self, out: dict, keys) -> dict:
         return pm.gather_planes({k: out[k] for k in keys}, self.mesh)

@@ -116,16 +116,16 @@ def collective_probes(drp: da.DeviceRPGG, mesh) -> dict:
 
 
 def make_sharded_prefilter(drp: da.DeviceRPGG, cfg: AlignConfig, mesh,
-                           P_global: int, shard_index: bool = True):
+                           P_global: int, L: int | None = None,
+                           shard_index: bool = True):
     """The prefilter with the dispatch, and with ``shard_index`` the
     member table, sharded over the ranks: step(codes (2P_global, L),
     rlen, live (P_global,)) -> survive (P_global,) on every rank.  Each
-    rank samples the queries of its slice on the host (decision-identical
-    to the device sampler, as the JAX runner's host-sampled prefilter),
+    rank uploads the code rows of its slice, samples their queries on
+    the card (KK, as the JAX sharded prefilter's prefilter_sample),
     probes them (collectively over the row blocks, or with KB on its
-    whole table) and decides; the ranks' decisions are all-gathered.
-    Returns (step, P_local)."""
-    from ..io.native_reader import sample_queries
+    whole table) and decides (make_prefilter_step); the ranks' decisions
+    are all-gathered.  Returns (step, P_local)."""
     from .mesh import gather_planes, local_rows
 
     if P_global % mesh.world:
@@ -139,15 +139,12 @@ def make_sharded_prefilter(drp: da.DeviceRPGG, cfg: AlignConfig, mesh,
 
         def probe(q):
             return lookup_bucket_sharded(*blk, q, group=mesh.group)[0]
-    qstep = da.make_prefilter_step_q(drp, cfg, P_local, mesh.device,
-                                     probe=probe)
+    pstep = da.make_prefilter_step(drp, cfg, P_local, L, mesh.device,
+                                   probe=probe)
 
     def step(codes, rlen, live):
-        c = local_rows(codes, mesh, P_local)
-        r = local_rows(rlen, mesh, P_local)
-        qlo, qhi, valid, nonshort = sample_queries(c, r, cfg.ksize,
-                                                   cfg.n_filter)
-        surv = qstep(da.query_int64(qlo, qhi), valid, nonshort,
+        surv = pstep(local_rows(codes, mesh, P_local),
+                     local_rows(rlen, mesh, P_local),
                      local_rows(live, mesh, P_local, per_read=False))
         return gather_planes({"s": surv}, mesh)["s"]
 

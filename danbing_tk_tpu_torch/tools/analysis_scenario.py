@@ -37,7 +37,10 @@ writes:
     so it keeps 1,280 support vectors at seed 14: a kernel matrix of a
     real model's size.  DIR/svm_labels.npy holds sklearn's labels of br
     and bp on ``svm_batch(SVM_ROWS, SEED)``, DIR/mc_labels.npy mc's on
-    its path rows, as integers.
+    its path rows, as integers.  And DIR/{br,bp}.{stratified,uniform}.svm,
+    sklearn DummyClassifiers of the two sampled strategies fitted on the
+    br and bp training labels (``fit_dummies``): br with an int
+    random_state, bp with a RandomState instance.
 
 The align run that ``call`` needs (``align -ka -bu -cth 20 -kf 4 1 -on
 OUT``) writes OUT.tr.kmers and OUT.bub.kmdb; ``bub_text`` turns the
@@ -246,6 +249,31 @@ def fit_svms(out: str) -> None:
     mc = train_svm(pd.DataFrame(Xm, columns=[r[0] for r in PATH_RANGES]),
                    y, kernel="rbf")
     save_model(mc, os.path.join(out, "mc.svm"))
+
+
+DUMMIES = ("stratified", "uniform")
+
+
+def fit_dummies(out: str) -> None:
+    """DIR/br.<strategy>.svm and DIR/bp.<strategy>.svm for each sampled
+    DummyClassifier strategy, fitted on the SVMs' seeded training labels:
+    the bubble-root model with random_state SEED (an int: a fresh
+    RandomState each predict), the bubble-path model with a
+    RandomState(SEED) instance (pickled with its state).  Needs sklearn."""
+    from sklearn.dummy import DummyClassifier
+
+    from ..models.svm import save_model
+
+    rng = np.random.default_rng([SEED, 2])
+    Xr = _feature_rows(ROOT_RANGES, 400, rng)
+    Xp = _feature_rows(PATH_RANGES, 400, rng)
+    for strategy in DUMMIES:
+        for name, X, y, rs in (
+                ("br", Xr, Xr[:, 1] > BR_CUT, SEED),
+                ("bp", Xp, Xp[:, 1] > BP_CUT, np.random.RandomState(SEED))):
+            clf = DummyClassifier(strategy=strategy, random_state=rs)
+            save_model(clf.fit(X, y),
+                       os.path.join(out, f"{name}.{strategy}.svm"))
 
 
 SVM_ROWS = 100_000       # rows of the card's production-batch check
@@ -473,6 +501,7 @@ def main(argv=None):
     eqtl_inputs(os.path.join(a.out, "eqtl"))
     if a.svms:
         fit_svms(a.out)
+        fit_dummies(a.out)
         sklearn_labels(a.out, a.out)
     print(f"{n} read pairs -> {a.out}")
 

@@ -5,14 +5,16 @@ JAX package's outputs on inputs that the port's seeded generator writes.
 
 Inputs (danbing_tk_tpu_torch/tools/analysis_scenario.py, seed 14): the
 planted-variant reads over the golden panel, plants.tsv, the ``length``
-and ``eqtl`` inputs, and the three SVM pickles (``--svms``: fitted once
+and ``eqtl`` inputs, and the SVM and dummy pickles (``--svms``: fitted once
 with sklearn; they are the models ``call`` reads, and no test refits
 them) with svm_labels.npy and mc_labels.npy, sklearn's labels of them on
 the card's 100,000-row batch.  Outputs, each from the JAX package:
 ``align -ka -bu -cth 20 -kf 4 1 -on out`` on the host engine
 (out.tr.kmers, out.bub.kmdb), ``call`` over them (callset.txt, the
 callset as sorted text; callset.mc.txt with the 3-class mc.svm as the
-bubble-path model), ``length`` (length/estimated_TR_len.tsv) and ``eqtl``
+bubble-path model; callset.stratified.txt and callset.uniform.txt with
+the sampled DummyClassifiers {br,bp}.{stratified,uniform}.svm as both
+models), ``length`` (length/estimated_TR_len.tsv) and ``eqtl``
 with eqtl/rawGenotype.pickle in its --outDir (eqtl/*.egenes.txt).
 """
 
@@ -29,7 +31,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(ROOT, "tests", "golden")
 GA = os.path.join(ROOT, "tests", "golden_analysis")
+# call's (bubble-root model, bubble-path model, callset) runs
+CALLS = (("br.svm", "bp.svm", "callset.txt"),
+         ("br.svm", "mc.svm", "callset.mc.txt"),
+         ("br.stratified.svm", "bp.stratified.svm", "callset.stratified.txt"),
+         ("br.uniform.svm", "bp.uniform.svm", "callset.uniform.txt"))
 OUTPUTS = ("out.tr.kmers", "out.bub.kmdb", "callset.txt", "callset.mc.txt",
+           "callset.stratified.txt", "callset.uniform.txt",
            "length/estimated_TR_len.tsv",
            "eqtl/Adipose_Test.v8.egenes.txt",
            "eqtl/Brain_Test.v8.egenes.txt")
@@ -53,12 +61,11 @@ def jax_outputs(inputs: str, out: str) -> None:
                     os.path.join(out, "gt.bub"))
         sc.counts_text(os.path.join(out, "out.tr.kmers"),
                        os.path.join(out, "gt.counts"))
-        for bp, name in (("bp.svm", "callset.txt"),
-                         ("mc.svm", "callset.mc.txt")):
+        for br, bp, name in CALLS:
             jcli.main(["call", pan, os.path.join(out, "gt.counts"),
                        os.path.join(out, "out.tr.kmers"),
                        os.path.join(out, "gt.bub"),
-                       os.path.join(inputs, "br.svm"),
+                       os.path.join(inputs, br),
                        os.path.join(inputs, bp),
                        os.path.join(out, "callset.pickle")])
             with open(os.path.join(out, "callset.pickle"), "rb") as f:

@@ -287,11 +287,13 @@ def test_load_model_dummy_strategies(tmp_path, strategy):
 def test_load_model_ties_dummies_and_checks(tmp_path):
     """An exact 0 decision takes classes_[1] as libsvm votes; constant
     models give their constant, most_frequent the commonest label, and
-    the random strategies raise; 0 rows, a
+    the random strategies sklearn's draws (a sparse-output one raises); 0
+    rows, a
     wrong width and NaN raise as sklearn does; a model fitted on other
     feature names, or on the same in another order, raises as
     ``clf.predict`` on the reference's DataFrame does."""
     import pandas as pd
+    import scipy.sparse
     from sklearn import svm
     from sklearn.dummy import DummyClassifier
 
@@ -320,11 +322,18 @@ def test_load_model_ties_dummies_and_checks(tmp_path):
     assert load_model(str(tmp_path / "d.svm"), "cpu").predict(
         torch.zeros(2, 1)).tolist() == [7, 7]
     for strategy in ("stratified", "uniform"):
-        save_model(DummyClassifier(strategy=strategy).fit([[0]] * 3,
-                                                          [4, 7, 7]),
-                   tmp_path / "d.svm")
-        with pytest.raises(ValueError, match="random state"):
-            load_model(str(tmp_path / "d.svm"), "cpu")
+        dummy = DummyClassifier(strategy=strategy, random_state=3).fit(
+            [[0]] * 3, [4, 7, 7])
+        save_model(dummy, tmp_path / "d.svm")
+        Z = np.zeros((64, 1))
+        assert load_model(str(tmp_path / "d.svm"), "cpu").predict(
+            torch.from_numpy(Z)).tolist() == dummy.predict(Z).tolist()
+    # a sparse target keeps sparse_output_ (uniform densifies it)
+    sparse = DummyClassifier(strategy="stratified", random_state=3).fit(
+        [[0]] * 3, scipy.sparse.csc_matrix(np.array([[4], [7], [7]])))
+    save_model(sparse, tmp_path / "d.svm")
+    with pytest.raises(ValueError, match="sparse"):
+        load_model(str(tmp_path / "d.svm"), "cpu")
     for bad, msg in ((np.zeros((0, 1)), "0 sample"),
                      (np.zeros((2, 3)), "features"),
                      (np.array([[np.nan]]), "NaN")):

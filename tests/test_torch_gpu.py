@@ -22,7 +22,7 @@ from danbing_tk_tpu_torch.kernels import build
 from danbing_tk_tpu_torch.ops import kmers as km
 from test_torch_assign_count import kd_cases, kd_run
 from test_torch_kmers_filter_cases import (FLAGS, KF_MODES, ka_cases,
-                                           kf_args, kf_cases)
+                                           kf_args, kf_cases, kk_cases)
 from test_torch_pair_vote import vote_cases
 from test_torch_site_scorer_cases import kj_args, kj_cases
 from test_torch_walk_edges_cases import (ke_args, ke_cases, ke_state,
@@ -88,6 +88,56 @@ def test_ka_adversarial_matches_plain(cuda, L, k):
         assert set(got) == set(want)
         for key in want:
             assert torch.equal(got[key], want[key]), (key, flags)
+
+
+@pytest.mark.parametrize("L", [21, 150, 160, 192])
+@pytest.mark.parametrize("nf", [1, 2, 4, 7])
+def test_kk_adversarial_matches_plain(cuda, L, nf):
+    """KK equals prefilter_sample_plain on the seeded adversarial reads of
+    tests/test_torch_kmers_filter_cases.kk_cases (reads shorter than k,
+    rlen = L, Ns inside sampled windows, L = k: one window a read), an
+    odd read count so the last block is partial."""
+    k = 21
+    codes, rlen = kk_cases(7, 1001, L, k, nf)
+    c = torch.from_numpy(codes).to(cuda)
+    r = torch.from_numpy(rlen).to(cuda)
+    n0 = build.launch_counts()["KK"]
+    got = km.prefilter_sample(c, r, k, nf)
+    assert build.launch_counts()["KK"] == n0 + 1
+    want = km.prefilter_sample_plain(c, r, k, nf)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert want[1].any()
+
+
+def test_device_sampled_prefilter_on_cuda(cuda, drp, tmp_path, monkeypatch):
+    """make_prefilter_step (KK, KB member) equals make_prefilter_step_q
+    over the native host sampler on golden reads, one KK launch a
+    dispatch; the golden funnel with DTK_PREFILTER_HOSTQ=0 writes the
+    golden .trkmc.ar and launches KK."""
+    from danbing_tk_tpu_torch.io.native_reader import sample_queries
+
+    P, L = 1024, 160
+    codes, rlen = _reads(P, L)
+    live = np.ones(P, dtype=bool)
+    cfg = AlignConfig(**KW)
+    n0 = build.launch_counts()["KK"]
+    got = da.make_prefilter_step(drp, cfg, P, L, cuda)(codes, rlen, live)
+    assert build.launch_counts()["KK"] == n0 + 1
+    qlo, qhi, valid, nonshort = sample_queries(codes, rlen, 21, 4)
+    want = da.make_prefilter_step_q(drp, cfg, P, cuda)(
+        (qlo, qhi), valid, nonshort, live)
+    assert torch.equal(got, want) and bool(want.any())
+    monkeypatch.setenv("DTK_PREFILTER_HOSTQ", "0")
+    run = DeviceAlignRunner(RPGG(os.path.join(GOLDEN, "pan")),
+                            AlignConfig(**KW), batch_pairs=1024,
+                            max_read_len=192, device=cuda)
+    n0 = build.launch_counts()["KK"]
+    run.run_file_native(os.path.join(GOLDEN, "reads.fa"), prefilter=True)
+    assert build.launch_counts()["KK"] > n0
+    run.write_trkmc_ar(tmp_path / "out.trkmc.ar")
+    with open(os.path.join(GOLDEN, "out.trkmc.ar"), "rb") as f:
+        assert (tmp_path / "out.trkmc.ar").read_bytes() == f.read()
 
 
 @pytest.mark.parametrize("NKW", [1, 2, 131, 140, 300, 2000])

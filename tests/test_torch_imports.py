@@ -161,12 +161,13 @@ def test_kernels_have_counters_and_notes():
     counts = build.launch_counts()
     # one count per kernel source, and KC's large-E instance beside KC
     assert counts == dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF",
-                                    "KG", "KH", "KI", "KJ", "KC[large-E]"),
-                                   0)
+                                    "KG", "KH", "KI", "KJ", "KK",
+                                    "KC[large-E]"), 0)
     assert len(counts) == len(build.KERNELS) + 1
     assert "bias_correct" in build.KERNELS
     assert "sharded_lookup" in build.KERNELS
     assert "site_scorer" in build.KERNELS
+    assert "prefilter_sample" in build.KERNELS
     for name in build.KERNELS:
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             src = f.read()

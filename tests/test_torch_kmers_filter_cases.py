@@ -7,6 +7,9 @@ card.
   multiples of 16) and k = 1, 21 and 31, against the JAX package's
   extract_kmers_edges (k-mers compared as (hi << 32) | lo), at every
   nc / edges setting.
+* KK (prefilter_sample_plain): ``kk_cases``, KA's rows with an N put
+  inside a sampled window; tests/test_torch_prefilter_sample.py holds the
+  plain version to the JAX package's prefilter_sample.
 * KF (read_filter_plain): reads whose k-mers are all equal, a k-mer
   repeated 256 and 257 times (the u8 count wraps), quality-mask holes,
   EMPTY and fully masked reads, dst0 = nloci, pairs that are not dev
@@ -57,6 +60,30 @@ def ka_cases(seed: int, B: int, L: int, k: int):
             codes[r, ::int(rng.integers(2, k + 3))] = 255
         if r % 2:
             codes[r, rl:] = 255
+    return codes, rlen
+
+
+def kk_starts(rlen, L: int, k: int, nf: int) -> np.ndarray:
+    """The prefilter's sampled window starts (kmers_np's rule), (B, nf)."""
+    nk = np.maximum(rlen.astype(np.int64) - (k - 1), 0)
+    S = nk // max(nf - 1, 1)
+    starts = np.where(np.arange(nf) == nf - 1, (nk - 1)[:, None],
+                      np.arange(nf) * S[:, None])
+    return np.clip(starts, 0, L - k)
+
+
+def kk_cases(seed: int, B: int, L: int, k: int, nf: int):
+    """Seeded (codes, rlen) for KK: ka_cases' rows (rlen 0, 1, k - 1, k,
+    k + 1, L - 1, L and random; N runs, all-N rows, bases past rlen), and
+    in every third row one N placed inside a sampled window (its first,
+    last or a middle position)."""
+    codes, rlen = ka_cases(seed, B, L, k)
+    rng = np.random.default_rng([seed, B, L, k, nf])
+    starts = kk_starts(rlen, L, k, nf)
+    for r in range(0, B, 3):
+        j = int(rng.integers(nf))
+        off = (0, k - 1, int(rng.integers(k)))[r // 3 % 3]
+        codes[r, starts[r, j] + off] = 255
     return codes, rlen
 
 

@@ -22,13 +22,17 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      the same inputs at the main path's shapes (P = 4096 pairs, L = 160,
      k = 21, E = 512, prefilter dispatch 4P), on the production-size
      index: KA (the counting instance the step launches, and the
-     all-planes instance), KB (dbi, member, trfl), KC and KD, and KK on
-     the prefilter dispatch's reads (its queries also equal to the host
-     sampler's, and the device-sampled dispatch's survivors to the
-     host-sampled one's); exact equality required; CUDA-event times of
-     kernel and plain version (median of
-     10 windows of 10 back-to-back calls); KC's live entries and live
-     events per pair (mean, p99, max)
+     all-planes instance), KB (dbi, member, trfl), KC and KD, KK's
+     sample-only instance (KK[sample]) on the prefilter dispatch's reads
+     (its queries also equal to the host sampler's) and KK's fused launch
+     (sample, member probe and decision) on the same reads, with its
+     bound from the rows it reads (engine/device_align.py
+     prefilter_fused_work) and
+     its CUDA-graph replay beside its window, and the device-sampled
+     dispatch's survivors equal to the host-sampled one's; exact
+     equality required; CUDA-event times of kernel and plain version
+     (median of 10 windows of 10 back-to-back calls); KC's live entries
+     and live events per pair (mean, p99, max)
   4. golden end to end on cuda through the CLI: ``align --device
      --native-io --prefilter -ka`` (.trkmc.ar byte-equal) and the
      threading run ``-s 2 -gc 50 3 -a -on`` (.aln and .tr.kmers
@@ -89,12 +93,14 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      flagged pairs through the native referee and the Python HostAligner
      on two fresh copies of the view (okam): counts, stats and .kam rows
      equal; then the same batches again with DTK_PREFILTER_HOSTQ=0 (the
-     prefilter uploads the code rows and KK samples the queries) over a
-     fresh copy of the view: every dispatch's survivor mask, the count
-     state and the referee's pairs and host counts equal to the first
-     pass's, reads/s of both, and the first 8 dispatches' prefilter split
-     (host-sampled: native sampler + query upload + KB; device-sampled:
-     code upload + KK + KB)
+     prefilter uploads the code rows and KK's fused launch samples,
+     probes and decides) over a fresh copy of the view: every dispatch's
+     survivor mask, the count state and the referee's pairs and host
+     counts equal to the first pass's, one KK launch a dispatch and no
+     KB launch on the member table, reads/s of both, and the first 8
+     dispatches' prefilter split (host-sampled: native sampler + query
+     upload + KB and decision; device-sampled: code upload + KK's fused
+     launch)
  5b. the Python ingest at full width: phase 5's first 65,536 pairs as a
      FASTA file through run_file (-ka) and run_file_native (prefilter),
      each over a fresh copy of phase 5's flat view: equal counts, resolved
@@ -115,8 +121,9 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      pool; 512 threads a pair, the tables in shared memory) against
      pair_vote_plain, with what sets its work (live entries and events
      per pair); (d) phase 5's batches through ShardedAlignRunner
-     (shard_index, E = 512 -> [4096]; its prefilter samples on the card,
-     KK) over a fresh copy of phase 5's flat view: reads/s, retried
+     (shard_index, E = 512 -> [4096]; its prefilter samples on the card
+     with KK[sample], for KI's collective probe) over a fresh copy of
+     phase 5's flat view: reads/s, retried
      pairs, the referee share beside phase 5's and
      its resolved pairs, the collectives' ms per step, peak memory; KI and
      KC[large-E] launched, KI's launches by table
@@ -170,7 +177,8 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      (failing when the temp disk cannot hold 8 samples' inputs and
      outputs), byte-equal to the host oracle, with each span's seconds and
      the device's share of the wall
-  9. the kernels line (JSON): KA-KK and KC's large-E instance; each
+  9. the kernels line (JSON): KA-KK (KK: the fused prefilter launch), KC's
+     large-E instance and KK's sample-only instance; each
      kernel's ``launches`` is the sum over its paths' runs (per path in
      ``launches_by_path``: phase 3's warmup pass (``warmup``), the
      counting funnel's two passes (``counting``, host-sampled prefilter,
@@ -200,8 +208,8 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM HBM3, published peak
 COUNTING = ("KA", "KB", "KC", "KD")     # the counting path's kernels
 THREADING = COUNTING + ("KE",)
 OKAM = COUNTING + ("KF", "KG")          # -b -qc -bu adds KF and KG
-SHARDED = ("KA", "KC", "KD", "KI", "KK")  # shard_index: KI in place of KB,
-                                          # queries sampled by KK
+SHARDED = ("KA", "KC", "KD", "KI", "KK[sample]")  # shard_index: KI in
+                                    # place of KB, queries by KK[sample]
 BUILD_PRUNE = THREADING                 # build's align -g (run_file)
 QC = COUNTING + ("KF",)                 # qc's -e 1, -s 2 and -b maps
 BQ_NLOCI, BQ_COV, BQ_PROCS = 256, 2, 2  # phase 4c (b)'s scenario and run
@@ -361,6 +369,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     from danbing_tk_tpu_torch.io.native_reader import sample_queries
     from danbing_tk_tpu_torch.kernels import build
     from danbing_tk_tpu_torch.ops import kmers as km
+    from danbing_tk_tpu_torch.tools.ab_kmers_filter import GRAPH, graph_of
     from danbing_tk_tpu_torch.tools.scale_index import (
         ScaleThreadView, build_scale_bait, build_scale_qc, build_scale_rpgg,
         sample_read_batch, sim_titles)
@@ -576,8 +585,9 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
         "KD": dict(kd, source="danbing_tk_tpu_torch/csrc/assign_count.cu",
                    replaces="danbing_tk_tpu/engine/device_align.py:1063"),
     }
-    # KK on the prefilter dispatch's reads: its queries are the host
-    # sampler's (q_mem), and it equals its plain version
+    # KK's sample-only instance on the prefilter dispatch's reads: its
+    # queries are the host sampler's (q_mem), and it equals its plain
+    # version
     pb_d = torch.from_numpy(pbatch).to(dev)
     pr_d = torch.from_numpy(prlen).to(dev)
     Bp = 2 * Pp
@@ -587,21 +597,45 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
             and torch.equal((knk > 0).cpu(), torch.from_numpy(qnon))):
         fail("KK's queries differ from the host sampler's on the "
              "prefilter dispatch")
-    kk = compare("KK prefilter_sample",
-                 lambda: km.prefilter_sample(pb_d, pr_d, k, 4),
-                 lambda: km.prefilter_sample_plain(pb_d, pr_d, k, 4),
-                 Bp * L + 4 * Bp + Bp * 4 * 9 + 4 * Bp,
-                 f"shape=({Bp},{L}) nf=4 threads={Bp * 4} queries = the "
-                 f"host sampler's; launches/dispatch=1 (DTK_PREFILTER_"
-                 f"HOSTQ=0 and the sharded prefilter)")
+    kks = compare("KK[sample] prefilter_sample",
+                  lambda: km.prefilter_sample(pb_d, pr_d, k, 4),
+                  lambda: km.prefilter_sample_plain(pb_d, pr_d, k, 4),
+                  Bp * L + 4 * Bp + Bp * 4 * 9 + 4 * Bp,
+                  f"shape=({Bp},{L}) nf=4 threads={Bp * 4} queries = the "
+                  f"host sampler's; launches/dispatch=1 (the sharded "
+                  f"prefilter under a collective probe, shard_index)")
+    results["KK[sample]"] = dict(
+        kks, source="danbing_tk_tpu_torch/csrc/prefilter_sample.cu",
+        replaces="danbing_tk_tpu/engine/device_align.py:343")
+    # KK's fused launch (sample, member probe and decision) on the same
+    # reads, bound once as make_prefilter_step binds it
+    pl = torch.ones(Pp, dtype=torch.bool, device=dev)
+    fused = da.prefilter_fused_launcher(mtab, k, 4, 1)
+    work = da.prefilter_fused_work(pb_d, pr_d, pl, mtab, k, 4, 1)
+    kk = compare("KK prefilter_fused", lambda: fused(pb_d, pr_d, pl),
+                 lambda: da.prefilter_fused_plain(pb_d, pr_d, pl, mtab, k,
+                                                  4, 1),
+                 work["nbytes"],
+                 f"P={Pp} L={L} nf=4 nmf=1 member W={mtab.W} "
+                 f"survivors={int(work['survive'].sum())} pairs_probing="
+                 f"{work['pairs_probing']} probed_queries="
+                 f"{int(work['probed'].sum())} distinct_rows={work['rows']} "
+                 f"bytes={work['nbytes']} launches/dispatch=1 "
+                 f"(DTK_PREFILTER_HOSTQ=0, the sharded prefilter's whole "
+                 f"table)")
+    kk["graph_ms"] = cuda_ms(graph_of(lambda: fused(pb_d, pr_d, pl)).replay,
+                             reps=5) / GRAPH
+    log(f"[3] KK prefilter_fused graph_ms={kk['graph_ms']:.4f} ({GRAPH} "
+        f"launches "
+        f"a CUDA graph, replayed) ms={kk['ms']:.4f} (window) bound_ms="
+        f"{kk['bound_ms']:.4f}; card {smi}")
     results["KK"] = dict(
         kk, source="danbing_tk_tpu_torch/csrc/prefilter_sample.cu",
-        replaces="danbing_tk_tpu/engine/device_align.py:343")
+        replaces="danbing_tk_tpu/engine/device_align.py:379")
     pre_q = da.make_prefilter_step_q(drp, cfg, Pp, dev)
     pre_d = da.make_prefilter_step(drp, cfg, Pp, L, dev)
     qv = torch.from_numpy(qvalid).to(dev)
     qn = torch.from_numpy(qnon).to(dev)
-    pl = torch.ones(Pp, dtype=torch.bool, device=dev)
     if not torch.equal(pre_d(pb_d, pr_d, pl), pre_q(q_mem, qv, qn, pl)):
         fail("the device-sampled prefilter's survivors differ from the "
              "host-sampled one's")
@@ -610,7 +644,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     step_ms = cuda_ms(lambda: step(scratch, codes_d, rlen_d, live_d))
     log(f"[3] prefilter dispatch (Pp={Pp}, device tensors) "
         f"ms={pre_ms:.4f} (host-sampled queries: KB + decision), "
-        f"{pre_dev_ms:.4f} (code rows: KK + KB + decision); full step "
+        f"{pre_dev_ms:.4f} (code rows: KK's fused launch); full step "
         f"(P={P}) ms={step_ms:.4f}")
 
     # ---- 4. golden end to end through the CLI ----
@@ -720,7 +754,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
         f"host counts {int(flat.flat_counts().sum())}")
     referee_gate(flat, cfg, flagged)
     dlaunches = device_sampled_pass(drp, flat, batches, cfg, P, L, E, dev,
-                                    runner, host_surv, wall, smi)
+                                    runner, host_surv, wall, launches, smi)
     log(f"[5] funnel: pairs={npairs} (data made in {t_data:.1f}s) "
         f"wall={wall:.3f}s reads/s={2 * npairs / wall:.0f} "
         f"prefilter_dispatches={nbat} ms/dispatch={pre_ms:.4f} "
@@ -1153,16 +1187,20 @@ def record_survivors(runner, Pp: int) -> list:
 
 
 def device_sampled_pass(drp, flat, batches, cfg, P, L, E, dev, host,
-                        host_surv, host_wall, smi: str) -> dict:
+                        host_surv, host_wall, host_launches,
+                        smi: str) -> dict:
     """Phase 5's second pass: its batches through a runner built with
     DTK_PREFILTER_HOSTQ=0, whose prefilter uploads the code rows and
-    samples the queries on the card (KK), over a fresh copy of the flat
-    view: every dispatch's survivor mask, the device count state, the
-    referee's pairs and its host counts equal the host-sampled pass's
-    (``host``); the reads/s of both.  Then the first 8 dispatches through
-    each prefilter's parts, synchronized apart (host clock): host-sampled
-    = native sampler + query upload + KB and decision, device-sampled =
-    code upload + KK + KB and decision.  Returns the pass's launches."""
+    samples, probes and decides on the card in one launch (KK's fused
+    launch), over a fresh copy of the flat view: every dispatch's
+    survivor mask, the device count state, the referee's pairs and its
+    host counts equal the host-sampled pass's (``host``); KB's member
+    launches (its launches beyond two a step) none in this pass and one a
+    dispatch in the host-sampled one (``host_launches``); the reads/s of
+    both.  Then the first 8 dispatches through each prefilter's parts,
+    synchronized apart (host clock): host-sampled = native sampler +
+    query upload + KB and decision, device-sampled = code upload + KK's
+    fused launch.  Returns the pass's launches."""
     import statistics
 
     import numpy as np
@@ -1172,7 +1210,6 @@ def device_sampled_pass(drp, flat, batches, cfg, P, L, E, dev, host,
     from danbing_tk_tpu_torch.engine.align_runner import DeviceAlignRunner
     from danbing_tk_tpu_torch.io.native_reader import sample_queries
     from danbing_tk_tpu_torch.kernels import build
-    from danbing_tk_tpu_torch.ops import kmers as km
 
     t_phase = time.time()
     view = flat.renew()
@@ -1197,6 +1234,14 @@ def device_sampled_pass(drp, flat, batches, cfg, P, L, E, dev, host,
     launches = build.launch_counts()
     if min(launches[t] for t in COUNTING + ("KK",)) <= 0:
         fail(f"the device-sampled funnel skipped a kernel: {launches}")
+    # KB probes dbi and trfl once a step; the rest is the member probe
+    kb_member = launches["KB"] - 2 * r.n_steps
+    kb_member_host = host_launches["KB"] - 2 * host.n_steps
+    if kb_member != 0 or launches["KK"] != len(surv) \
+            or kb_member_host != len(host_surv):
+        fail(f"the prefilter dispatches launched KB on the member table "
+             f"{kb_member} times (host-sampled pass {kb_member_host}) and "
+             f"KK {launches['KK']} times for {len(surv)} dispatches")
     if len(surv) != len(host_surv) or not all(
             torch.equal(a, b) for a, b in zip(surv, host_surv)):
         fail("a dispatch's survivors differ between the device-sampled "
@@ -1211,6 +1256,7 @@ def device_sampled_pass(drp, flat, batches, cfg, P, L, E, dev, host,
              "differ")
     npairs = sum(b[2] for b in batches)
     pre_q = da.make_prefilter_step_q(drp, cfg, Pd, dev)
+    pre_d = da.make_prefilter_step(drp, cfg, Pd, L, dev)
     k, nf = cfg.ksize, cfg.n_filter
     parts = {"host": [], "device": []}
 
@@ -1233,29 +1279,29 @@ def device_sampled_pass(drp, flat, batches, cfg, P, L, E, dev, host,
         c, rl, lv = (torch.from_numpy(x).to(dev) for x in (codes, rlen,
                                                            live))
         t1 = clock()
-        q, v, nk = km.prefilter_sample(c, rl, k, nf)
+        b = pre_d(c, rl, lv)
         t2 = clock()
-        b = pre_q(q, v, nk > 0, lv)
-        t3 = clock()
-        parts["device"].append((t1 - t0, t2 - t1, t3 - t2))
+        parts["device"].append((t1 - t0, t2 - t1))
         if not torch.equal(a, b):
             fail("the split's device-sampled survivors differ")
-    med = {p: [1e3 * statistics.median(x[i] for x in v) for i in range(3)]
-           for p, v in parts.items()}
+    med = {p: [1e3 * statistics.median(x[i] for x in v)
+               for i in range(len(v[0]))] for p, v in parts.items()}
     B = 2 * Pd
-    log(f"[5] device-sampled pass (DTK_PREFILTER_HOSTQ=0, KK): pairs="
-        f"{npairs} wall={wall:.3f}s reads/s={2 * npairs / wall:.0f} "
-        f"(host-sampled: {2 * npairs / host_wall:.0f}); {len(surv)} "
-        f"dispatches' survivors, the count state, the referee's "
-        f"{r.n_referee} pairs and host counts = the host-sampled pass's; "
-        f"referee_s={r.referee_s:.3f} launches={launches}")
+    log(f"[5] device-sampled pass (DTK_PREFILTER_HOSTQ=0, KK's fused "
+        f"launch): pairs={npairs} wall={wall:.3f}s reads/s="
+        f"{2 * npairs / wall:.0f} (host-sampled: "
+        f"{2 * npairs / host_wall:.0f}); {len(surv)} dispatches' "
+        f"survivors, the count state, the referee's {r.n_referee} pairs and "
+        f"host counts = the host-sampled pass's; referee_s="
+        f"{r.referee_s:.3f} KB member launches {kb_member} (host-sampled "
+        f"pass: {kb_member_host}) launches={launches}")
     h, d = med["host"], med["device"]
     log(f"[5] prefilter split, median of 8 dispatches of {Pd} pairs "
         f"(host clock, synchronized apart): host-sampled "
         f"sample_queries_ms={h[0]:.3f} query_upload_ms={h[1]:.3f} "
         f"({B * nf * 9 + B + Pd} B) KB_decide_ms={h[2]:.3f} "
         f"total={sum(h):.3f}; device-sampled code_upload_ms={d[0]:.3f} "
-        f"({B * (L + 4) + Pd} B) KK_ms={d[1]:.3f} KB_decide_ms={d[2]:.3f} "
+        f"({B * (L + 4) + Pd} B) KK_fused_ms={d[1]:.3f} "
         f"total={sum(d):.3f}; phase_s={time.time() - t_phase:.1f}; "
         f"card {smi}")
     return launches
@@ -2563,7 +2609,8 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "KD": "KD assign_count", "KE": "KE thread_walk",
              "KF": "KF read_filter", "KG": "KG novel_edges",
              "KI": "KI sharded_lookup", "KJ": "KJ site_scorer",
-             "KK": "KK prefilter_sample"}
+             "KK": "KK prefilter_fused",
+             "KK[sample]": "KK[sample] prefilter_sample"}
     paths = {"warmup": res["wlaunches"],
              "counting": res["launches"],
              "counting_device_sampled": res["dlaunches"],

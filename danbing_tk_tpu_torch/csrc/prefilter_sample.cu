@@ -1,12 +1,13 @@
-// KK prefilter_sample: the nf evenly spaced canonical k-mers of each read
-// of a padded batch, the queries of the sampled-k-mer prefilter.
+// KK prefilter_sample: the sampled-k-mer prefilter of a padded batch of
+// read pairs, in two instances.
 //
 // Replaces K3's sampler, danbing_tk_tpu/engine/device_align.py:343
 // prefilter_sample (the TPU extracts every window's k-mer, K1, and gathers
-// the nf sampled ones with a one-hot matmul).  Here only the sampled
-// windows are read.  The arithmetic is ops/kmers_np.py's
-// sample_subfilter_queries (the reference subfilter,
-// aQueryFasta_thread.cpp:172-188):
+// the nf sampled ones with a one-hot matmul), and on the device-sampled
+// paths also K3's member probe and decision (:371 prefilter_decide, :379
+// make_prefilter_step).  Only the sampled windows are read.  The
+// arithmetic is ops/kmers_np.py's sample_subfilter_queries (the reference
+// subfilter, aQueryFasta_thread.cpp:172-188):
 //   nk = max(rlen - k + 1, 0), S = nk / (nf - 1),
 //   start j = j * S for j < nf - 1 and nk - 1 for the last sample,
 //   clipped to [0, L - k];
@@ -15,18 +16,50 @@
 //   EMPTY (-1) where not valid.
 // With nf = 1 the one start is nk - 1 (S is never read: no division).
 //
-// Bound on the H100: bytes.  Each input read once (B L code bytes and 4 B
-// of rlen a read) and each output written once (8 B of q and 1 B of valid
-// a sample, 4 B of nk a read); the arithmetic is O(k) a sample:
-//   * a thread a (read, sample): B nf threads, 256 a block; consecutive
-//     threads take consecutive samples of a read, so each store of the
-//     q and valid planes is contiguous across a warp;
-//   * the k code bytes of the window come from one row (L bytes), read
-//     through the read-only cache; the nf windows of a read share its
-//     row's sectors;
-//   * the sample j = 0 thread writes the read's nk, so every output byte
-//     is the kernel's (no fill launch).
-#include "common.cuh"
+// The fused instance (dtk_prefilter_fused, "KK"): the whole dispatch in
+// one launch whose only output is survive (P,) bool: a pair survives when
+// it is live and each mate has nk > 0 and >= nmf valid sampled k-mers in
+// the member table (the dbi table where the index has none).
+//
+// Bound on the H100: bytes.  Each input read once: 2 P L code bytes, 8 P
+// of rlen, P of live; P bytes of survive written; and each distinct table
+// row the decision probes (64 B at the member table's W = 2, 128 B at the
+// dbi's W = 4: level 0 for every valid query of a live pair with nonshort
+// mates, level l only for a miss at every level < l).  At the smoke's
+// dispatch (P = 16,384, L = 160, nf = 4) that is 5.41 MB of codes, rlen,
+// live and survive and ~13-20 MB of member rows: ~0.006-0.008 ms.  The
+// design keeps everything between the codes and the decision out of
+// device memory:
+//   * a warp takes 4 pairs (8 warps a block) and stages their 8 L code
+//     bytes into shared memory with 16-byte loads across its lanes (from
+//     the 16-B boundary below them to the one above), issued with their
+//     rlen and live loads, so the windows are built from shared memory
+//     and the rows arrive in one coalesced pass;
+//   * the warp's 8 nf queries (query w: pair w / 2 nf, u = w % 2 nf, mate
+//     u & 1, sample u / 2) are built by blocks of lpq lanes, the most
+//     that fit them in 32 lanes (one lane a query from nf = 3, tiles of 32
+//     queries from nf = 5), as the forward word alone (the reverse
+//     complement is its complement bit-reversed);
+//   * a ballot compacts a tile's valid queries, which one round probes
+//     with group_probe.cuh's layout (8 lanes a query, dtk_slot_match's one
+//     vector load a slot, bucket.cuh's salted hash), 8 queries a group in
+//     flight, so a tile's rows at each level are read at once;
+//   * the decision stays on the chip: shared counters of each (pair,
+//     mate)'s hits, read once every tile is probed.  A dead pair, a short
+//     mate or an nmf out of reach is decided before any row is probed;
+//   * why 4 pairs a warp: at a warp a pair (16,384 warps at the smoke's
+//     dispatch) each warp's fixed instructions (setup, staging,
+//     compaction, bookkeeping) held the kernel more than its windows or
+//     its probes did (PERF.md, Findings);
+//   * no q, valid, nk, found or value plane touches device memory; lane pp
+//     writes pair pp's byte.
+//
+// The sample-only instance (dtk_prefilter_sample, "KK[sample]") writes
+// q (B, nf) int64, valid and nk for a probe that must run elsewhere: the
+// sharded prefilter's collective probe over the ranks' row blocks (KI).
+// A thread a (read, sample), 256 a block; bound: B L code bytes and 4 B
+// of rlen a read in, 9 B a sample and 4 B of nk a read out.
+#include "group_probe.cuh"
 
 constexpr int KK_THREADS = 256;          // threads a block
 
@@ -74,5 +107,257 @@ DTK_EXPORT int dtk_prefilter_sample(const void* codes, const void* rlen,
                               KK_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)codes, (const int32_t*)rlen, B, (int)L, (int)k,
         (int)nf, (int64_t*)q, (uint8_t*)valid, (int32_t*)nk);
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The fused instance
+// ---------------------------------------------------------------------------
+
+constexpr int KKF_WARPS = 8;             // warps a block
+constexpr int KKF_PPW = 4;               // pairs a warp
+constexpr int KKF_FLIGHT = 8;            // queries a group probes at once
+constexpr size_t KKF_SMEM_MAX = 232448;  // a block's shared memory
+
+// Shared bytes a warp takes: its pairs' 2 KKF_PPW L code bytes with the
+// 16-B boundaries around them (up to 15 bytes each side), then 32 B of
+// compacted query lanes, 32 B of their (pair, mate) and 8 hit counters.
+__host__ __device__ inline int kkf_warp_bytes(int L) {
+    return ((2 * KKF_PPW * L + 47) & ~15) + 96;
+}
+
+// Copies the n bytes at g (of a tensor that ends at end) into sw; returns
+// where they start there.  With vec (the tensor starts on a 16-B
+// boundary) lane c loads the 16-B chunks c, c + 32, ... that cover them,
+// byte by byte only past the tensor's end.
+__device__ __forceinline__ const uint8_t* kkf_stage(
+    const uint8_t* __restrict__ g, const uint8_t* end, int n, bool vec,
+    uint8_t* sw, int lane) {
+    if (!vec) {
+        for (int i = lane; i < n; i += 32) sw[i] = __ldg(g + i);
+        return sw;
+    }
+    const int off = (int)((uintptr_t)g & 15);
+    const uint8_t* a = g - off;
+    const int nch = (off + n + 15) >> 4;
+    for (int c = lane; c < nch; c += 32) {
+        const uint8_t* x = a + 16 * c;
+        if (x + 16 <= end) {
+            *(uint4*)(sw + 16 * c) = __ldg((const uint4*)x);
+        } else {
+            for (int b = 0; b < 16 && x + b < end; ++b)
+                sw[16 * c + b] = __ldg(x + b);
+        }
+    }
+    return sw + off;
+}
+
+// The canonical k-mer of a window's forward 2-bit word (first code
+// highest): its reverse complement is the complement with the bits
+// reversed and each code's two bits put back in order.
+__device__ __forceinline__ uint64_t kk_canonical(uint64_t fwd, int k) {
+    uint64_t x = __brevll(~fwd);
+    x = ((x >> 1) & 0x5555555555555555ull) |
+        ((x & 0x5555555555555555ull) << 1);
+    const uint64_t rc = x >> (64 - 2 * k);
+    return rc < fwd ? rc : fwd;
+}
+
+// Sample j of a read from its staged row (the arithmetic above), built by
+// the lpq lanes of its query, a 2^n-lane block of the warp: lane seg of
+// them reads the window's codes [seg sl, (seg + 1) sl), sl = ceil(k /
+// lpq), and xor-shuffles merge the parts.  Every lane of the warp calls
+// it (have: the lane's query exists).  Returns whether the window is
+// valid, with *key its canonical k-mer in every lane of the query.
+__device__ __forceinline__ bool kk_window(const uint8_t* row, int rl, int nk,
+                                          int L, int k, int nf, int j,
+                                          bool have, int seg, int lpq,
+                                          uint64_t* key) {
+    int s = j == nf - 1 ? nk - 1 : j * (nk / (nf - 1));
+    const int last = L - k;
+    s = s < 0 ? 0 : (s > last ? last : s);
+    bool ok = have && s + k <= rl && s < nk;
+    const int sl = (k + lpq - 1) / lpq;
+    const int a = min(seg * sl, k), e = min(a + sl, k);
+    uint64_t f = 0;
+    if (ok) {
+#pragma unroll 4
+        for (int i = a; i < e; ++i) {
+            const uint32_t b = row[s + i];
+            ok &= b <= 3u;
+            f = (f << 2) | b;                    // past a bad code: unused
+        }
+        f <<= 2 * (k - e);
+    }
+    for (int o = 1; o < lpq; o <<= 1) {
+        f |= __shfl_xor_sync(DTK_FULL, f, o);
+        ok = __shfl_xor_sync(DTK_FULL, (int)ok, o) && ok;
+    }
+    *key = kk_canonical(f, k);
+    return ok;
+}
+
+// One group's probe of a key: whether slot s of its row at level l holds
+// it (no value planes are read).
+template <int VW>
+__device__ __forceinline__ bool kkf_match(const DtkLevels& lv, int l, int W,
+                                          int s, uint64_t key) {
+    const uint32_t lo = (uint32_t)key, hi = (uint32_t)(key >> 32);
+    uint32_t va, vb;
+    return dtk_slot_match<VW>(lv.t[l],
+                              dtk_bucket(lv.salt[l], lv.mask[l], 0, lo, hi,
+                                         0u),
+                              s, W, 0, 0, lo, hi, 0u, &va, &vb);
+}
+
+template <int VW>
+__global__ void __launch_bounds__(KKF_WARPS * 32)
+prefilter_fused_kernel(const uint8_t* __restrict__ codes,
+                       const int32_t* __restrict__ rlen,
+                       const uint8_t* __restrict__ live, int64_t P, int L,
+                       int k, int nf, int nmf, DtkLevels lv, int W, bool vec,
+                       uint8_t* __restrict__ survive) {
+    extern __shared__ __align__(16) uint8_t kkf_smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int64_t p0 =
+        ((int64_t)blockIdx.x * KKF_WARPS + warp) * KKF_PPW;
+    if (p0 >= P) return;                         // whole warps
+    const int np = (int)(P - p0 < KKF_PPW ? P - p0 : KKF_PPW);
+    // the pairs' row bytes are loaded with their rlen and live: lane
+    // 2 pp + m holds read (pp, m)'s rlen, lane pp pair pp's live
+    const int rl = lane < 2 * np ? rlen[2 * p0 + lane] : 0;
+    const bool lp = lane < np && live[p0 + lane] != 0;
+    const int wb = kkf_warp_bytes(L);
+    uint8_t* sw = kkf_smem + warp * wb;
+    uint8_t* ul = sw + wb - 96;                  // compacted query lanes
+    uint8_t* upm = ul + 32;                      // their 2 pair + mate
+    int* hits = (int*)(upm + 32);                // of each (pair, mate)
+    const uint8_t* rows = kkf_stage(codes + 2 * p0 * L, codes + 2 * P * L,
+                                    2 * np * L, vec, sw, lane);
+    if (lane < 2 * KKF_PPW) hits[lane] = 0;
+    const unsigned ns = __ballot_sync(DTK_FULL, rl - k + 1 > 0);
+    const unsigned lpm = __ballot_sync(DTK_FULL, lp);
+    unsigned alive = 0;                          // live, both mates nonshort
+#pragma unroll
+    for (int pp = 0; pp < KKF_PPW; ++pp)
+        if ((lpm >> pp & 1u) && (ns >> (2 * pp) & 3u) == 3u)
+            alive |= 1u << pp;
+    // decided before any row is probed: nmf <= 0 passes a live pair with
+    // nonshort mates, nmf > nf cannot be reached, a dead pair fails
+    if (nmf <= 0 || nmf > nf || !alive) {
+        if (lane < np)
+            survive[p0 + lane] = nmf <= 0 && (alive >> lane & 1u);
+        return;
+    }
+    __syncwarp();
+    // query w of the warp: pair w / nq, u = w % nq = 2 j + mate.  lpq =
+    // 2^lsh lanes build a query, the most that fit the warp's KKF_PPW nq
+    // queries in 32 lanes (1 from nf = 3), qt queries a tile
+    const int nq = 2 * nf, nw = KKF_PPW * nq;
+    int lsh = 0;
+    while (lsh < 5 && (nw << (lsh + 1)) <= 32) ++lsh;
+    const int lpq = 1 << lsh, qt = 32 >> lsh, ntile = (nw + qt - 1) / qt;
+    const int seg = lane & (lpq - 1), qi = lane >> lsh;
+    const int g = lane >> 3, s = lane & 7;
+    for (int t = 0; t < ntile; ++t) {
+        const int w = qt * t + qi, pp = w / nq, u = w - pp * nq;
+        const int pm = 2 * pp + (u & 1);
+        const int rlq = __shfl_sync(DTK_FULL, rl, pm < 32 ? pm : 31);
+        const bool have = w < nw && (alive >> pp & 1u);
+        uint64_t key;
+        const bool ok = kk_window(rows + (have ? pm : 0) * L, rlq,
+                                  max(rlq - k + 1, 0), L, k, nf, u >> 1,
+                                  have, seg, lpq, &key) && seg == 0;
+        const unsigned vb = __ballot_sync(DTK_FULL, ok);
+        __syncwarp();                            // the last tile's reads
+        if (ok) {
+            const int r = __popc(vb & ((1u << lane) - 1u));
+            ul[r] = (uint8_t)lane;
+            upm[r] = (uint8_t)pm;
+        }
+        __syncwarp();
+        const int nv = __popc(vb);
+        if (nv == 0) continue;
+        // one round probes every valid query of the tile (qt <= 32):
+        // group g takes compacted queries g + 4 f
+        uint64_t kq[KKF_FLIGHT];
+        unsigned act = 0;
+#pragma unroll
+        for (int f = 0; f < KKF_FLIGHT; ++f) {
+            const int c = g + 4 * f;
+            kq[f] = __shfl_sync(DTK_FULL, key, c < nv ? ul[c] : 0);
+            act |= (unsigned)(c < nv) << f;
+        }
+        unsigned hit = 0;
+        for (int l = 0; l < lv.n && __any_sync(DTK_FULL, act != 0); ++l) {
+            unsigned x = 0;
+#pragma unroll
+            for (int f = 0; f < KKF_FLIGHT; ++f)
+                if (act >> f & 1u)
+                    x |= (unsigned)kkf_match<VW>(lv, l, W, s, kq[f]) << f;
+#pragma unroll
+            for (int f = 0; f < KKF_FLIGHT; ++f) {
+                const unsigned h =
+                    __ballot_sync(DTK_FULL, x >> f & 1u) >> (g * 8);
+                if ((act >> f & 1u) && (h & 0xFFu)) {
+                    hit |= 1u << f;
+                    act &= ~(1u << f);
+                }
+            }
+        }
+        // lane 8 g counts its group's hits
+        if (s == 0) {
+#pragma unroll
+            for (int f = 0; f < KKF_FLIGHT; ++f)
+                if (hit >> f & 1u) atomicAdd(&hits[upm[g + 4 * f]], 1);
+        }
+    }
+    __syncwarp();
+    if (lane < np)
+        survive[p0 + lane] = (alive >> lane & 1u) && hits[2 * lane] >= nmf &&
+                             hits[2 * lane + 1] >= nmf;
+}
+
+// survive (P,) bool from codes (2P, L) u8, rlen (2P,) int32 and live (P,)
+// bool, probing a non-composite table of W u32 a slot (the member table,
+// W = 2, or the dbi, W = 4) given as bucket.cuh's dtk_levels arrays.
+DTK_EXPORT int dtk_prefilter_fused(const void* codes, const void* rlen,
+                                   const void* live, int64_t P, int64_t L,
+                                   int64_t k, int64_t nf, int64_t nmf,
+                                   const void* tabs, const void* nbs,
+                                   const void* salts, int64_t nlev,
+                                   int64_t W, void* survive, void* stream) {
+    DtkLevels lv;
+    if (k < 1 || k > 31 || L < k || L > (1 << 20) || nf < 1 ||
+        nf > (1 << 20) || W < 2 || !dtk_levels(&lv, tabs, nbs, salts, nlev))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)KKF_WARPS * kkf_warp_bytes((int)L);
+    if (smem > KKF_SMEM_MAX) return (int)cudaErrorInvalidValue;
+    if (P <= 0) return (int)cudaGetLastError();
+    // nmf only compares with counts in [0, nf]
+    const int m = (int)(nmf < 0 ? 0 : (nmf > nf + 1 ? nf + 1 : nmf));
+    const int VW = dtk_vector_width(lv, (int)W);
+    const bool vec = ((uintptr_t)codes & 15) == 0;
+    const int64_t per_block = (int64_t)KKF_WARPS * KKF_PPW;
+    const unsigned blocks = (unsigned)((P + per_block - 1) / per_block);
+    const cudaStream_t st = (cudaStream_t)stream;
+#define DTK_KKF_LAUNCH(V)                                                   \
+    do {                                                                    \
+        auto kernel = prefilter_fused_kernel<V>;                            \
+        if (smem > 48 * 1024) {                                             \
+            const cudaError_t e = cudaFuncSetAttribute(                     \
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,        \
+                (int)smem);                                                 \
+            if (e != cudaSuccess) return (int)e;                            \
+        }                                                                   \
+        kernel<<<blocks, KKF_WARPS * 32, smem, st>>>(                       \
+            (const uint8_t*)codes, (const int32_t*)rlen,                    \
+            (const uint8_t*)live, P, (int)L, (int)k, (int)nf, m, lv,        \
+            (int)W, vec, (uint8_t*)survive);                                \
+    } while (0)
+    if (VW == 4) DTK_KKF_LAUNCH(4);
+    else if (VW == 2) DTK_KKF_LAUNCH(2);
+    else DTK_KKF_LAUNCH(0);
+#undef DTK_KKF_LAUNCH
     return (int)cudaGetLastError();
 }

@@ -25,12 +25,18 @@ Pipeline per batch of P read pairs (2P reads, L columns):
           in-segment (k+1)-mer edges, bit-packed  (csrc/novel_edges.cu)
 
 The sampled-k-mer prefilter that runs before the step on 4P pairs takes
-its nf queries a read from the host sampler (make_prefilter_step_q) or,
-with DTK_PREFILTER_HOSTQ=0 and on the sharded runner, samples them on the
-card:
+its nf queries a read from the host sampler (make_prefilter_step_q: KB on
+the membership table, then prefilter_decide in torch ops) or, with
+DTK_PREFILTER_HOSTQ=0 and on the sharded runner, samples them on the card
+(make_prefilter_step):
 
-   -> KK  prefilter_sample (make_prefilter_step)   (csrc/prefilter_sample.cu)
-   -> KB  lookup_bucket on the membership table (or KI's collective probe)
+   -> KK  prefilter_fused_launcher: the sample, the membership probe
+          and the decision in one launch          (csrc/prefilter_sample.cu)
+
+and under a collective probe (the sharded index's row blocks):
+
+   -> KK[sample] prefilter_sample: the queries      (ops/kmers.py)
+   -> KI  the collective probe               (parallel/sharded_index.py)
    -> prefilter_decide                               (torch ops)
 
 In graph-threading mode (cfg.threading) KD stops at the tr_member and slot
@@ -69,7 +75,8 @@ from .._device import resolve_device
 from ..index import device_table as dt
 from ..kernels.build import (bind, check, kernel_lib, launched, ptr,
                              stream_of)
-from ..ops.kmers import EMPTY, extract_kmers, prefilter_sample
+from ..ops.kmers import (EMPTY, extract_kmers, prefilter_sample,
+                         prefilter_sample_plain)
 from .host_align import AlignConfig, RPGG
 
 NAN32 = 0xFFFFFFFF
@@ -1136,12 +1143,120 @@ def prefilter_decide(found, valid, nonshort, live, nmf: int, P: int):
     return (read_pass & nonshort).view(P, 2).all(1) & live
 
 
+def _prefilter_table(drp: DeviceRPGG, dev) -> dt.DevTable:
+    """The membership table on ``dev`` (the dbi table without one)."""
+    tabs = drp.tables(dev)
+    return tabs["member"] if "member" in tabs else tabs["dbi"]
+
+
 def _prefilter_probe(drp: DeviceRPGG, dev):
     """KB on the membership table (the dbi table without one): q ->
     found."""
-    tabs = drp.tables(dev)
-    ptab = tabs["member"] if "member" in tabs else tabs["dbi"]
+    ptab = _prefilter_table(drp, dev)
     return lambda q: dt.lookup_bucket(ptab, q)[0]
+
+
+def prefilter_fused_plain(codes, rlen, live, tab: dt.DevTable, k: int,
+                          nf: int, nmf: int):
+    """Plain torch version of KK's fused launch: the sampler's plain
+    version, KB's on ``tab``, then prefilter_decide.  codes (2P, L) u8,
+    rlen (2P,) int32, live (P,) bool -> survive (P,) bool."""
+    q, valid, nk = prefilter_sample_plain(codes, rlen, k, nf)
+    found = dt.lookup_bucket_plain(tab, q)[0]
+    return prefilter_decide(found, valid, nk > 0, live, nmf,
+                            codes.shape[0] // 2)
+
+
+KKF_WARPS = 8             # warps a block of KK's fused launch and
+KKF_PPW = 4               # pairs a warp (csrc/prefilter_sample.cu)
+KKF_SIG = "pppiiiii" + "pppi" + "ipp"     # dtk_prefilter_fused's arguments
+
+
+def prefilter_fused_work(codes, rlen, live, tab: dt.DevTable, k: int,
+                         nf: int, nmf: int) -> dict:
+    """What KK's fused launch (csrc/prefilter_sample.cu) reads on these
+    inputs, from the plain versions: every pair's 2 L code bytes, rlen
+    and live; a pair that is live with both mates nonshort and 1 <= nmf
+    <= nf probes every valid query of its mates.  A probed query reads
+    its level-0 row, and its level-l row after a miss at every level < l.
+
+    Returns dict(probed (2P, nf) bool, survive (P,) bool, pairs_probing
+    (the pairs that probe), rows [distinct rows per level], nbytes: 2P L
+    code bytes, 8P of rlen, P of live, P of survive and the distinct
+    rows' bytes)."""
+    B, L = codes.shape
+    P = B // 2
+    q, valid, nk = prefilter_sample_plain(codes, rlen, k, nf)
+    nonshort = nk > 0
+    probing = live & nonshort.view(P, 2).all(1) & (1 <= nmf <= nf)
+    probed = valid & probing.repeat_interleave(2)[:, None]
+    qp = q[probed]
+    lo, hi = qp & 0xFFFFFFFF, (qp >> 32) & 0xFFFFFFFF
+    need = torch.ones(qp.numel(), dtype=torch.bool, device=qp.device)
+    rows = []
+    for t, salt in zip(tab.levels, tab.salts):
+        b = dt.bucket_index(lo[need], hi[need], None, salt, t.shape[0])
+        rows.append(int(torch.unique(b).numel()))
+        sub = dt.DevTable([t], [salt], False, tab.nval)
+        need &= ~dt.lookup_bucket_plain(sub, qp)[0]
+    found = dt.lookup_bucket_plain(tab, q)[0]
+    nbytes = B * L + 4 * B + 2 * P + sum(rows) * 8 * tab.W * 4
+    return dict(probed=probed,
+                survive=prefilter_decide(found, valid, nonshort, live, nmf,
+                                         P),
+                pairs_probing=int(probing.sum()), rows=rows, nbytes=nbytes)
+
+
+def prefilter_fused_launcher(tab: dt.DevTable, k: int, nf: int, nmf: int):
+    """KK's fused launch with its table bound once: returns run(codes
+    (2P, L) u8, rlen (2P,) int32, live (P,) bool) -> survive (P,) bool,
+    the sampled-k-mer prefilter's decision (prefilter_fused_plain's).
+    For a table on the card the entry point and the table's level
+    arguments are resolved here, and each call allocates the survive
+    plane and makes one ctypes call; for a table on the CPU each call
+    runs prefilter_fused_plain.  The inputs must lie on the table's
+    device."""
+    if tab.composite:
+        raise ValueError("the prefilter probes a table keyed by k-mer alone")
+    if not 1 <= k <= 31 or nf < 1:
+        raise ValueError(f"unsupported k={k}, nf={nf}")
+    dev = tab.levels[0].device
+
+    def inputs(codes, rlen, live):
+        if codes.dtype != torch.uint8 or codes.dim() != 2 \
+                or codes.shape[0] % 2 or codes.shape[1] < k:
+            raise ValueError("codes must be a (2P, L >= k) uint8 tensor")
+        B = codes.shape[0]
+        if rlen.shape != (B,) or rlen.dtype != torch.int32 \
+                or live.shape != (B // 2,) or live.dtype != torch.bool:
+            raise ValueError("rlen must be (2P,) int32 and live (P,) bool")
+        if any(t.device != dev for t in (codes, rlen, live)):
+            raise ValueError(f"the prefilter's inputs must lie on {dev}, "
+                             f"its table's device")
+
+    if dev.type == "cpu":
+        def run(codes, rlen, live):
+            inputs(codes, rlen, live)
+            return prefilter_fused_plain(codes, rlen, live, tab, k, nf, nmf)
+
+        return run
+    fn = bind(kernel_lib("prefilter_sample"), "dtk_prefilter_fused",
+              KKF_SIG)
+    lv = dt.level_args(tab)
+
+    def run(codes, rlen, live):
+        inputs(codes, rlen, live)
+        codes, rlen, live = (t.contiguous() for t in (codes, rlen, live))
+        B, L = codes.shape
+        out = torch.empty(B // 2, dtype=torch.bool, device=dev)
+        check(fn(codes.data_ptr(), rlen.data_ptr(), live.data_ptr(), B // 2,
+                 L, k, nf, nmf, *lv, tab.W, out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream),
+              "prefilter_fused")
+        launched("KK")
+        return out
+
+    return run
 
 
 def make_prefilter_step_q(drp: DeviceRPGG, cfg: AlignConfig, P: int,
@@ -1173,23 +1288,36 @@ def make_prefilter_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
                         device=None, probe=None):
     """Prefilter over device-sampled queries (the JAX make_prefilter_step,
     the runner's DTK_PREFILTER_HOSTQ=0): the L-byte code rows go to the
-    card, KK samples the nf queries of each read, then the probe and the
-    decision of make_prefilter_step_q.  Decision-identical to it.
+    card, where KK's fused launch samples the nf queries of each read,
+    probes the membership table and decides (prefilter_fused_launcher,
+    bound here once).  With ``probe`` (q -> found: the sharded
+    prefilter's collective probe, whose queries must cross the ranks) KK's
+    sample-only instance writes the queries, then the probe and
+    prefilter_decide.  Decision-identical to make_prefilter_step_q.
 
     Returns step(codes (2P, L) u8, rlen (2P,) i32, live (P,) bool) ->
     survive (P,) bool on the device (``L`` None: any width)."""
     dev = resolve_device(device)
-    probe = probe or _prefilter_probe(drp, dev)
     k, nf, nmf = cfg.ksize, cfg.n_filter, cfg.nm_filter
+    fused = None
+    if probe is None:
+        fused = prefilter_fused_launcher(_prefilter_table(drp, dev), k, nf,
+                                         nmf)
 
     def step(codes, rlen, live):
         if L is not None and codes.shape[1] != L:
             raise ValueError(f"code rows of {codes.shape[1]} columns, not "
                              f"the step's L = {L}")
-        q, valid, nk = prefilter_sample(_as(codes, torch.uint8, dev),
-                                        _as(rlen, torch.int32, dev), k, nf)
-        return prefilter_decide(probe(q), valid, nk > 0,
-                                _as(live, torch.bool, dev), nmf, P)
+        if codes.shape[0] != 2 * P:
+            raise ValueError(f"{codes.shape[0]} code rows, not the step's "
+                             f"2P = {2 * P}")
+        codes = _as(codes, torch.uint8, dev)
+        rlen = _as(rlen, torch.int32, dev)
+        live = _as(live, torch.bool, dev)
+        if fused is not None:
+            return fused(codes, rlen, live)
+        q, valid, nk = prefilter_sample(codes, rlen, k, nf)
+        return prefilter_decide(probe(q), valid, nk > 0, live, nmf, P)
 
     return step
 

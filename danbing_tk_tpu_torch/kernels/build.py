@@ -50,12 +50,15 @@ KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
            "thread_walk", "read_filter", "novel_edges", "bias_correct",
            "sharded_lookup", "site_scorer", "prefilter_sample")
 
-# launches of each kernel (KA-KK: KERNELS in order, and KC's large-E
-# instances, which pair_vote.cu builds beside KC: the retry tier's, and the
-# global-workspace mode past a block's shared memory); its wrapper adds one
-# where it launches the kernel, and nowhere else
+# launches of each kernel (KA-KK: KERNELS in order, KK being the fused
+# prefilter launch; KC's large-E instances, which pair_vote.cu builds beside
+# KC: the retry tier's, and the global-workspace mode past a block's shared
+# memory; and KK's sample-only instance beside KK, under a collective
+# probe); its wrapper adds one where it launches the kernel, and nowhere
+# else
 LAUNCHES = dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF", "KG", "KH",
-                          "KI", "KJ", "KK", "KC[large-E]"), 0)
+                          "KI", "KJ", "KK", "KC[large-E]", "KK[sample]"),
+                         0)
 
 # no --use_fast_math: KH (bias_correct.cu) must divide and add in IEEE
 # round-to-nearest to give numpy's bytes
@@ -190,14 +193,14 @@ def build_ab(src: str, name: str):
     """``src`` (a kernel source of this or another checkout) built with
     NVCC_FLAGS into build/torch_kernels/ab/lib<name>.so, for same-call A/B
     timing; returns the loaded library and the lines of -Xptxas -v that
-    give registers."""
+    give registers and spills."""
     out = os.path.join(KERNEL_DIR, "ab", f"lib{name}.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     log = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", out, src],
                          check=True, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True).stdout
     return ctypes.CDLL(out), [x.strip() for x in log.splitlines()
-                              if "registers" in x]
+                              if "registers" in x or "spill" in x]
 
 
 def kernel_lib(name: str) -> ctypes.CDLL:
@@ -213,7 +216,8 @@ def kernel_lib(name: str) -> ctypes.CDLL:
 
 
 def launched(kernel: str) -> None:
-    """Counts one launch of ``kernel`` ("KA" ... "KK", "KC[large-E]")."""
+    """Counts one launch of ``kernel`` ("KA" ... "KK", "KC[large-E]",
+    "KK[sample]")."""
     LAUNCHES[kernel] += 1
 
 

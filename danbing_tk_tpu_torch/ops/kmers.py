@@ -8,9 +8,12 @@ compare as unsigned.
 
 ``extract_kmers`` launches the CUDA kernel ``csrc/kmers.cu`` for a CUDA
 tensor and runs ``extract_kmers_plain`` for a CPU tensor;
-``prefilter_sample`` (kernel KK, ``csrc/prefilter_sample.cu``) and
-``prefilter_sample_plain`` likewise give the sampled-k-mer prefilter's
-queries.
+``prefilter_sample`` (KK's sample-only instance, counted as "KK[sample]",
+``csrc/prefilter_sample.cu``) and ``prefilter_sample_plain`` likewise give
+the sampled-k-mer prefilter's queries, for a probe that runs apart (the
+sharded prefilter's collective probe); KK's fused launch, which also
+probes and decides, is engine/device_align.py's
+prefilter_fused_launcher.
 """
 
 from __future__ import annotations
@@ -184,7 +187,8 @@ def prefilter_sample(codes: torch.Tensor, rlen: torch.Tensor, k: int,
       q     (B, nf) int64  canonical k-mer, EMPTY where not valid
       valid (B, nf) bool   window of codes 0-3 inside the read, start < nk
       nk    (B,)    int32  number of k-mer positions (rlen-k+1, >= 0)
-    The decision reads ``nk > 0`` (kmers_np's nonshort)."""
+    The decision reads ``nk > 0`` (kmers_np's nonshort).  KK's
+    sample-only instance ("KK[sample]")."""
     if codes.device.type == "cpu":
         return prefilter_sample_plain(codes, rlen, k, nf)
     if codes.dtype != torch.uint8 or codes.dim() != 2:
@@ -203,5 +207,5 @@ def prefilter_sample(codes: torch.Tensor, rlen: torch.Tensor, k: int,
               "ppiiiipppp")
     check(fn(ptr(codes), ptr(rlen), B, L, k, nf, ptr(q), ptr(valid),
              ptr(nk), stream_of(codes)), "prefilter_sample")
-    launched("KK")
+    launched("KK[sample]")
     return q, valid, nk

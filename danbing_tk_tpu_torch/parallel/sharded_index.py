@@ -121,11 +121,13 @@ def make_sharded_prefilter(drp: da.DeviceRPGG, cfg: AlignConfig, mesh,
     """The prefilter with the dispatch, and with ``shard_index`` the
     member table, sharded over the ranks: step(codes (2P_global, L),
     rlen, live (P_global,)) -> survive (P_global,) on every rank.  Each
-    rank uploads the code rows of its slice, samples their queries on
-    the card (KK, as the JAX sharded prefilter's prefilter_sample),
-    probes them (collectively over the row blocks, or with KB on its
-    whole table) and decides (make_prefilter_step); the ranks' decisions
-    are all-gathered.  Returns (step, P_local)."""
+    rank uploads the code rows of its slice and decides them on the card
+    (make_prefilter_step, as the JAX sharded prefilter's
+    prefilter_sample and probe): with its whole member table, KK's fused
+    launch samples, probes and decides; with ``shard_index`` KK's
+    sample-only instance writes the queries, which cross the ranks in the
+    collective probe over the row blocks (KI), then the decision.  The
+    ranks' decisions are all-gathered.  Returns (step, P_local)."""
     from .mesh import gather_planes, local_rows
 
     if P_global % mesh.world:

@@ -142,18 +142,26 @@ def kf_bare(lib, kf_args):
     return lambda s: build.check(fn(*a, s), "read_filter"), out
 
 
+def graph_of(fn, args=()) -> torch.cuda.CUDAGraph:
+    """fn(*args) GRAPH times, captured in one CUDA graph, after three
+    calls outside it (so what a first call allocates is not captured)."""
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(GRAPH):
+            fn(*args)
+    return g
+
+
 def timers(launches: dict, stream) -> tuple:
     """For {side: launch(stream)}: the bare call of each side on
     ``stream``, and the replay of a CUDA graph of GRAPH launches."""
     bare = {s: (lambda f=f: f(stream)) for s, f in launches.items()}
-    replay = {}
-    for side, f in launches.items():
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            cs = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-            for _ in range(GRAPH):
-                f(cs)
-        replay[side] = g.replay
+    replay = {side: graph_of(lambda f=f: f(ctypes.c_void_p(
+                  torch.cuda.current_stream().cuda_stream))).replay
+              for side, f in launches.items()}
     return bare, replay
 
 

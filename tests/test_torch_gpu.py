@@ -22,7 +22,8 @@ from danbing_tk_tpu_torch.kernels import build
 from danbing_tk_tpu_torch.ops import kmers as km
 from test_torch_assign_count import kd_cases, kd_run
 from test_torch_kmers_filter_cases import (FLAGS, KF_MODES, ka_cases,
-                                           kf_args, kf_cases, kk_cases)
+                                           kf_args, kf_cases, kk_cases,
+                                           kkf_pairs)
 from test_torch_pair_vote import vote_cases
 from test_torch_site_scorer_cases import kj_args, kj_cases
 from test_torch_walk_edges_cases import (ke_args, ke_cases, ke_state,
@@ -93,7 +94,8 @@ def test_ka_adversarial_matches_plain(cuda, L, k):
 @pytest.mark.parametrize("L", [21, 150, 160, 192])
 @pytest.mark.parametrize("nf", [1, 2, 4, 7])
 def test_kk_adversarial_matches_plain(cuda, L, nf):
-    """KK equals prefilter_sample_plain on the seeded adversarial reads of
+    """KK's sample-only instance equals prefilter_sample_plain on the
+    seeded adversarial reads of
     tests/test_torch_kmers_filter_cases.kk_cases (reads shorter than k,
     rlen = L, Ns inside sampled windows, L = k: one window a read), an
     odd read count so the last block is partial."""
@@ -101,29 +103,37 @@ def test_kk_adversarial_matches_plain(cuda, L, nf):
     codes, rlen = kk_cases(7, 1001, L, k, nf)
     c = torch.from_numpy(codes).to(cuda)
     r = torch.from_numpy(rlen).to(cuda)
-    n0 = build.launch_counts()["KK"]
+    n0 = build.launch_counts()["KK[sample]"]
     got = km.prefilter_sample(c, r, k, nf)
-    assert build.launch_counts()["KK"] == n0 + 1
+    assert build.launch_counts()["KK[sample]"] == n0 + 1
     want = km.prefilter_sample_plain(c, r, k, nf)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert want[1].any()
 
 
+def _launched(fn, *args):
+    """fn(*args) and the launches it made, by kernel."""
+    n0 = build.launch_counts()
+    out = fn(*args)
+    n1 = build.launch_counts()
+    return out, {k_: n1[k_] - n0[k_] for k_ in n1 if n1[k_] != n0[k_]}
+
+
 def test_device_sampled_prefilter_on_cuda(cuda, drp, tmp_path, monkeypatch):
-    """make_prefilter_step (KK, KB member) equals make_prefilter_step_q
-    over the native host sampler on golden reads, one KK launch a
-    dispatch; the golden funnel with DTK_PREFILTER_HOSTQ=0 writes the
-    golden .trkmc.ar and launches KK."""
+    """make_prefilter_step (KK's fused launch) equals make_prefilter_step_q
+    over the native host sampler on golden reads, a dispatch being one KK
+    launch and no KB; the golden funnel with DTK_PREFILTER_HOSTQ=0 writes
+    the golden .trkmc.ar and launches KK."""
     from danbing_tk_tpu_torch.io.native_reader import sample_queries
 
     P, L = 1024, 160
     codes, rlen = _reads(P, L)
     live = np.ones(P, dtype=bool)
     cfg = AlignConfig(**KW)
-    n0 = build.launch_counts()["KK"]
-    got = da.make_prefilter_step(drp, cfg, P, L, cuda)(codes, rlen, live)
-    assert build.launch_counts()["KK"] == n0 + 1
+    step = da.make_prefilter_step(drp, cfg, P, L, cuda)
+    got, n = _launched(step, codes, rlen, live)
+    assert n == {"KK": 1}
     qlo, qhi, valid, nonshort = sample_queries(codes, rlen, 21, 4)
     want = da.make_prefilter_step_q(drp, cfg, P, cuda)(
         (qlo, qhi), valid, nonshort, live)
@@ -138,6 +148,80 @@ def test_device_sampled_prefilter_on_cuda(cuda, drp, tmp_path, monkeypatch):
     run.write_trkmc_ar(tmp_path / "out.trkmc.ar")
     with open(os.path.join(GOLDEN, "out.trkmc.ar"), "rb") as f:
         assert (tmp_path / "out.trkmc.ar").read_bytes() == f.read()
+
+
+def _shifted(tab):
+    """``tab`` with every level 4 bytes off its slot alignment: the
+    fused probe's scalar loads."""
+    levels = []
+    for t in tab.levels:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:].copy_(t.reshape(-1))
+        levels.append(buf[1:].view(t.shape))
+    return dt.DevTable(levels, tab.salts, tab.composite, tab.nval)
+
+
+@pytest.mark.parametrize("layout", ["L160", "L150", "codes_off16",
+                                    "scalar_levels"])
+@pytest.mark.parametrize("table", ["member", "dbi"])
+@pytest.mark.parametrize("nf", [1, 4, 17])
+def test_kk_fused_matches_plain(cuda, drp, table, nf, layout):
+    """KK's fused launch equals prefilter_fused_plain on the seeded
+    adversarial pairs of tests/test_torch_kmers_filter_cases.kkf_pairs
+    (golden pairs, short mates, Ns in sampled windows, dead pairs; an odd
+    pair count), on the member table (W = 2) and the dbi table (W = 4),
+    for nmf 0, 1, 2 and nf + 1: rows of L = 160 and 150 (pairs off a
+    16-B boundary), codes starting off a 16-B boundary (byte staging),
+    levels off their slot alignment (scalar probe); one KK launch each."""
+    L = 150 if layout == "L150" else 160
+    P = 1001
+    codes, rlen, live = kkf_pairs(5 + nf, P, L, nf)
+    tab = drp.tables(cuda)[table]
+    assert tab.W == (2 if table == "member" else 4)
+    if layout == "scalar_levels":
+        tab = _shifted(tab)
+    c = torch.from_numpy(codes).to(cuda)
+    if layout == "codes_off16":
+        buf = torch.empty(c.numel() + 16, dtype=torch.uint8, device=cuda)
+        c = buf[1:1 + c.numel()].view(c.shape)
+        c.copy_(torch.from_numpy(codes).to(cuda))
+        assert c.data_ptr() % 16
+    r = torch.from_numpy(rlen).to(cuda)
+    lv = torch.from_numpy(live).to(cuda)
+    for nmf in (0, 1, 2, nf + 1):
+        run = da.prefilter_fused_launcher(tab, 21, nf, nmf)
+        got, n = _launched(run, c, r, lv)
+        assert n == {"KK": 1}
+        want = da.prefilter_fused_plain(c, r, lv, tab, 21, nf, nmf)
+        assert got.dtype == torch.bool and torch.equal(got, want), nmf
+        if nmf == 1:
+            assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.parametrize("shard_index", [False, True])
+def test_sharded_prefilter_instances_on_cuda(cuda, drp, shard_index):
+    """The sharded prefilter at world 1 (NCCL): with the whole member
+    table one fused KK launch a dispatch; with the member table sharded
+    KK's sample-only instance and KI (the queries cross the ranks); the
+    same survivors as the host-sampled prefilter."""
+    from danbing_tk_tpu_torch.io.native_reader import sample_queries
+    from danbing_tk_tpu_torch.parallel import mesh as pm
+    from danbing_tk_tpu_torch.parallel import sharded_index as si
+
+    P, L = 512, 160
+    codes, rlen = _reads(P, L, off=2048)
+    live = np.ones(P, dtype=bool)
+    cfg = AlignConfig(**KW)
+    mesh = pm.make_mesh(device=cuda)
+    step, _ = si.make_sharded_prefilter(drp, cfg, mesh, P, L,
+                                        shard_index=shard_index)
+    got, n = _launched(step, codes, rlen, live)
+    assert n == ({"KK[sample]": 1, "KI": 1} if shard_index
+                 else {"KK": 1})
+    qlo, qhi, valid, nonshort = sample_queries(codes, rlen, 21, 4)
+    want = da.make_prefilter_step_q(drp, cfg, P, cuda)(
+        (qlo, qhi), valid, nonshort, live)
+    assert torch.equal(got, want) and bool(want.any())
 
 
 @pytest.mark.parametrize("NKW", [1, 2, 131, 140, 300, 2000])

@@ -159,11 +159,12 @@ def test_kernels_have_counters_and_notes():
 
     build.reset_launch_counts()
     counts = build.launch_counts()
-    # one count per kernel source, and KC's large-E instance beside KC
+    # one count per kernel source, KC's large-E instance beside KC and
+    # KK's sample-only instance beside KK (the fused launch)
     assert counts == dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF",
                                     "KG", "KH", "KI", "KJ", "KK",
-                                    "KC[large-E]"), 0)
-    assert len(counts) == len(build.KERNELS) + 1
+                                    "KC[large-E]", "KK[sample]"), 0)
+    assert len(counts) == len(build.KERNELS) + 2
     assert "bias_correct" in build.KERNELS
     assert "sharded_lookup" in build.KERNELS
     assert "site_scorer" in build.KERNELS

@@ -9,7 +9,9 @@ card.
   nc / edges setting.
 * KK (prefilter_sample_plain): ``kk_cases``, KA's rows with an N put
   inside a sampled window; tests/test_torch_prefilter_sample.py holds the
-  plain version to the JAX package's prefilter_sample.
+  plain version to the JAX package's prefilter_sample.  ``kkf_pairs``,
+  golden pairs with short mates, Ns in sampled windows and dead pairs,
+  for KK's fused launch (tests/test_torch_prefilter_fused.py).
 * KF (read_filter_plain): reads whose k-mers are all equal, a k-mer
   repeated 256 and 257 times (the u8 count wraps), quality-mask holes,
   EMPTY and fully masked reads, dst0 = nloci, pairs that are not dev
@@ -21,6 +23,7 @@ Every comparison is exact.  The module imports torch and the port only
 (the card's machine has no JAX); the JAX comparison imports it inside.
 """
 
+import os
 from collections import Counter
 
 import numpy as np
@@ -31,6 +34,7 @@ from danbing_tk_tpu_torch.engine import device_align as da
 from danbing_tk_tpu_torch.index import device_table as dt
 from danbing_tk_tpu_torch.ops import kmers as km
 
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 FLAGS = [dict(nc=nc, edges=e) for nc in (False, True) for e in (False, True)]
 
 
@@ -85,6 +89,38 @@ def kk_cases(seed: int, B: int, L: int, k: int, nf: int):
         off = (0, k - 1, int(rng.integers(k)))[r // 3 % 3]
         codes[r, starts[r, j] + off] = 255
     return codes, rlen
+
+
+def kkf_pairs(seed: int, P: int, L: int, nf: int, k: int = 21):
+    """Seeded (codes (2P, L) u8, rlen (2P,) i32, live (P,) bool): golden
+    pairs, and by p % 8: 1 a mate cut below k, 2 a 255 in one sampled
+    window of mate 1, 3 a 255 in every sampled window of mate 0, 4 both
+    mates from kk_cases, 5 mate 1 cut to a random length; every 7th pair
+    dead.  KK's fused launch is held to its plain version on them."""
+    seqs = [ln.strip() for ln in open(os.path.join(GOLDEN, "reads.fa"))
+            if not ln.startswith(">")]
+    rng = np.random.default_rng([seed, P, L, nf])
+    codes, rlen = km.pack_reads(seqs[: 2 * P], L)
+    adv_c, adv_r = kk_cases(seed, 2 * P, L, k, nf)
+    for p in range(P):
+        a, b = 2 * p, 2 * p + 1
+        kind = p % 8
+        if kind == 1:
+            rlen[a + int(rng.integers(2))] = int(rng.integers(0, k))
+        elif kind == 5:
+            rlen[b] = int(rng.integers(0, rlen[b] + 1))
+        elif kind == 4:
+            codes[a:b + 1], rlen[a:b + 1] = adv_c[a:b + 1], adv_r[a:b + 1]
+    starts = kk_starts(rlen, L, k, nf)
+    for p in range(P):
+        a, b = 2 * p, 2 * p + 1
+        if p % 8 == 2:
+            j = int(rng.integers(nf))
+            codes[b, starts[b, j] + int(rng.integers(k))] = 255
+        elif p % 8 == 3:
+            codes[a, starts[a] + int(rng.integers(k))] = 255
+    live = np.arange(P) % 7 != 6
+    return codes, rlen, live
 
 
 def _u64(lo, hi):

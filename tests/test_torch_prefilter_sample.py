@@ -8,20 +8,26 @@ JAX package.
   than k, rlen = L, Ns inside sampled windows), for nf = 1, 2 and 4, on
   the queries (JAX's (hi << 32) | lo), valid and nk; and a thread-by-
   thread emulation of csrc/prefilter_sample.cu equals it too;
-* the port's make_prefilter_step equals the JAX make_prefilter_step and
-  the port's make_prefilter_step_q (the native host sampler) on every
-  batch of tests/test_torch_device_align.py, for nf = 1, 2 and 4;
+* the port's make_prefilter_step (KK's fused route) equals the JAX
+  make_prefilter_step and the port's make_prefilter_step_q (the native
+  host sampler) on every batch of tests/test_torch_device_align.py, for
+  nf = 1, 2 and 4, on the member table and on a model without one (the
+  dbi table);
 * make_step at nf = 1 (-kf 1 x) equals the JAX make_step (its subfilter
   divided by nf - 1 = 0 on the CPU before);
 * the port's sharded prefilter at world 1 (a gloo group in this process),
-  with the member table sharded or whole, equals the JAX
-  make_sharded_prefilter on a one-device CPU mesh;
-* the runner with DTK_PREFILTER_HOSTQ=0 runs KK's plain version in its
-  prefilter (and warmup_steps warms it), and the golden counting funnel
-  and the CLI's okam -bu run write tests/golden/'s files byte for byte.
+  with the member table sharded (the sample-only instance and the
+  collective probe) or whole (the fused route), and with the dbi table
+  in its place, equals the JAX make_sharded_prefilter on a one-device CPU
+  mesh;
+* the runner with DTK_PREFILTER_HOSTQ=0 runs KK's fused route (its plain
+  version) in its prefilter (and warmup_steps warms it), and the golden
+  counting funnel and the CLI's okam -bu run write tests/golden/'s files
+  byte for byte.
 Every comparison is exact."""
 
 import contextlib
+import dataclasses
 import io
 import os
 
@@ -130,9 +136,21 @@ def test_sampler_refuses_nf0():
                             21, 0)
 
 
-@pytest.mark.parametrize("nf", NFS)
-def test_prefilter_step_matches_jax(models, batches, nf):
+def _dbi_only(models):
+    """The JAX and port models without a member table: the prefilter
+    probes the dbi table (W = 4)."""
     jd, td = models
+    return (dataclasses.replace(jd, member_tab=None),
+            tda.DeviceRPGG(td.nloci, td.dbi_tab, td.vv, td.trfl_tab, None,
+                           td.locus_offsets, td.nslots))
+
+
+@pytest.mark.parametrize("nf,table", [(nf, "member") for nf in NFS]
+                         + [(nf, "dbi") for nf in NFS],
+                         ids=[str(nf) for nf in NFS]
+                         + [f"{nf}-dbi" for nf in NFS])
+def test_prefilter_step_matches_jax(models, batches, nf, table):
+    jd, td = models if table == "member" else _dbi_only(models)
     jstep = jda.make_prefilter_step(jd, JCfg(**_kw(nf)), P, L)
     tstep = tda.make_prefilter_step(td, AlignConfig(**_kw(nf)), P, L, "cpu")
     qstep = tda.make_prefilter_step_q(td, AlignConfig(**_kw(nf)), P, "cpu")
@@ -174,9 +192,15 @@ def test_step_nf1_matches_jax(models, batches):
                                   tstate["stats"].numpy())
 
 
-@pytest.mark.parametrize("shard_index", [True, False])
-def test_sharded_prefilter_world1_matches_jax(models, batches, shard_index):
-    jd, td = models
+@pytest.mark.parametrize("shard_index,table",
+                         [(True, "member"), (False, "member"),
+                          (True, "dbi"), (False, "dbi")],
+                         ids=["True", "False", "True-dbi", "False-dbi"])
+def test_sharded_prefilter_world1_matches_jax(models, batches, shard_index,
+                                              table):
+    """shard_index: KK's sample-only instance and the collective probe;
+    without: KK's fused route (their plain versions here)."""
+    jd, td = models if table == "member" else _dbi_only(models)
     jmesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
     jstep, jP = jax_sharded_prefilter(jd, JCfg(**_kw(4)), jmesh, P, L)
     mesh = pm.make_mesh(device="cpu")
@@ -192,21 +216,24 @@ def test_sharded_prefilter_world1_matches_jax(models, batches, shard_index):
 
 
 def _count_sampler(monkeypatch):
+    """Counts the device-sampled dispatches (KK's fused launch, whose
+    plain version a CPU step runs) by their code rows' shape."""
     calls = []
-    orig = tda.prefilter_sample
+    orig = tda.prefilter_fused_plain
 
     def counted(*a):
         calls.append(a[0].shape)
         return orig(*a)
 
-    monkeypatch.setattr(tda, "prefilter_sample", counted)
+    monkeypatch.setattr(tda, "prefilter_fused_plain", counted)
     return calls
 
 
 def test_runner_hostq0_samples_on_the_device(monkeypatch):
     """DTK_PREFILTER_HOSTQ=0 is read when the prefilter is built: the
-    runner's prefilter (and warmup_steps' pass over it) samples with KK's
-    wrapper; the default samples on the host."""
+    runner's prefilter (and warmup_steps' pass over it) samples, probes
+    and decides through KK's fused launch; the default samples on the
+    host."""
     calls = _count_sampler(monkeypatch)
     rp = RPGG(os.path.join(GOLDEN, "pan"))
     monkeypatch.setenv("DTK_PREFILTER_HOSTQ", "0")

@@ -6,7 +6,7 @@
 Phases; any failure exits non-zero (nothing is caught and continued):
   1. environment: torch / CUDA / nvcc versions, the card and its power limit
   2. build through the code ``warmup`` runs (utils/compile_cache.py's
-     enable_compile_cache, kernels/build.py's build_all): the eleven CUDA
+     enable_compile_cache, kernels/build.py's build_all): the thirteen CUDA
      kernels (nvcc, -Xptxas -v) and the host runtime, threading and
      referee engines (g++), all compilers at once, each library's seconds;
      then the synthetic production-size index
@@ -22,13 +22,17 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      the same inputs at the main path's shapes (P = 4096 pairs, L = 160,
      k = 21, E = 512, prefilter dispatch 4P), on the production-size
      index: KA (the counting instance the step launches, and the
-     all-planes instance), KB (dbi, member, trfl), KC and KD, KK's
+     all-planes instance), KB (dbi, member, trfl), KC, KD, and KL (the
+     sub/k-filter) and KM (the per-pair tail and read statistics) replayed
+     on the step's captured inputs, KK's
      sample-only instance (KK[sample]) on the prefilter dispatch's reads
-     (its queries also equal to the host sampler's) and KK's fused launch
+     (its queries also equal to the host sampler's), KK's fused launch
      (sample, member probe and decision) on the same reads, with its
      bound from the rows it reads (engine/device_align.py
-     prefilter_fused_work) and
-     its CUDA-graph replay beside its window, and the device-sampled
+     prefilter_fused_work), and KK[q] (the probe and decision over the
+     host sampler's queries of the same reads: its survivors = the fused
+     launch's); KL's, KM's, KK's and KK[q]'s
+     CUDA-graph replays beside their windows, and the device-sampled
      dispatch's survivors equal to the host-sampled one's; exact
      equality required; CUDA-event times of kernel and plain version
      (median of 10 windows of 10 back-to-back calls); KC's live entries
@@ -96,11 +100,11 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      prefilter uploads the code rows and KK's fused launch samples,
      probes and decides) over a fresh copy of the view: every dispatch's
      survivor mask, the count state and the referee's pairs and host
-     counts equal to the first pass's, one KK launch a dispatch and no
-     KB launch on the member table, reads/s of both, and the first 8
-     dispatches' prefilter split (host-sampled: native sampler + query
-     upload + KB and decision; device-sampled: code upload + KK's fused
-     launch)
+     counts equal to the first pass's, one KK launch a dispatch (one
+     KK[q] a dispatch in the first pass) and no KB launch on the member
+     table in either, reads/s of both, and the first 8 dispatches'
+     prefilter split (host-sampled: native sampler + query upload +
+     KK[q]; device-sampled: code upload + KK's fused launch)
  5b. the Python ingest at full width: phase 5's first 65,536 pairs as a
      FASTA file through run_file (-ka) and run_file_native (prefilter),
      each over a fresh copy of phase 5's flat view: equal counts, resolved
@@ -126,7 +130,10 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      phase 5's flat view: reads/s, retried
      pairs, the referee share beside phase 5's and
      its resolved pairs, the collectives' ms per step, peak memory; KI and
-     KC[large-E] launched, KI's launches by table
+     KC[large-E] launched, KI's launches by table, KL[decide] once a
+     prefilter dispatch; then KL[decide] after KI (the collective member
+     probe of phase 3's host-sampled queries) against its plain version
+     and KK[q]'s survivors, timed (window and CUDA-graph replay)
   6. the production-size threading funnel (-gc 85 3): the index's graph
      table (the fa2kmers -g rule over the loci's sequences), built on the
      host in phase 2 and uploaded only now, so the counting phases never
@@ -177,8 +184,10 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      (failing when the temp disk cannot hold 8 samples' inputs and
      outputs), byte-equal to the host oracle, with each span's seconds and
      the device's share of the wall
-  9. the kernels line (JSON): KA-KK (KK: the fused prefilter launch), KC's
-     large-E instance and KK's sample-only instance; each
+  9. the kernels line (JSON): KA-KM (KK: the fused prefilter launch), KC's
+     large-E instance, KK's host-sampled (KK[q]) and sample-only
+     instances and KL's prefilter decision (KL[decide]); KL's and KM's
+     launches equal KA's on every path (a step launches each once); each
      kernel's ``launches`` is the sum over its paths' runs (per path in
      ``launches_by_path``: phase 3's warmup pass (``warmup``), the
      counting funnel's two passes (``counting``, host-sampled prefilter,
@@ -205,11 +214,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM HBM3, published peak
-COUNTING = ("KA", "KB", "KC", "KD")     # the counting path's kernels
+# the counting path's kernels
+COUNTING = ("KA", "KB", "KL", "KC", "KD", "KM")
 THREADING = COUNTING + ("KE",)
 OKAM = COUNTING + ("KF", "KG")          # -b -qc -bu adds KF and KG
-SHARDED = ("KA", "KC", "KD", "KI", "KK[sample]")  # shard_index: KI in
-                                    # place of KB, queries by KK[sample]
+SHARDED = ("KA", "KL", "KC", "KD", "KM", "KI", "KK[sample]",
+           "KL[decide]")            # shard_index: KI in place of KB,
+                                    # queries by KK[sample], KL[decide]
 BUILD_PRUNE = THREADING                 # build's align -g (run_file)
 QC = COUNTING + ("KF",)                 # qc's -e 1, -s 2 and -b maps
 BQ_NLOCI, BQ_COV, BQ_PROCS = 256, 2, 2  # phase 4c (b)'s scenario and run
@@ -574,7 +585,40 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
                  f"reads={B} counted_kmers={n_counted} slots={n_slots} "
                  f"grid: blocks={kd_blocks} warps={kd_warps} "
                  f"launches/step=1")
+    # KL and KM on the step's captured inputs (KM's counters into a
+    # scratch vector each), and each one's CUDA-graph replay: below ~10 us
+    # only a graph times a kernel
+    kl_args = cap["KL"]
+    kl = compare("KL pair_filter", lambda: da.pair_filter(*kl_args),
+                 lambda: da.pair_filter_plain(*kl_args),
+                 4 * B * NKW + 22 * P,
+                 f"P={P} NKW={NKW} nf=4 nmf=1 cth=20 blocks="
+                 f"{-(-P // 8)} of 8 warps launches/step=1")
+    km_args = cap["KM"]
+    sk = torch.zeros(9, dtype=torch.int64, device=dev)
+    sp = torch.zeros_like(sk)
+    da.step_tail(sk, *km_args)
+    da.step_tail_plain(sp, *km_args)
+    torch.cuda.synchronize()
+    if not torch.equal(sk, sp) or not bool(sk.any()):
+        fail(f"KM's stats {sk.tolist()} differ from the plain version's "
+             f"{sp.tolist()}")
+    km_ = compare("KM step_tail", lambda: da.step_tail(sk, *km_args),
+                  lambda: da.step_tail_plain(sp, *km_args),
+                  57 * P + 144,
+                  f"P={P} stats={sk.tolist()} (one call's) blocks="
+                  f"{-(-P // 256)} of 256 threads launches/step=1")
+    for name, r_, fn in (("KL", kl, lambda: da.pair_filter(*kl_args)),
+                         ("KM", km_, lambda: da.step_tail(sk, *km_args))):
+        r_["graph_ms"] = cuda_ms(graph_of(fn).replay, reps=5) / GRAPH
+        log(f"[3] {name} graph_ms={r_['graph_ms']:.4f} ({GRAPH} launches a "
+            f"CUDA graph, replayed) ms={r_['ms']:.4f} (window) bound_ms="
+            f"{r_['bound_ms']:.4f}; card {smi}")
     results = {
+        "KL": dict(kl, source="danbing_tk_tpu_torch/csrc/pair_filter.cu",
+                   replaces="danbing_tk_tpu/engine/device_align.py:597"),
+        "KM": dict(km_, source="danbing_tk_tpu_torch/csrc/step_tail.cu",
+                   replaces="danbing_tk_tpu/engine/device_align.py:1193"),
         "KA": dict(ka, source="danbing_tk_tpu_torch/csrc/kmers.cu",
                    replaces="danbing_tk_tpu/ops/kmers_jax.py:63"),
         "KB": dict(kb["dbi"],
@@ -632,10 +676,36 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     results["KK"] = dict(
         kk, source="danbing_tk_tpu_torch/csrc/prefilter_sample.cu",
         replaces="danbing_tk_tpu/engine/device_align.py:379")
-    pre_q = da.make_prefilter_step_q(drp, cfg, Pp, dev)
-    pre_d = da.make_prefilter_step(drp, cfg, Pp, L, dev)
+    # KK[q], the same probe and decision over the host sampler's queries
+    # of the same reads (the default prefilter's one launch a dispatch):
+    # its survivors = its plain version's = the fused launch's
     qv = torch.from_numpy(qvalid).to(dev)
     qn = torch.from_numpy(qnon).to(dev)
+    fused_q = da.prefilter_fused_q_launcher(mtab, 1)
+    if not torch.equal(fused_q(q_mem, qv, qn, pl), fused(pb_d, pr_d, pl)):
+        fail("KK[q]'s survivors differ from KK's fused launch's")
+    qwork = da.prefilter_fused_q_work(q_mem, qv, qn, pl, mtab, 1)
+    kkq = compare("KK[q] prefilter_fused_q",
+                  lambda: fused_q(q_mem, qv, qn, pl),
+                  lambda: da.prefilter_fused_q_plain(q_mem, qv, qn, pl,
+                                                     mtab, 1),
+                  qwork["nbytes"],
+                  f"P={Pp} nf=4 nmf=1 member W={mtab.W} survivors="
+                  f"{int(qwork['survive'].sum())} probed_queries="
+                  f"{int(qwork['probed'].sum())} distinct_rows="
+                  f"{qwork['rows']} bytes={qwork['nbytes']} "
+                  f"launches/dispatch=1 (host-sampled prefilter, the "
+                  f"single-card default)")
+    kkq["graph_ms"] = cuda_ms(graph_of(
+        lambda: fused_q(q_mem, qv, qn, pl)).replay, reps=5) / GRAPH
+    log(f"[3] KK[q] prefilter_fused_q graph_ms={kkq['graph_ms']:.4f} "
+        f"(KK graph_ms={kk['graph_ms']:.4f}) ms={kkq['ms']:.4f} (window) "
+        f"bound_ms={kkq['bound_ms']:.4f}; card {smi}")
+    results["KK[q]"] = dict(
+        kkq, source="danbing_tk_tpu_torch/csrc/prefilter_sample.cu",
+        replaces="danbing_tk_tpu/engine/device_align.py:415")
+    pre_q = da.make_prefilter_step_q(drp, cfg, Pp, dev)
+    pre_d = da.make_prefilter_step(drp, cfg, Pp, L, dev)
     if not torch.equal(pre_d(pb_d, pr_d, pl), pre_q(q_mem, qv, qn, pl)):
         fail("the device-sampled prefilter's survivors differ from the "
              "host-sampled one's")
@@ -643,7 +713,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     pre_dev_ms = cuda_ms(lambda: pre_d(pb_d, pr_d, pl))
     step_ms = cuda_ms(lambda: step(scratch, codes_d, rlen_d, live_d))
     log(f"[3] prefilter dispatch (Pp={Pp}, device tensors) "
-        f"ms={pre_ms:.4f} (host-sampled queries: KB + decision), "
+        f"ms={pre_ms:.4f} (host-sampled queries: KK[q]), "
         f"{pre_dev_ms:.4f} (code rows: KK's fused launch); full step "
         f"(P={P}) ms={step_ms:.4f}")
 
@@ -771,9 +841,9 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
 
     # ---- 5s. the sharded funnel (world-1 NCCL group) ----
     sharded = sharded_phase(args, dev, dict(
-        drp=drp, seqs=seqs, cap=cap, q_mem=q_mem, batches=batches, P=P, L=L,
-        E=E, k=k, RL=RL, cfg=cfg, reads_s=2 * npairs / wall,
-        ref_share=ref_share, flat=flat))
+        drp=drp, seqs=seqs, cap=cap, q_mem=q_mem, qvalid=qv, qnon=qn,
+        batches=batches, P=P, L=L, E=E, k=k, RL=RL, cfg=cfg,
+        reads_s=2 * npairs / wall, ref_share=ref_share, flat=flat, smi=smi))
 
     # ---- 6. production-size threading funnel ----
     (drp.graph_tab, n_graph), t_graph = tables.pop("graph")
@@ -1123,6 +1193,9 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     results["KC[large-E]"] = dict(
         sharded["KCL"], source="danbing_tk_tpu_torch/csrc/pair_vote.cu",
         replaces="danbing_tk_tpu/engine/device_align.py:618")
+    results["KL[decide]"] = dict(
+        sharded["KLD"], source="danbing_tk_tpu_torch/csrc/pair_filter.cu",
+        replaces="danbing_tk_tpu/engine/device_align.py:371")
     return dict(results=results, launches=launches, wlaunches=wlaunches,
                 dlaunches=dlaunches, tlaunches=tlaunches,
                 olaunches=olaunches, slaunches=sharded["launches"],
@@ -1195,12 +1268,13 @@ def device_sampled_pass(drp, flat, batches, cfg, P, L, E, dev, host,
     launch), over a fresh copy of the flat view: every dispatch's
     survivor mask, the device count state, the referee's pairs and its
     host counts equal the host-sampled pass's (``host``); KB's member
-    launches (its launches beyond two a step) none in this pass and one a
-    dispatch in the host-sampled one (``host_launches``); the reads/s of
-    both.  Then the first 8 dispatches through each prefilter's parts,
-    synchronized apart (host clock): host-sampled = native sampler +
-    query upload + KB and decision, device-sampled = code upload + KK's
-    fused launch.  Returns the pass's launches."""
+    launches (its launches beyond two a step) none in either pass, one KK
+    a dispatch in this pass and one KK[q] a dispatch in the host-sampled
+    one (``host_launches``); the reads/s of both.  Then the first 8
+    dispatches through each prefilter's parts, synchronized apart (host
+    clock): host-sampled = native sampler + query upload + KK[q],
+    device-sampled = code upload + KK's fused launch.  Returns the pass's
+    launches."""
     import statistics
 
     import numpy as np
@@ -1238,10 +1312,14 @@ def device_sampled_pass(drp, flat, batches, cfg, P, L, E, dev, host,
     kb_member = launches["KB"] - 2 * r.n_steps
     kb_member_host = host_launches["KB"] - 2 * host.n_steps
     if kb_member != 0 or launches["KK"] != len(surv) \
-            or kb_member_host != len(host_surv):
+            or kb_member_host != 0 or launches["KK[q]"] != 0 \
+            or host_launches["KK[q]"] != len(host_surv) \
+            or host_launches["KK"] != 0:
         fail(f"the prefilter dispatches launched KB on the member table "
-             f"{kb_member} times (host-sampled pass {kb_member_host}) and "
-             f"KK {launches['KK']} times for {len(surv)} dispatches")
+             f"{kb_member} times (host-sampled pass {kb_member_host}), KK "
+             f"{launches['KK']} times for {len(surv)} dispatches and "
+             f"KK[q] {host_launches['KK[q]']} times for {len(host_surv)} "
+             f"(host-sampled pass)")
     if len(surv) != len(host_surv) or not all(
             torch.equal(a, b) for a, b in zip(surv, host_surv)):
         fail("a dispatch's survivors differ between the device-sampled "
@@ -1294,12 +1372,13 @@ def device_sampled_pass(drp, flat, batches, cfg, P, L, E, dev, host,
         f"survivors, the count state, the referee's {r.n_referee} pairs and "
         f"host counts = the host-sampled pass's; referee_s="
         f"{r.referee_s:.3f} KB member launches {kb_member} (host-sampled "
-        f"pass: {kb_member_host}) launches={launches}")
+        f"pass: {kb_member_host}, KK[q] {host_launches['KK[q]']}) "
+        f"launches={launches}")
     h, d = med["host"], med["device"]
     log(f"[5] prefilter split, median of 8 dispatches of {Pd} pairs "
         f"(host clock, synchronized apart): host-sampled "
         f"sample_queries_ms={h[0]:.3f} query_upload_ms={h[1]:.3f} "
-        f"({B * nf * 9 + B + Pd} B) KB_decide_ms={h[2]:.3f} "
+        f"({B * nf * 9 + B + Pd} B) KKq_ms={h[2]:.3f} "
         f"total={sum(h):.3f}; device-sampled code_upload_ms={d[0]:.3f} "
         f"({B * (L + 4) + Pd} B) KK_fused_ms={d[1]:.3f} "
         f"total={sum(d):.3f}; phase_s={time.time() - t_phase:.1f}; "
@@ -2114,8 +2193,10 @@ def sharded_phase(args, dev, ctx) -> dict:
     against KB; (c) KC's large-E mode at E = 4096 and P = _tier_P(4096) on
     overflow pairs of the TR pool against pair_vote_plain; (d) phase 5's
     batches through ShardedAlignRunner(shard_index=True, expand_cap=512,
-    retry_expand=[4096]).  Returns the KI and KC[large-E] results and the
-    launches of (d)."""
+    retry_expand=[4096]), one KL[decide] a prefilter dispatch, then
+    KL[decide] after KI on phase 3's host-sampled queries against its
+    plain version.  Returns the KI, KC[large-E] and KL[decide] results
+    and the launches of (d)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2130,11 +2211,13 @@ def sharded_phase(args, dev, ctx) -> dict:
     from danbing_tk_tpu_torch.parallel import mesh as pm
     from danbing_tk_tpu_torch.parallel import sharded_index as si
     from danbing_tk_tpu_torch.parallel.runner import ShardedAlignRunner
+    from danbing_tk_tpu_torch.tools.ab_kmers_filter import GRAPH, graph_of
     from danbing_tk_tpu_torch.tools.scale_index import sample_read_batch
 
     drp, seqs, cap, q_mem, batches = (ctx["drp"], ctx["seqs"], ctx["cap"],
                                       ctx["q_mem"], ctx["batches"])
     P, L, E, k, RL = ctx["P"], ctx["L"], ctx["E"], ctx["k"], ctx["RL"]
+    smi = ctx["smi"]
     mesh = pm.make_mesh(device=dev)
     log(f"[5s] mesh: backend={dist.get_backend()} world={mesh.world} "
         f"rank={mesh.rank} device={mesh.device}")
@@ -2411,9 +2494,41 @@ def sharded_phase(args, dev, ctx) -> dict:
             f"D=4 slowest block ms={r_['ms']:.4f} bound_ms="
             f"{r_['bound_ms']:.4f}; D=1 ms={r_['d1_ms']:.4f} bound_ms="
             f"{r_['d1_bound_ms']:.4f} KB_ms={r_['d1_kb_ms']:.4f}")
+    # KL[decide] after KI: phase 3's host-sampled queries through the
+    # collective member probe, then the decision on the card against its
+    # plain version and the host-sampled prefilter's (KK[q]) survivors
+    if sl["KL[decide]"] != sl["KK[sample]"]:
+        fail(f"the sharded funnel decided {sl['KL[decide]']} of "
+             f"{sl['KK[sample]']} prefilter dispatches with KL[decide]")
+    q_mem, qv, qn = ctx["q_mem"], ctx["qvalid"], ctx["qnon"]
+    Pq, nfq = qn.shape[0] // 2, q_mem.shape[1]
+    mblk = si.device_block(drp, "member", 1, 0, dev)
+    found = si.lookup_bucket_sharded(*mblk, q_mem, group=mesh.group)[0]
+    pl = torch.ones(Pq, dtype=torch.bool, device=dev)
+    kld_args = (found, qv, qn, pl, 1, Pq)
+    got = da.prefilter_decision(*kld_args)
+    err = max_abs_err(got, da.prefilter_decide(*kld_args))
+    if err or not torch.equal(got, da.make_prefilter_step_q(
+            drp, ctx["cfg"], Pq, dev)(q_mem, qv, qn, pl)):
+        fail(f"KL[decide] after KI disagrees with its plain version (max "
+             f"|err| {err}) or with KK[q]'s survivors")
+    kld = dict(match=True, max_abs_err=err,
+               ms=cuda_ms(lambda: da.prefilter_decision(*kld_args)),
+               plain_ms=cuda_ms(lambda: da.prefilter_decide(*kld_args)),
+               bound_ms=(4 * nfq + 4) * Pq / HBM_BYTES_PER_MS,
+               bound_by="bytes", library_ms=None)
+    kld["graph_ms"] = cuda_ms(graph_of(
+        lambda: da.prefilter_decision(*kld_args)).replay, reps=5) / GRAPH
+    log(f"[5s-d] KL[decide] prefilter_decide after KI (member, world 1) "
+        f"P={Pq} nf={nfq} match=True max_abs_err={err} survivors="
+        f"{int(got.sum())} ms={kld['ms']:.4f} graph_ms="
+        f"{kld['graph_ms']:.4f} plain_ms={kld['plain_ms']:.4f} bound_ms="
+        f"{kld['bound_ms']:.4f} launches={sl['KL[decide]']} (one a "
+        f"dispatch); card {smi}")
     del srunner
     dist.destroy_process_group()
-    return dict(KI=ki_res["dbi"], KCL=kcl, launches=sl, ki_all=ki_res)
+    return dict(KI=ki_res["dbi"], KCL=kcl, KLD=kld, launches=sl,
+                ki_all=ki_res)
 
 
 def gt_file_equal(path: str, m) -> bool:
@@ -2610,7 +2725,11 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "KF": "KF read_filter", "KG": "KG novel_edges",
              "KI": "KI sharded_lookup", "KJ": "KJ site_scorer",
              "KK": "KK prefilter_fused",
-             "KK[sample]": "KK[sample] prefilter_sample"}
+             "KK[q]": "KK[q] prefilter_fused_q",
+             "KK[sample]": "KK[sample] prefilter_sample",
+             "KL": "KL pair_filter",
+             "KL[decide]": "KL[decide] prefilter_decide",
+             "KM": "KM step_tail"}
     paths = {"warmup": res["wlaunches"],
              "counting": res["launches"],
              "counting_device_sampled": res["dlaunches"],
@@ -2621,6 +2740,10 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "analysis": res["alaunches"],
              "build_prune": res["bq_launches"]["build_prune"],
              "qc": res["bq_launches"]["qc"]}
+    for path, c in paths.items():
+        if not c["KL"] == c["KM"] == c["KA"]:
+            fail(f"the {path} path launched KA {c['KA']}, KL {c['KL']} and "
+                 f"KM {c['KM']} times: a step launches each once")
     kern = [dict(name=names[t], route="cuda",
                  launches=sum(c[t] for c in paths.values()),
                  launches_by_path={p: c[t] for p, c in paths.items()},

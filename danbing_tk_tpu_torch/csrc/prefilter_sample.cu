@@ -54,6 +54,15 @@
 //   * no q, valid, nk, found or value plane touches device memory; lane pp
 //     writes pair pp's byte.
 //
+// The host-sampled instance (dtk_prefilter_fused_q, "KK[q]") replaces
+// K3's member probe and decision on the single-card default path (the
+// host sampler's queries, :415 make_prefilter_step_q): it reads q (2P,
+// nf) int64, valid (2P, nf) and nonshort (2P,) in place of the code rows
+// and runs the same probe round and decision in one launch.  Bound: bytes,
+// 9 B a query, 3 B a pair of nonshort and live, 1 B of survive and the
+// distinct rows probed (1.25 MB of planes and the same ~13-20 MB of
+// member rows at the smoke's dispatch).
+//
 // The sample-only instance (dtk_prefilter_sample, "KK[sample]") writes
 // q (B, nf) int64, valid and nk for a probe that must run elsewhere: the
 // sharded prefilter's collective probe over the ranks' row blocks (KI).
@@ -210,6 +219,50 @@ __device__ __forceinline__ bool kkf_match(const DtkLevels& lv, int l, int W,
                               s, W, 0, 0, lo, hi, 0u, &va, &vb);
 }
 
+// One round of a warp's probe (every lane calls it): the nv <= 32
+// compacted valid queries of a tile, query c's key held by lane ul[c] and
+// counted for (pair, mate) upm[c] of the warp.  Group g of 8 lanes (lane
+// s of it reading slot s of a row) takes queries g + 4 f, KKF_FLIGHT in
+// flight, level by level until each hits or the levels end, so a tile's
+// rows at a level are read at once; lane 8 g adds its group's hits.
+template <int VW>
+__device__ __forceinline__ void kkf_probe_round(const DtkLevels& lv, int W,
+                                                uint64_t key, int nv,
+                                                const uint8_t* ul,
+                                                const uint8_t* upm,
+                                                int* hits, int g, int s) {
+    uint64_t kq[KKF_FLIGHT];
+    unsigned act = 0;
+#pragma unroll
+    for (int f = 0; f < KKF_FLIGHT; ++f) {
+        const int c = g + 4 * f;
+        kq[f] = __shfl_sync(DTK_FULL, key, c < nv ? ul[c] : 0);
+        act |= (unsigned)(c < nv) << f;
+    }
+    unsigned hit = 0;
+    for (int l = 0; l < lv.n && __any_sync(DTK_FULL, act != 0); ++l) {
+        unsigned x = 0;
+#pragma unroll
+        for (int f = 0; f < KKF_FLIGHT; ++f)
+            if (act >> f & 1u)
+                x |= (unsigned)kkf_match<VW>(lv, l, W, s, kq[f]) << f;
+#pragma unroll
+        for (int f = 0; f < KKF_FLIGHT; ++f) {
+            const unsigned h =
+                __ballot_sync(DTK_FULL, x >> f & 1u) >> (g * 8);
+            if ((act >> f & 1u) && (h & 0xFFu)) {
+                hit |= 1u << f;
+                act &= ~(1u << f);
+            }
+        }
+    }
+    if (s == 0) {
+#pragma unroll
+        for (int f = 0; f < KKF_FLIGHT; ++f)
+            if (hit >> f & 1u) atomicAdd(&hits[upm[g + 4 * f]], 1);
+    }
+}
+
 template <int VW>
 __global__ void __launch_bounds__(KKF_WARPS * 32)
 prefilter_fused_kernel(const uint8_t* __restrict__ codes,
@@ -278,39 +331,7 @@ prefilter_fused_kernel(const uint8_t* __restrict__ codes,
         __syncwarp();
         const int nv = __popc(vb);
         if (nv == 0) continue;
-        // one round probes every valid query of the tile (qt <= 32):
-        // group g takes compacted queries g + 4 f
-        uint64_t kq[KKF_FLIGHT];
-        unsigned act = 0;
-#pragma unroll
-        for (int f = 0; f < KKF_FLIGHT; ++f) {
-            const int c = g + 4 * f;
-            kq[f] = __shfl_sync(DTK_FULL, key, c < nv ? ul[c] : 0);
-            act |= (unsigned)(c < nv) << f;
-        }
-        unsigned hit = 0;
-        for (int l = 0; l < lv.n && __any_sync(DTK_FULL, act != 0); ++l) {
-            unsigned x = 0;
-#pragma unroll
-            for (int f = 0; f < KKF_FLIGHT; ++f)
-                if (act >> f & 1u)
-                    x |= (unsigned)kkf_match<VW>(lv, l, W, s, kq[f]) << f;
-#pragma unroll
-            for (int f = 0; f < KKF_FLIGHT; ++f) {
-                const unsigned h =
-                    __ballot_sync(DTK_FULL, x >> f & 1u) >> (g * 8);
-                if ((act >> f & 1u) && (h & 0xFFu)) {
-                    hit |= 1u << f;
-                    act &= ~(1u << f);
-                }
-            }
-        }
-        // lane 8 g counts its group's hits
-        if (s == 0) {
-#pragma unroll
-            for (int f = 0; f < KKF_FLIGHT; ++f)
-                if (hit >> f & 1u) atomicAdd(&hits[upm[g + 4 * f]], 1);
-        }
+        kkf_probe_round<VW>(lv, W, key, nv, ul, upm, hits, g, s);
     }
     __syncwarp();
     if (lane < np)
@@ -359,5 +380,108 @@ DTK_EXPORT int dtk_prefilter_fused(const void* codes, const void* rlen,
     else if (VW == 2) DTK_KKF_LAUNCH(2);
     else DTK_KKF_LAUNCH(0);
 #undef DTK_KKF_LAUNCH
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The host-sampled instance
+// ---------------------------------------------------------------------------
+
+// The fused launch over the host sampler's queries ("KK[q]"): q and valid
+// (2P, nf) and nonshort (2P,) take the place of the code rows, so no row
+// is staged and no window built.  A warp takes KKF_PPW pairs as above;
+// their 2 KKF_PPW nf queries are contiguous in q, and a tile of 32 is one
+// coalesced load of keys (lane i query 32 t + i, its read i / nf of the
+// warp's); then the same compaction, probe round and decision.
+template <int VW>
+__global__ void __launch_bounds__(KKF_WARPS * 32)
+prefilter_fused_q_kernel(const int64_t* __restrict__ q,
+                         const uint8_t* __restrict__ valid,
+                         const uint8_t* __restrict__ nonshort,
+                         const uint8_t* __restrict__ live, int64_t P, int nf,
+                         int nmf, DtkLevels lv, int W,
+                         uint8_t* __restrict__ survive) {
+    __shared__ uint8_t kkq_ul[KKF_WARPS][32], kkq_upm[KKF_WARPS][32];
+    __shared__ int kkq_hits[KKF_WARPS][2 * KKF_PPW];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int64_t p0 =
+        ((int64_t)blockIdx.x * KKF_WARPS + warp) * KKF_PPW;
+    if (p0 >= P) return;                         // whole warps
+    const int np = (int)(P - p0 < KKF_PPW ? P - p0 : KKF_PPW);
+    uint8_t* ul = kkq_ul[warp];
+    uint8_t* upm = kkq_upm[warp];
+    int* hits = kkq_hits[warp];
+    // lane 2 pp + m holds read (pp, m)'s nonshort, lane pp pair pp's live
+    const bool ns = lane < 2 * np && nonshort[2 * p0 + lane] != 0;
+    const bool lp = lane < np && live[p0 + lane] != 0;
+    if (lane < 2 * KKF_PPW) hits[lane] = 0;
+    const unsigned nsm = __ballot_sync(DTK_FULL, ns);
+    const unsigned lpm = __ballot_sync(DTK_FULL, lp);
+    unsigned alive = 0;                          // live, both mates nonshort
+#pragma unroll
+    for (int pp = 0; pp < KKF_PPW; ++pp)
+        if ((lpm >> pp & 1u) && (nsm >> (2 * pp) & 3u) == 3u)
+            alive |= 1u << pp;
+    if (nmf <= 0 || nmf > nf || !alive) {
+        if (lane < np)
+            survive[p0 + lane] = nmf <= 0 && (alive >> lane & 1u);
+        return;
+    }
+    __syncwarp();
+    const int nw = 2 * np * nf;                  // the warp's queries
+    const int64_t qb = 2 * p0 * nf;
+    const int g = lane >> 3, s = lane & 7;
+    for (int t = 0; 32 * t < nw; ++t) {
+        const int w = 32 * t + lane, pm = w / nf;
+        const bool ok = w < nw && (alive >> (pm >> 1) & 1u) &&
+                        valid[qb + w] != 0;
+        const uint64_t key = ok ? (uint64_t)q[qb + w] : 0ull;
+        const unsigned vb = __ballot_sync(DTK_FULL, ok);
+        __syncwarp();                            // the last tile's reads
+        if (ok) {
+            const int r = __popc(vb & ((1u << lane) - 1u));
+            ul[r] = (uint8_t)lane;
+            upm[r] = (uint8_t)pm;
+        }
+        __syncwarp();
+        const int nv = __popc(vb);
+        if (nv == 0) continue;
+        kkf_probe_round<VW>(lv, W, key, nv, ul, upm, hits, g, s);
+    }
+    __syncwarp();
+    if (lane < np)
+        survive[p0 + lane] = (alive >> lane & 1u) && hits[2 * lane] >= nmf &&
+                             hits[2 * lane + 1] >= nmf;
+}
+
+// survive (P,) bool from q (2P, nf) int64, valid (2P, nf) bool, nonshort
+// (2P,) bool and live (P,) bool, probing a non-composite table of W u32 a
+// slot given as bucket.cuh's dtk_levels arrays.
+DTK_EXPORT int dtk_prefilter_fused_q(const void* q, const void* valid,
+                                     const void* nonshort, const void* live,
+                                     int64_t P, int64_t nf, int64_t nmf,
+                                     const void* tabs, const void* nbs,
+                                     const void* salts, int64_t nlev,
+                                     int64_t W, void* survive,
+                                     void* stream) {
+    DtkLevels lv;
+    if (nf < 1 || nf > (1 << 20) || W < 2 ||
+        !dtk_levels(&lv, tabs, nbs, salts, nlev))
+        return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)q & 7) return (int)cudaErrorMisalignedAddress;
+    if (P <= 0) return (int)cudaGetLastError();
+    const int m = (int)(nmf < 0 ? 0 : (nmf > nf + 1 ? nf + 1 : nmf));
+    const int VW = dtk_vector_width(lv, (int)W);
+    const int64_t per_block = (int64_t)KKF_WARPS * KKF_PPW;
+    const unsigned blocks = (unsigned)((P + per_block - 1) / per_block);
+    const cudaStream_t st = (cudaStream_t)stream;
+#define DTK_KKQ_LAUNCH(V)                                                   \
+    prefilter_fused_q_kernel<V><<<blocks, KKF_WARPS * 32, 0, st>>>(         \
+        (const int64_t*)q, (const uint8_t*)valid, (const uint8_t*)nonshort, \
+        (const uint8_t*)live, P, (int)nf, m, lv, (int)W, (uint8_t*)survive)
+    if (VW == 4) DTK_KKQ_LAUNCH(4);
+    else if (VW == 2) DTK_KKQ_LAUNCH(2);
+    else DTK_KKQ_LAUNCH(0);
+#undef DTK_KKQ_LAUNCH
     return (int)cudaGetLastError();
 }

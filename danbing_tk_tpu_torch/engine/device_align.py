@@ -9,7 +9,8 @@ Pipeline per batch of P read pairs (2P reads, L columns):
           mode reads them the forward k-mers (threading) and the
           (k+1)-mer edges (bubbles)                 (ops/kmers.py)
    -> KB  lookup_bucket on the kmerDBi table         (index/device_table.py)
-   -> subfilter / kfilter                            (torch ops)
+   -> KL  pair_filter: the subfilter's sampled hits, the k-mer filter,
+          pair_kf and the vote's use plane          (csrc/pair_filter.cu)
    -> KC  pair_vote: per-pair run table by k-mer, split CSR expansion of
           the vv-listed runs, per-locus totals, top / tie census,
           test1/test2, referee bits, dst0           (csrc/pair_vote.cu)
@@ -21,26 +22,30 @@ Pipeline per batch of P read pairs (2P reads, L columns):
    -> KD  assign_count: annotation (and the .kam ann plane with
           with_annot), the assignTRkmc scan, count atomics
                                                      (csrc/assign_count.cu)
+   -> KM  step_tail: hf, counted, dest and the nine read statistics
+                                                     (csrc/step_tail.cu)
    -> KG  novel_edges (with -bu): the tre probe of each counted mate's
           in-segment (k+1)-mer edges, bit-packed  (csrc/novel_edges.cu)
 
 The sampled-k-mer prefilter that runs before the step on 4P pairs takes
-its nf queries a read from the host sampler (make_prefilter_step_q: KB on
-the membership table, then prefilter_decide in torch ops) or, with
-DTK_PREFILTER_HOSTQ=0 and on the sharded runner, samples them on the card
-(make_prefilter_step):
+its nf queries a read from the host sampler (make_prefilter_step_q) or,
+with DTK_PREFILTER_HOSTQ=0 and on the sharded runner, samples them on the
+card (make_prefilter_step); either way one launch probes the membership
+table and decides:
 
+   -> KK[q] prefilter_fused_q_launcher: the host's queries
    -> KK  prefilter_fused_launcher: the sample, the membership probe
-          and the decision in one launch          (csrc/prefilter_sample.cu)
+          and the decision                        (csrc/prefilter_sample.cu)
 
 and under a collective probe (the sharded index's row blocks):
 
    -> KK[sample] prefilter_sample: the queries      (ops/kmers.py)
    -> KI  the collective probe               (parallel/sharded_index.py)
-   -> prefilter_decide                               (torch ops)
+   -> KL[decide] prefilter_decision                  (csrc/pair_filter.cu)
 
 In graph-threading mode (cfg.threading) KD stops at the tr_member and slot
-planes, and one launch follows:
+planes, and one launch follows before KM (which then counts only the
+pairs that walk clean):
 
    -> KE  thread_walk_graph: the (nc kmer, dst0) graph-table probe and the
           clean-walk DFA per mate, up to its first failure, and the
@@ -367,6 +372,79 @@ def _u32_unsigned_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """int64 whose signed order is the unsigned order of (hi << 32) | lo
     for u32 hi, lo held as int64."""
     return ((hi << 32) | lo) ^ _SIGN
+
+
+# ---------------------------------------------------------------------------
+# KL pair_filter (the sub/k-filter)
+# ---------------------------------------------------------------------------
+
+def pair_filter_plain(found, kvalid, nk, any_valid, live, nf: int, nmf: int,
+                      cth: int):
+    """Plain torch version of KL, the step's subfilter and k-mer filter
+    (the JAX make_step's K4).  found (2P, NKW) bool (KB's dbi probe,
+    before the kvalid mask), kvalid (2P, NKW) bool, nk (2P,) int32,
+    any_valid (2P,) bool, live (P,) bool.  Returns (found & kvalid, kf
+    (2P,) int32, nonshort (P,) bool, sub_drop (P,) bool, pair_kf (P,)
+    bool, use (2P, NKW) bool): nonshort is a live pair whose mates both
+    have a valid k-mer; sub_drop one of those that fails the subfilter
+    (>= nmf of each mate's nf sampled positions found); pair_kf one that
+    passes and has a mate with >= cth k-mers found (kf == 0); use the
+    found positions of such a mate of such a pair, KC's entries."""
+    P = live.shape[0]
+    dev = found.device
+    found = found & kvalid
+    pair_nonshort = any_valid.view(P, 2).all(1) & live
+    if nf and nmf:
+        # nf = 1 samples nk - 1 alone: S is never read (-kf 1 x)
+        S = nk // max(nf - 1, 1)
+        hits = torch.zeros(2 * P, dtype=torch.int64, device=dev)
+        for i in range(nf):
+            idx = i * S if i != nf - 1 else nk - 1
+            hits += _take(found, idx).long()
+        sub_pass = (hits >= nmf).view(P, 2).all(1)
+    else:
+        sub_pass = torch.ones(P, dtype=torch.bool, device=dev)
+    pair_sub = pair_nonshort & sub_pass
+    kf = (found.sum(1) < cth).int()
+    pair_kf = pair_sub & ~(kf.view(P, 2) == 1).all(1)
+    use = found & (kf == 0)[:, None] \
+        & pair_kf.repeat_interleave(2)[:, None]
+    return found, kf, pair_nonshort, pair_nonshort & ~pair_sub, pair_kf, use
+
+
+def pair_filter(found, kvalid, nk, any_valid, live, nf: int, nmf: int,
+                cth: int):
+    """KL: the sub/k-filter, a warp a pair (csrc/pair_filter.cu).  Same
+    contract as pair_filter_plain."""
+    if found.device.type == "cpu":
+        return pair_filter_plain(found, kvalid, nk, any_valid, live, nf,
+                                 nmf, cth)
+    R, NKW = found.shape
+    P = R // 2
+    if found.dtype != torch.bool or kvalid.dtype != torch.bool \
+            or kvalid.shape != (R, NKW) or R != 2 * P:
+        raise ValueError("pair_filter: found and kvalid are (2P, NKW) bool")
+    if nk.shape != (R,) or any_valid.shape != (R,) or live.shape != (P,) \
+            or any_valid.dtype != torch.bool or live.dtype != torch.bool:
+        raise ValueError("pair_filter: nk and any_valid (2P,), live (P,) "
+                         "bool")
+    dev = found.device
+    found, kvalid = found.contiguous(), kvalid.contiguous()
+    any_valid, live = any_valid.contiguous(), live.contiguous()
+    nk = nk.to(torch.int32).contiguous()
+    found_out = torch.empty_like(found)
+    use = torch.empty_like(found)
+    kf = torch.empty(R, dtype=torch.int32, device=dev)
+    nonshort, sub_drop, pair_kf = (torch.empty(P, dtype=torch.bool,
+                                               device=dev) for _ in range(3))
+    fn = bind(kernel_lib("pair_filter"), "dtk_pair_filter",
+              "ppppp" + "iiiii" + "pppppp" + "p")
+    check(fn(ptr(found), ptr(kvalid), ptr(nk), ptr(any_valid), ptr(live), P,
+             NKW, nf, nmf, cth, ptr(found_out), ptr(kf), ptr(nonshort),
+             ptr(sub_drop), ptr(pair_kf), ptr(use), stream_of(found)),
+          "pair_filter")
+    launched("KL")
+    return found_out, kf, nonshort, sub_drop, pair_kf, use
 
 
 # ---------------------------------------------------------------------------
@@ -894,6 +972,94 @@ def thread_walk_graph(state, graph, nc, dst0, kvalid, nk, dev_pair,
 
 
 # ---------------------------------------------------------------------------
+# KM step_tail (the per-pair tail and the read statistics)
+# ---------------------------------------------------------------------------
+
+def step_tail_plain(stats, live, nonshort, sub_drop, pair_kf, vote_pass,
+                    pack, dev_pair, qc_drop, kf, bf, rm, dst0, nloci: int,
+                    clean_pair=None):
+    """Plain torch version of KM, the step's per-pair tail (the JAX
+    make_step's hf, counted, nmate and dest) and its read statistics (K8's
+    nine counters).  live, nonshort, sub_drop, pair_kf (KL's), vote_pass,
+    dev_pair, qc_drop (P,) bool; pack (P,) uint8 (KC's referee bits); kf,
+    bf, rm (2P,) int32 (KL's, KF's and KD's); dst0 (P,) int64; clean_pair
+    (P,) bool in threading mode (KE's: only pairs that walk clean are
+    counted), else None.  Adds the counters into ``stats`` ((9,) int64)
+    in place and returns (hf (2P,) int32, counted (P,) bool, dest (P,)
+    int64)."""
+    P = live.shape[0]
+    referee = (pack & 1) != 0
+    pair_sub = nonshort & ~sub_drop
+    hf = ((pair_kf & ~vote_pass & ~referee).repeat_interleave(2)
+          & (kf == 0)).int()
+    rm_p = rm.view(P, 2)
+    counted = dev_pair & ~(rm_p == 1).all(1)
+    nmate = torch.where(counted, 2 - rm_p.sum(1), 0)
+    if clean_pair is not None:
+        # device-threaded pairs replace the assign-mode "counted" after
+        # nmate was taken from it, as in the JAX step
+        counted = dev_pair & clean_pair
+        nmate = torch.where(counted, nmate, 0)
+    dest = torch.where(counted, dst0, nloci)
+    kf_p = kf.view(P, 2)
+    stats += torch.stack([
+        2 * (live & ~referee).sum(),
+        (live & ~nonshort).sum(),
+        2 * sub_drop.sum(),
+        torch.where((pair_sub & ~referee)[:, None], kf_p, 0).sum(),
+        hf.sum(),
+        2 * dev_pair.sum(),
+        nmate.sum(),
+        torch.where(qc_drop, 2 - kf_p.sum(1), 0).sum(),
+        ((bf != 0) & (kf == 0)).sum(),
+    ]).long()
+    return hf, counted, dest
+
+
+def step_tail(stats, live, nonshort, sub_drop, pair_kf, vote_pass, pack,
+              dev_pair, qc_drop, kf, bf, rm, dst0, nloci: int,
+              clean_pair=None):
+    """KM: the per-pair tail and the read statistics, a thread a pair, one
+    64-bit atomic a block a counter (csrc/step_tail.cu).  Same contract as
+    step_tail_plain."""
+    if live.device.type == "cpu":
+        return step_tail_plain(stats, live, nonshort, sub_drop, pair_kf,
+                               vote_pass, pack, dev_pair, qc_drop, kf, bf,
+                               rm, dst0, nloci, clean_pair)
+    P = live.shape[0]
+    flags = [live, nonshort, sub_drop, pair_kf, vote_pass, dev_pair, qc_drop]
+    if clean_pair is not None:
+        flags.append(clean_pair)
+    if any(t.dtype != torch.bool or t.shape != (P,) for t in flags) \
+            or pack.dtype != torch.uint8 or pack.shape != (P,):
+        raise ValueError("step_tail: the pair planes are (P,) bool, pack "
+                         "(P,) uint8")
+    if any(t.dtype != torch.int32 or t.shape != (2 * P,)
+           for t in (kf, bf, rm)):
+        raise ValueError("step_tail: kf, bf and rm are (2P,) int32")
+    if dst0.dtype != torch.int64 or dst0.shape != (P,) \
+            or stats.dtype != torch.int64 or stats.shape != (9,) \
+            or not stats.is_contiguous():
+        raise ValueError("step_tail: dst0 (P,) int64, stats (9,) int64")
+    dev = live.device
+    flags = [t.contiguous() for t in flags]
+    pack = pack.contiguous()
+    kf, bf, rm, dst0 = (t.contiguous() for t in (kf, bf, rm, dst0))
+    hf = torch.empty(2 * P, dtype=torch.int32, device=dev)
+    counted = torch.empty(P, dtype=torch.bool, device=dev)
+    dest = torch.empty(P, dtype=torch.int64, device=dev)
+    fn = bind(kernel_lib("step_tail"), "dtk_step_tail",
+              "p" * 13 + "ii" + "pppp" + "p")
+    check(fn(*[ptr(t) for t in flags[:5]], ptr(pack), ptr(flags[5]),
+             ptr(flags[6]), *[ptr(t) for t in (kf, bf, rm, dst0)],
+             None if clean_pair is None else ptr(flags[7]), P, nloci,
+             ptr(hf), ptr(counted), ptr(dest), ptr(stats), stream_of(live)),
+          "step_tail")
+    launched("KM")
+    return hf, counted, dest
+
+
+# ---------------------------------------------------------------------------
 # KF read_filter (QC + bait)
 # ---------------------------------------------------------------------------
 
@@ -1137,23 +1303,42 @@ def query_int64(qlo, qhi) -> np.ndarray:
 
 def prefilter_decide(found, valid, nonshort, live, nmf: int, P: int):
     """The sampled-k-mer prefilter's decision (the JAX prefilter_decide,
-    with ``nonshort`` = nk > 0): a read passes with >= nmf valid sampled
-    k-mers found, a pair when both of its reads pass and it is live."""
+    with ``nonshort`` = nk > 0), KL[decide]'s plain version: a read passes
+    with >= nmf valid sampled k-mers found, a pair when both of its reads
+    pass and it is live."""
     read_pass = (found & valid).sum(1) >= nmf
     return (read_pass & nonshort).view(P, 2).all(1) & live
+
+
+def prefilter_decision(found, valid, nonshort, live, nmf: int, P: int):
+    """KL[decide]: prefilter_decide on the card, a thread a pair
+    (csrc/pair_filter.cu), after a probe that must run elsewhere (the
+    sharded index's collective probe).  found and valid (2P, nf) bool,
+    nonshort (2P,) bool, live (P,) bool -> survive (P,) bool."""
+    if found.device.type == "cpu":
+        return prefilter_decide(found, valid, nonshort, live, nmf, P)
+    nf = found.shape[1] if found.dim() == 2 else -1
+    if found.dtype != torch.bool or valid.dtype != torch.bool \
+            or found.shape != (2 * P, nf) or valid.shape != found.shape:
+        raise ValueError("prefilter_decision: found and valid are (2P, nf) "
+                         "bool")
+    if nonshort.shape != (2 * P,) or live.shape != (P,) \
+            or nonshort.dtype != torch.bool or live.dtype != torch.bool:
+        raise ValueError("prefilter_decision: nonshort (2P,), live (P,) "
+                         "bool")
+    args = [t.contiguous() for t in (found, valid, nonshort, live)]
+    out = torch.empty(P, dtype=torch.bool, device=found.device)
+    fn = bind(kernel_lib("pair_filter"), "dtk_prefilter_decide", "ppppiiipp")
+    check(fn(*[ptr(t) for t in args], P, nf, nmf, ptr(out),
+             stream_of(found)), "prefilter_decide")
+    launched("KL[decide]")
+    return out
 
 
 def _prefilter_table(drp: DeviceRPGG, dev) -> dt.DevTable:
     """The membership table on ``dev`` (the dbi table without one)."""
     tabs = drp.tables(dev)
     return tabs["member"] if "member" in tabs else tabs["dbi"]
-
-
-def _prefilter_probe(drp: DeviceRPGG, dev):
-    """KB on the membership table (the dbi table without one): q ->
-    found."""
-    ptab = _prefilter_table(drp, dev)
-    return lambda q: dt.lookup_bucket(ptab, q)[0]
 
 
 def prefilter_fused_plain(codes, rlen, live, tab: dt.DevTable, k: int,
@@ -1172,22 +1357,13 @@ KKF_PPW = 4               # pairs a warp (csrc/prefilter_sample.cu)
 KKF_SIG = "pppiiiii" + "pppi" + "ipp"     # dtk_prefilter_fused's arguments
 
 
-def prefilter_fused_work(codes, rlen, live, tab: dt.DevTable, k: int,
-                         nf: int, nmf: int) -> dict:
-    """What KK's fused launch (csrc/prefilter_sample.cu) reads on these
-    inputs, from the plain versions: every pair's 2 L code bytes, rlen
-    and live; a pair that is live with both mates nonshort and 1 <= nmf
-    <= nf probes every valid query of its mates.  A probed query reads
-    its level-0 row, and its level-l row after a miss at every level < l.
-
-    Returns dict(probed (2P, nf) bool, survive (P,) bool, pairs_probing
-    (the pairs that probe), rows [distinct rows per level], nbytes: 2P L
-    code bytes, 8P of rlen, P of live, P of survive and the distinct
-    rows' bytes)."""
-    B, L = codes.shape
-    P = B // 2
-    q, valid, nk = prefilter_sample_plain(codes, rlen, k, nf)
-    nonshort = nk > 0
+def _probed_rows(q, valid, nonshort, live, tab: dt.DevTable, nmf: int):
+    """What KK's probe reads on these queries: a pair that is live with
+    both mates nonshort and 1 <= nmf <= nf probes every valid query of its
+    mates; a probed query reads its level-0 row, and its level-l row after
+    a miss at every level < l.  Returns (probed (2P, nf) bool, the pairs
+    that probe, [distinct rows per level])."""
+    P, nf = live.shape[0], q.shape[1]
     probing = live & nonshort.view(P, 2).all(1) & (1 <= nmf <= nf)
     probed = valid & probing.repeat_interleave(2)[:, None]
     qp = q[probed]
@@ -1199,12 +1375,30 @@ def prefilter_fused_work(codes, rlen, live, tab: dt.DevTable, k: int,
         rows.append(int(torch.unique(b).numel()))
         sub = dt.DevTable([t], [salt], False, tab.nval)
         need &= ~dt.lookup_bucket_plain(sub, qp)[0]
+    return probed, int(probing.sum()), rows
+
+
+def prefilter_fused_work(codes, rlen, live, tab: dt.DevTable, k: int,
+                         nf: int, nmf: int) -> dict:
+    """What KK's fused launch (csrc/prefilter_sample.cu) reads on these
+    inputs, from the plain versions: every pair's 2 L code bytes, rlen
+    and live, and the rows its probe reads (_probed_rows).
+
+    Returns dict(probed (2P, nf) bool, survive (P,) bool, pairs_probing
+    (the pairs that probe), rows [distinct rows per level], nbytes: 2P L
+    code bytes, 8P of rlen, P of live, P of survive and the distinct
+    rows' bytes)."""
+    B, L = codes.shape
+    P = B // 2
+    q, valid, nk = prefilter_sample_plain(codes, rlen, k, nf)
+    nonshort = nk > 0
+    probed, probing, rows = _probed_rows(q, valid, nonshort, live, tab, nmf)
     found = dt.lookup_bucket_plain(tab, q)[0]
     nbytes = B * L + 4 * B + 2 * P + sum(rows) * 8 * tab.W * 4
     return dict(probed=probed,
                 survive=prefilter_decide(found, valid, nonshort, live, nmf,
                                          P),
-                pairs_probing=int(probing.sum()), rows=rows, nbytes=nbytes)
+                pairs_probing=probing, rows=rows, nbytes=nbytes)
 
 
 def prefilter_fused_launcher(tab: dt.DevTable, k: int, nf: int, nmf: int):
@@ -1259,27 +1453,116 @@ def prefilter_fused_launcher(tab: dt.DevTable, k: int, nf: int, nmf: int):
     return run
 
 
+def prefilter_fused_q_plain(q, valid, nonshort, live, tab: dt.DevTable,
+                            nmf: int):
+    """Plain torch version of KK[q]: KB's plain version on ``tab``, then
+    prefilter_decide.  q (2P, nf) int64, valid (2P, nf) bool, nonshort
+    (2P,) bool, live (P,) bool -> survive (P,) bool."""
+    return prefilter_decide(dt.lookup_bucket_plain(tab, q)[0], valid,
+                            nonshort, live, nmf, live.shape[0])
+
+
+KKQ_SIG = "ppppiii" + "pppi" + "ipp"      # dtk_prefilter_fused_q's arguments
+
+
+def prefilter_fused_q_work(q, valid, nonshort, live, tab: dt.DevTable,
+                           nmf: int) -> dict:
+    """What KK[q] reads on these inputs: every query (8 B) and its valid
+    byte, each pair's nonshort and live, and the rows its probe reads
+    (_probed_rows).  Returns the dict of prefilter_fused_work, nbytes
+    being 9 B a query, 3 B a pair in, P of survive and the distinct
+    rows' bytes."""
+    P = live.shape[0]
+    probed, probing, rows = _probed_rows(q, valid, nonshort, live, tab, nmf)
+    return dict(probed=probed,
+                survive=prefilter_fused_q_plain(q, valid, nonshort, live,
+                                                tab, nmf),
+                pairs_probing=probing, rows=rows,
+                nbytes=9 * q.numel() + 4 * P + sum(rows) * 8 * tab.W * 4)
+
+
+def prefilter_fused_q_launcher(tab: dt.DevTable, nmf: int):
+    """KK[q], KK's fused launch over the host sampler's queries
+    (csrc/prefilter_sample.cu dtk_prefilter_fused_q: the member probe and
+    the decision in one launch) with its table bound once: returns run(q
+    (2P, nf) int64, valid (2P, nf) bool, nonshort (2P,) bool, live (P,)
+    bool) -> survive (P,) bool (prefilter_fused_q_plain's).  For a table
+    on the CPU each call runs prefilter_fused_q_plain.  The inputs must
+    lie on the table's device."""
+    if tab.composite:
+        raise ValueError("the prefilter probes a table keyed by k-mer alone")
+    dev = tab.levels[0].device
+
+    def inputs(q, valid, nonshort, live):
+        if q.dtype != torch.int64 or q.dim() != 2 or q.shape[0] % 2 \
+                or q.shape[1] < 1:
+            raise ValueError("q must be a (2P, nf >= 1) int64 tensor")
+        B = q.shape[0]
+        if valid.shape != q.shape or valid.dtype != torch.bool \
+                or nonshort.shape != (B,) or nonshort.dtype != torch.bool \
+                or live.shape != (B // 2,) or live.dtype != torch.bool:
+            raise ValueError("valid must be (2P, nf), nonshort (2P,) and "
+                             "live (P,) bool")
+        if any(t.device != dev for t in (q, valid, nonshort, live)):
+            raise ValueError(f"the prefilter's inputs must lie on {dev}, "
+                             f"its table's device")
+
+    if dev.type == "cpu":
+        def run(q, valid, nonshort, live):
+            inputs(q, valid, nonshort, live)
+            return prefilter_fused_q_plain(q, valid, nonshort, live, tab,
+                                           nmf)
+
+        return run
+    fn = bind(kernel_lib("prefilter_sample"), "dtk_prefilter_fused_q",
+              KKQ_SIG)
+    lv = dt.level_args(tab)
+
+    def run(q, valid, nonshort, live):
+        inputs(q, valid, nonshort, live)
+        q, valid, nonshort, live = (t.contiguous()
+                                    for t in (q, valid, nonshort, live))
+        B, nf = q.shape
+        out = torch.empty(B // 2, dtype=torch.bool, device=dev)
+        check(fn(q.data_ptr(), valid.data_ptr(), nonshort.data_ptr(),
+                 live.data_ptr(), B // 2, nf, nmf, *lv, tab.W,
+                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+              "prefilter_fused_q")
+        launched("KK[q]")
+        return out
+
+    return run
+
+
 def make_prefilter_step_q(drp: DeviceRPGG, cfg: AlignConfig, P: int,
                           device=None, probe=None):
     """Prefilter over host-sampled queries (kmers_np.sample_subfilter_
-    queries / io.native_reader.sample_queries): KB on the membership
-    table, then the decision in torch ops.  ``probe`` (q -> found)
-    replaces KB: the sharded prefilter's collective probe.
+    queries / io.native_reader.sample_queries): KK[q], the member probe
+    and the decision in one launch (prefilter_fused_q_launcher, bound here
+    once).  With ``probe`` (q -> found: the sharded prefilter's collective
+    probe) the probe, then KL[decide] (prefilter_decision).
 
     Returns step(q (2P, nf) int64, valid (2P, nf) bool, nonshort (2P,)
     bool, live (P,) bool) -> survive (P,) bool on the device.  ``q`` may
     also be given as its u32 (lo, hi) planes, a tuple."""
     dev = resolve_device(device)
-    probe = probe or _prefilter_probe(drp, dev)
     nmf = cfg.nm_filter
+    fused = None
+    if probe is None:
+        fused = prefilter_fused_q_launcher(_prefilter_table(drp, dev), nmf)
 
     def step(q, valid, nonshort, live):
         if isinstance(q, tuple):
             q = query_int64(*q)
+        if q.shape[0] != 2 * P:
+            raise ValueError(f"{q.shape[0]} query rows, not the step's "
+                             f"2P = {2 * P}")
         q = _as(q, torch.int64, dev)
-        return prefilter_decide(probe(q), _as(valid, torch.bool, dev),
-                                _as(nonshort, torch.bool, dev),
-                                _as(live, torch.bool, dev), nmf, P)
+        valid, nonshort, live = (_as(x, torch.bool, dev)
+                                 for x in (valid, nonshort, live))
+        if fused is not None:
+            return fused(q, valid, nonshort, live)
+        return prefilter_decision(probe(q), valid, nonshort, live, nmf, P)
 
     return step
 
@@ -1292,8 +1575,8 @@ def make_prefilter_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
     probes the membership table and decides (prefilter_fused_launcher,
     bound here once).  With ``probe`` (q -> found: the sharded
     prefilter's collective probe, whose queries must cross the ranks) KK's
-    sample-only instance writes the queries, then the probe and
-    prefilter_decide.  Decision-identical to make_prefilter_step_q.
+    sample-only instance writes the queries, then the probe and KL[decide]
+    (prefilter_decision).  Decision-identical to make_prefilter_step_q.
 
     Returns step(codes (2P, L) u8, rlen (2P,) i32, live (P,) bool) ->
     survive (P,) bool on the device (``L`` None: any width)."""
@@ -1317,7 +1600,7 @@ def make_prefilter_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
         if fused is not None:
             return fused(codes, rlen, live)
         q, valid, nk = prefilter_sample(codes, rlen, k, nf)
-        return prefilter_decide(probe(q), valid, nk > 0, live, nmf, P)
+        return prefilter_decision(probe(q), valid, nk > 0, live, nmf, P)
 
     return step
 
@@ -1374,32 +1657,16 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
             found, val, annv = probe_fns["dbi"](kmer)
         else:
             found, val, annv = dt.lookup_bucket(tabs["dbi"], kmer)
-        found = found & kvalid
-        pair_nonshort = ex["any_valid"].view(P, 2).all(1) & live
 
         # ---- subfilter / kfilter (K4) ----
-        if nf and nmf:
-            # nf = 1 samples nk - 1 alone: S is never read (-kf 1 x)
-            S = nk // max(nf - 1, 1)
-            hits = torch.zeros(2 * P, dtype=torch.int64, device=dev)
-            for i in range(nf):
-                idx = i * S if i != nf - 1 else nk - 1
-                hits += _take(found, idx).long()
-            sub_pass = (hits >= nmf).view(P, 2).all(1)
-        else:
-            sub_pass = torch.ones(P, dtype=torch.bool, device=dev)
-        pair_sub = pair_nonshort & sub_pass
-        kf = (found.sum(1) < cth).int()
-        pair_kf = pair_sub & ~(kf.view(P, 2) == 1).all(1)
-        use = found & (kf == 0)[:, None] \
-            & pair_kf.repeat_interleave(2)[:, None]
+        kl_args = (found, kvalid, nk, ex["any_valid"], live, nf, nmf, cth)
+        found, kf, pair_nonshort, sub_drop, pair_kf, use = pair_filter(
+            *kl_args)
 
         # ---- vote (K5) ----
         dst0, vote_pass, pack = pair_vote(kmer, val, use, pair_kf,
                                           tabs["vv"], E, cth)
         referee = (pack & 1) != 0
-        hf = ((pair_kf & ~vote_pass & ~referee).repeat_interleave(2)
-              & (kf == 0)).int()
 
         # ---- QC (K10) and bait (K9) ----
         bf_pair = None
@@ -1433,48 +1700,37 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
         if capture is not None:
             capture.update(
                 KA=(codes, rlen, k, threading, has_tre),
-                KB_dbi=(tabs["dbi"], kmer),
+                KB_dbi=(tabs["dbi"], kmer), KL=kl_args,
                 KC=(kmer, val, use, pair_kf, tabs["vv"], E, cth),
                 KB_trfl=(tabs["trfl"], pq, pq_loc), KD=kd_args)
         a = assign_count(state, *kd_args)
-        rm_p = a["rm"].view(P, 2)
-        counted = dev_pair & ~(rm_p == 1).all(1)
-        nmate = torch.where(counted, 2 - rm_p.sum(1), 0)
-        thr_out = {}
+        thr_out, clean_pair = {}, None
         if threading:
             # ---- DFA walk (K12): KE probes the graph table at (nc, dst0)
-            # as it walks; device-threaded pairs replace the assign-mode
-            # "counted" after nmate was taken from it, as in the JAX step
+            # as it walks
             tr_member = a.pop("tr_member")
             ke_args = (tabs["graph"], ex["nc"], dst0, kvalid, nk, dev_pair,
                        tr_member, a.pop("slot"))
             if capture is not None:
                 capture["KE"] = ke_args
             clean, clean_pair = thread_walk_graph(state, *ke_args)
-            counted = dev_pair & clean_pair
-            nmate = torch.where(counted, nmate, 0)
             thr_out = dict(clean=clean, clean_pair=clean_pair,
                            tr_member=tr_member)
-        dest = torch.where(counted, dst0, nloci)
-        kf_p = kf.view(P, 2)
-        state["stats"] += torch.stack([
-            2 * (live & ~referee).sum(),
-            (live & ~pair_nonshort).sum(),
-            2 * (pair_nonshort & ~pair_sub).sum(),
-            torch.where((pair_sub & ~referee)[:, None], kf_p, 0).sum(),
-            hf.sum(),
-            2 * dev_pair.sum(),
-            nmate.sum(),
-            torch.where(qc_drop, 2 - kf_p.sum(1), 0).sum(),
-            ((bf != 0) & (kf == 0)).sum(),
-        ]).long()
+
+        # ---- the per-pair tail and the read statistics (K8) ----
+        km_args = (live, pair_nonshort, sub_drop, pair_kf, vote_pass, pack,
+                   dev_pair, qc_drop, kf, bf, a["rm"], dst0, nloci,
+                   clean_pair)
+        if capture is not None:
+            capture["KM"] = km_args
+        hf, counted, dest = step_tail(state["stats"], *km_args)
         out = dict(
             pair_alive=pair_kf, vote_pass=vote_pass, referee=referee,
             referee_tie=(pack & 2) != 0, referee_ovf=(pack & 4) != 0,
             referee_t2=(pack & 8) != 0, referee_pack=pack,
             dst0=dst0, counted=counted, dest=dest, qc_drop=qc_drop,
             bf=bf, kf=kf, hf=hf, nk=nk,
-            sub_drop=pair_nonshort & ~pair_sub, nonshort=pair_nonshort,
+            sub_drop=sub_drop, nonshort=pair_nonshort,
             **a, **thr_out)
         if has_tre:
             # ---- bubbles (K11): novel (k+1)-mer edges of counted mates

@@ -48,17 +48,20 @@ NATIVE_SRCS = {"native": os.path.join(ROOT, "native", "dtk_native.cpp"),
 
 KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
            "thread_walk", "read_filter", "novel_edges", "bias_correct",
-           "sharded_lookup", "site_scorer", "prefilter_sample")
+           "sharded_lookup", "site_scorer", "prefilter_sample",
+           "pair_filter", "step_tail")
 
-# launches of each kernel (KA-KK: KERNELS in order, KK being the fused
-# prefilter launch; KC's large-E instances, which pair_vote.cu builds beside
-# KC: the retry tier's, and the global-workspace mode past a block's shared
-# memory; and KK's sample-only instance beside KK, under a collective
+# launches of each kernel (KA-KM: KERNELS in order, KK being the fused
+# prefilter launch), and of the instances a source builds beside its
+# kernel: KC's large-E instances (the retry tier's, and the
+# global-workspace mode past a block's shared memory), KK's host-sampled
+# instance (the default prefilter) and its sample-only one (under a
+# collective probe), and KL's prefilter decision (after a collective
 # probe); its wrapper adds one where it launches the kernel, and nowhere
 # else
 LAUNCHES = dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF", "KG", "KH",
-                          "KI", "KJ", "KK", "KC[large-E]", "KK[sample]"),
-                         0)
+                          "KI", "KJ", "KK", "KL", "KM", "KC[large-E]",
+                          "KK[q]", "KK[sample]", "KL[decide]"), 0)
 
 # no --use_fast_math: KH (bias_correct.cu) must divide and add in IEEE
 # round-to-nearest to give numpy's bytes
@@ -216,8 +219,7 @@ def kernel_lib(name: str) -> ctypes.CDLL:
 
 
 def launched(kernel: str) -> None:
-    """Counts one launch of ``kernel`` ("KA" ... "KK", "KC[large-E]",
-    "KK[sample]")."""
+    """Counts one launch of ``kernel`` (a key of LAUNCHES)."""
     LAUNCHES[kernel] += 1
 
 

@@ -26,6 +26,8 @@ from test_torch_kmers_filter_cases import (FLAGS, KF_MODES, ka_cases,
                                            kkf_pairs)
 from test_torch_pair_vote import vote_cases
 from test_torch_site_scorer_cases import kj_args, kj_cases
+from test_torch_step_tail_cases import (kl_args, kl_cases, kld_args,
+                                        kld_cases, km_args, km_cases)
 from test_torch_walk_edges_cases import (ke_args, ke_cases, ke_state,
                                          kg_args, kg_cases)
 
@@ -202,8 +204,8 @@ def test_kk_fused_matches_plain(cuda, drp, table, nf, layout):
 def test_sharded_prefilter_instances_on_cuda(cuda, drp, shard_index):
     """The sharded prefilter at world 1 (NCCL): with the whole member
     table one fused KK launch a dispatch; with the member table sharded
-    KK's sample-only instance and KI (the queries cross the ranks); the
-    same survivors as the host-sampled prefilter."""
+    KK's sample-only instance, KI (the queries cross the ranks) and
+    KL[decide]; the same survivors as the host-sampled prefilter."""
     from danbing_tk_tpu_torch.io.native_reader import sample_queries
     from danbing_tk_tpu_torch.parallel import mesh as pm
     from danbing_tk_tpu_torch.parallel import sharded_index as si
@@ -216,12 +218,149 @@ def test_sharded_prefilter_instances_on_cuda(cuda, drp, shard_index):
     step, _ = si.make_sharded_prefilter(drp, cfg, mesh, P, L,
                                         shard_index=shard_index)
     got, n = _launched(step, codes, rlen, live)
-    assert n == ({"KK[sample]": 1, "KI": 1} if shard_index
+    assert n == ({"KK[sample]": 1, "KI": 1, "KL[decide]": 1} if shard_index
                  else {"KK": 1})
     qlo, qhi, valid, nonshort = sample_queries(codes, rlen, 21, 4)
     want = da.make_prefilter_step_q(drp, cfg, P, cuda)(
         (qlo, qhi), valid, nonshort, live)
     assert torch.equal(got, want) and bool(want.any())
+
+
+@pytest.mark.parametrize("table", ["member", "dbi"])
+@pytest.mark.parametrize("nf", [1, 4, 17])
+def test_kkq_matches_plain(cuda, drp, table, nf):
+    """KK[q] (the host-sampled instance) equals prefilter_fused_q_plain
+    and KK's fused launch on the sampled queries of the adversarial pairs
+    of tests/test_torch_kmers_filter_cases.kkf_pairs (an odd pair count),
+    on the member (W = 2) and dbi (W = 4) tables, with levels aligned and
+    off their slot alignment, for nmf 0, 1, 2 and nf + 1; one KK[q]
+    launch each."""
+    P, L = 1001, 160
+    codes, rlen, live = kkf_pairs(9 + nf, P, L, nf)
+    c = torch.from_numpy(codes).to(cuda)
+    r = torch.from_numpy(rlen).to(cuda)
+    lv = torch.from_numpy(live).to(cuda)
+    q, valid, nk = km.prefilter_sample_plain(c, r, 21, nf)
+    for tab in (drp.tables(cuda)[table], _shifted(drp.tables(cuda)[table])):
+        for nmf in (0, 1, 2, nf + 1):
+            run = da.prefilter_fused_q_launcher(tab, nmf)
+            got, n = _launched(run, q, valid, nk > 0, lv)
+            assert n == {"KK[q]": 1}
+            want = da.prefilter_fused_q_plain(q, valid, nk > 0, lv, tab,
+                                              nmf)
+            assert got.dtype == torch.bool and torch.equal(got, want), nmf
+            assert torch.equal(got, da.prefilter_fused_plain(
+                c, r, lv, tab, 21, nf, nmf))
+            if nmf == 1:
+                assert bool(want.any()) and not bool(want.all())
+
+
+def test_kkq_is_the_host_sampled_dispatch(cuda, drp):
+    """make_prefilter_step_q is one KK[q] launch and no KB; with a probe
+    the probe and one KL[decide]."""
+    from danbing_tk_tpu_torch.io.native_reader import sample_queries
+
+    P, L = 1024, 160
+    codes, rlen = _reads(P, L)
+    live = np.ones(P, dtype=bool)
+    cfg = AlignConfig(**KW)
+    qlo, qhi, valid, nonshort = sample_queries(codes, rlen, 21, 4)
+    args = ((qlo, qhi), valid, nonshort, live)
+    got, n = _launched(da.make_prefilter_step_q(drp, cfg, P, cuda), *args)
+    assert n == {"KK[q]": 1} and bool(got.any())
+    tab = drp.tables(cuda)["member"]
+    probed = da.make_prefilter_step_q(
+        drp, cfg, P, cuda, probe=lambda q: dt.lookup_bucket(tab, q)[0])
+    want, n = _launched(probed, *args)
+    assert n == {"KB": 1, "KL[decide]": 1} and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("NKW", [1, 2, 33, 140, 300])
+@pytest.mark.parametrize("nf", [1, 2, 4, 5])
+def test_kl_adversarial_matches_plain(cuda, NKW, nf):
+    """KL equals pair_filter_plain on every plane of the seeded
+    adversarial pairs of tests/test_torch_step_tail_cases.kl_cases (nk 0,
+    1, nf - 1 and past NKW, found counts at cth - 1 and cth, every
+    position found, a mate without a valid k-mer, dead pairs; an odd pair
+    count), for nmf 0, 1, nf and nf + 1 and cth 1, 20 and NKW + 1; one
+    launch each."""
+    P = 1001
+    for cth in (1, 20, NKW + 1):
+        case = kl_cases(11, P, NKW, nf, cth)
+        for nmf in sorted({0, 1, nf, nf + 1}):
+            got, n = _launched(da.pair_filter,
+                               *kl_args(case, cuda, nf, nmf, cth))
+            assert n == {"KL": 1}
+            want = da.pair_filter_plain(*kl_args(case, "cpu", nf, nmf, cth))
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g.cpu(), w), \
+                    (nmf, cth)
+            if nmf == 1 and cth == 20 and NKW >= cth:
+                assert bool(want[3].any()) and bool(want[4].any())
+
+
+@pytest.mark.parametrize("nf", [1, 4, 17])
+def test_kld_adversarial_matches_plain(cuda, nf):
+    """KL[decide] equals prefilter_decide on seeded (2P, nf) planes with
+    short mates and dead pairs (tests/test_torch_step_tail_cases.
+    kld_cases), for nmf -1 to nf + 1; one launch each."""
+    case = kld_cases(13, 1001, nf)
+    for nmf in (-1, 0, 1, 2, nf, nf + 1):
+        got, n = _launched(da.prefilter_decision,
+                           *kld_args(case, cuda, nmf))
+        assert n == {"KL[decide]": 1}
+        want = da.prefilter_decide(*kld_args(case, "cpu", nmf))
+        assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("threading", [False, True])
+@pytest.mark.parametrize("P", [1, 255, 1001, 4096])
+def test_km_adversarial_matches_plain(cuda, threading, P):
+    """KM equals step_tail_plain on the seeded pair planes of
+    tests/test_torch_step_tail_cases.km_cases (kf, rm and bf past 0 and
+    1, dst0 = NAN32, threading's clean_pair, partial blocks), its
+    counters added into a non-zero stats vector; rm given as a view that
+    starts off an 8-byte boundary; one launch each."""
+    case = km_cases(17, P, threading)
+    base = torch.arange(9, dtype=torch.int64) * 1000
+    args = list(km_args(case, cuda))
+    buf = torch.zeros(2 * P + 1, dtype=torch.int32, device=cuda)
+    buf[1:].copy_(args[10])
+    args[10] = buf[1:]
+    assert args[10].data_ptr() % 8
+    sk = base.to(cuda)
+    got, n = _launched(da.step_tail, sk, *args)
+    assert n == {"KM": 1}
+    sp = base.clone()
+    want = da.step_tail_plain(sp, *km_args(case, "cpu"))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert torch.equal(sk.cpu(), sp)
+
+
+@pytest.mark.parametrize("mode", ["counting", "threading"])
+def test_kl_km_match_plain_on_step_inputs(cuda, drp_graph, mode):
+    """KL and KM replayed on a golden step's captured inputs equal their
+    plain versions, and a step launches each once."""
+    P, L = 1024, 192
+    codes, rlen = _reads(P, L)
+    cfg = AlignConfig(**(THR if mode == "threading" else KW))
+    cap = {}
+    step = da.make_step(drp_graph, cfg, P, L, device=cuda, capture=cap)
+    state = da.init_state(drp_graph, cuda)
+    _, n = _launched(step, state, codes, rlen, np.ones(P, dtype=bool))
+    assert n["KL"] == 1 and n["KM"] == 1
+    assert n.get("KE", 0) == (mode == "threading")
+    for g, w in zip(da.pair_filter(*cap["KL"]),
+                    da.pair_filter_plain(*cap["KL"])):
+        assert torch.equal(g, w)
+    sk = torch.zeros(9, dtype=torch.int64, device=cuda)
+    sp = torch.zeros_like(sk)
+    for g, w in zip(da.step_tail(sk, *cap["KM"]),
+                    da.step_tail_plain(sp, *cap["KM"])):
+        assert torch.equal(g, w)
+    assert torch.equal(sk, sp) and bool(sk.any())
+    assert torch.equal(sk, state["stats"])
 
 
 @pytest.mark.parametrize("NKW", [1, 2, 131, 140, 300, 2000])

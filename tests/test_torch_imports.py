@@ -159,16 +159,19 @@ def test_kernels_have_counters_and_notes():
 
     build.reset_launch_counts()
     counts = build.launch_counts()
-    # one count per kernel source, KC's large-E instance beside KC and
-    # KK's sample-only instance beside KK (the fused launch)
+    # one count per kernel source, KC's large-E instance beside KC, KK's
+    # host-sampled and sample-only instances beside KK (the fused launch)
+    # and KL's prefilter decision beside KL (the sub/k-filter)
     assert counts == dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF",
-                                    "KG", "KH", "KI", "KJ", "KK",
-                                    "KC[large-E]", "KK[sample]"), 0)
-    assert len(counts) == len(build.KERNELS) + 2
+                                    "KG", "KH", "KI", "KJ", "KK", "KL",
+                                    "KM", "KC[large-E]", "KK[q]",
+                                    "KK[sample]", "KL[decide]"), 0)
+    assert len(counts) == len(build.KERNELS) + 4
     assert "bias_correct" in build.KERNELS
     assert "sharded_lookup" in build.KERNELS
     assert "site_scorer" in build.KERNELS
     assert "prefilter_sample" in build.KERNELS
+    assert "pair_filter" in build.KERNELS and "step_tail" in build.KERNELS
     for name in build.KERNELS:
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             src = f.read()

@@ -20,7 +20,13 @@ csrc/prefilter_sample.cu) on the CPU, against the JAX package.
   queries engine/device_align.py prefilter_fused_work counts for the
   bound, for nf = 1, 2, 3, 4, 5, 9, 16, 17 and 20 and nmf = 0 to 3 and
   nf + 1; the kernel's KKF_WARPS and KKF_PPW are the module's;
-* the launcher refuses a composite table, inputs off its device and
+* KK[q], the same launch over the host sampler's queries
+  (prefilter_fused_q_launcher): a warp-by-warp emulation (the warp's
+  queries contiguous, tiles of 32, one probe round a tile) gives
+  prefilter_fused_q_plain's survivors and probes exactly the queries
+  prefilter_fused_q_work counts, on the member and dbi tables, for the
+  same nf and nmf;
+* the launchers refuse a composite table, inputs off its device and
   malformed planes.
 """
 
@@ -206,6 +212,84 @@ def test_fused_kernel_emulation(models, nf):
         else:
             assert not probed.any()
         assert work["nbytes"] >= 2 * P * L + 10 * P
+
+
+def _fused_q_emulated(q, valid, nonshort, live, found, nmf):
+    """prefilter_fused_q_kernel warp by warp (KKF_PPW pairs a warp, their
+    2 KKF_PPW nf queries contiguous in q, lane i of tile t taking query
+    32 t + i, read (32 t + i) / nf of the warp's); ``found`` (2P, nf) is
+    the table's answer to each query.  Returns (survive (P,), probed (2P,
+    nf))."""
+    B, nf = q.shape
+    P = B // 2
+    ppw = tda.KKF_PPW
+    m = min(max(nmf, 0), nf + 1)            # dtk_prefilter_fused_q's clamp
+    survive = np.zeros(P, bool)
+    probed = np.zeros((B, nf), bool)
+    for p0 in range(0, P, ppw):
+        npw = min(ppw, P - p0)
+        alive = [bool(live[p0 + i] and nonshort[2 * (p0 + i)]
+                      and nonshort[2 * (p0 + i) + 1]) for i in range(npw)]
+        if m <= 0 or m > nf or not any(alive):
+            for i in range(npw):
+                survive[p0 + i] = m <= 0 and alive[i]
+            continue
+        hits = [0] * (2 * npw)
+        nw = 2 * npw * nf
+        for t in range(-(-nw // 32)):
+            lanes = [w for w in range(32 * t, min(32 * t + 32, nw))
+                     if alive[w // nf >> 1]
+                     and valid[2 * p0 + w // nf, w % nf]]
+            # one round: compacted query c to group c % 4, flight c // 4
+            assert len(lanes) <= 4 * 8
+            for w in lanes:
+                r, j = 2 * p0 + w // nf, w % nf
+                probed[r, j] = True
+                hits[w // nf] += bool(found[r, j])
+        for i in range(npw):
+            survive[p0 + i] = alive[i] and hits[2 * i] >= m \
+                and hits[2 * i + 1] >= m
+    return survive, probed
+
+
+@pytest.mark.parametrize("table", ["member", "dbi"])
+@pytest.mark.parametrize("nf", [1, 2, 3, 4, 5, 9, 16, 17, 20])
+def test_fused_q_kernel_emulation(models, table, nf):
+    """KK[q] (the host-sampled instance): the kernel's decision and the
+    queries it probes equal prefilter_fused_q_plain's survivors and what
+    prefilter_fused_q_work counts for the bound, for each nmf, on the
+    sampled queries of the adversarial pairs (an odd pair count)."""
+    _, td = models[table]
+    tab = tda._prefilter_table(td, "cpu")
+    P, L = 63, 160
+    codes, rlen, live = kkf_pairs(4, P, L, nf)
+    c, r, lv = (torch.from_numpy(x) for x in (codes, rlen, live))
+    q, valid, nk = km.prefilter_sample_plain(c, r, K, nf)
+    nonshort = nk > 0
+    found = dt.lookup_bucket_plain(tab, q)[0].numpy()
+    run = None
+    for nmf in (0, 1, 2, 3, nf + 1):
+        run = tda.prefilter_fused_q_launcher(tab, nmf)
+        want = run(q, valid, nonshort, lv).numpy()
+        np.testing.assert_array_equal(
+            want, tda.prefilter_fused_q_plain(q, valid, nonshort, lv, tab,
+                                              nmf).numpy())
+        surv, probed = _fused_q_emulated(q.numpy(), valid.numpy(),
+                                         nonshort.numpy(), live, found, nmf)
+        np.testing.assert_array_equal(surv, want, err_msg=f"nmf={nmf}")
+        work = tda.prefilter_fused_q_work(q, valid, nonshort, lv, tab, nmf)
+        np.testing.assert_array_equal(work["survive"].numpy(), want)
+        np.testing.assert_array_equal(work["probed"].numpy(), probed,
+                                      err_msg=f"nmf={nmf}")
+        # the same decision as the code-row launch's
+        np.testing.assert_array_equal(want, tda.prefilter_fused_plain(
+            c, r, lv, tab, K, nf, nmf).numpy())
+        assert probed.any() == (1 <= nmf <= nf)
+        assert work["nbytes"] >= 9 * q.numel() + 4 * P
+    with pytest.raises(ValueError, match="nf >= 1"):
+        run(q[:, :0], valid[:, :0], nonshort, lv)
+    with pytest.raises(ValueError, match="live"):
+        run(q, valid, nonshort, lv[:-1])
 
 
 def test_launcher_refusals(models):

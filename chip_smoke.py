@@ -6,8 +6,8 @@
 Phases; any failure exits non-zero (nothing is caught and continued):
   1. environment: torch / CUDA / nvcc versions, the card and its power limit
   2. build through the code ``warmup`` runs (utils/compile_cache.py's
-     enable_compile_cache, kernels/build.py's build_all): the thirteen CUDA
-     kernels (nvcc, -Xptxas -v) and the host runtime, threading and
+     enable_compile_cache, kernels/build.py's build_all): the twelve CUDA
+     kernel sources (nvcc, -Xptxas -v) and the host runtime, threading and
      referee engines (g++), all compilers at once, each library's seconds;
      then the synthetic production-size index
      (danbing_tk_tpu_torch/tools/scale_index.py), and beside it, in a
@@ -22,16 +22,19 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      the same inputs at the main path's shapes (P = 4096 pairs, L = 160,
      k = 21, E = 512, prefilter dispatch 4P), on the production-size
      index: KA (the counting instance the step launches, and the
-     all-planes instance), KB (dbi, member, trfl), KC, KD, and KL (the
-     sub/k-filter) and KM (the per-pair tail and read statistics) replayed
-     on the step's captured inputs, KK's
+     all-planes instance), KB (dbi, member, trfl), KC, KD with KM's tail
+     (the per-pair tail and read statistics, run where KD's mates meet:
+     hf, counted, dest and the nine counters) and KL (the sub/k-filter,
+     a block of 8 pairs staged in shared memory) replayed on the step's
+     captured inputs, KK's
      sample-only instance (KK[sample]) on the prefilter dispatch's reads
      (its queries also equal to the host sampler's), KK's fused launch
      (sample, member probe and decision) on the same reads, with its
      bound from the rows it reads (engine/device_align.py
      prefilter_fused_work), and KK[q] (the probe and decision over the
      host sampler's queries of the same reads: its survivors = the fused
-     launch's); KL's, KM's, KK's and KK[q]'s
+     launch's); KL's, KD's (with and without the tail: what the tail
+     adds), KK's and KK[q]'s
      CUDA-graph replays beside their windows, and the device-sampled
      dispatch's survivors equal to the host-sampled one's; exact
      equality required; CUDA-event times of kernel and plain version
@@ -139,7 +142,7 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      host in phase 2 and uploaded only now, so the counting phases never
      hold it on the card; the
      threading step's KD (threading mode) and KE (the graph probe, the
-     walk and the count scatter in one launch) against their plain
+     walk, the count scatter and KM's tail in one launch) against their plain
      versions as in phase 3, on TR pairs with 0.5% substitutions, and KB
      on the graph table at the walk's (nc, dst0) queries (the step no
      longer launches it);
@@ -184,10 +187,13 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      (failing when the temp disk cannot hold 8 samples' inputs and
      outputs), byte-equal to the host oracle, with each span's seconds and
      the device's share of the wall
-  9. the kernels line (JSON): KA-KM (KK: the fused prefilter launch), KC's
+  9. the kernels line (JSON): KA-KM (KK: the fused prefilter launch; KM
+     fused in KD / KE, its source csrc/step_tail.cuh), KC's
      large-E instance, KK's host-sampled (KK[q]) and sample-only
-     instances and KL's prefilter decision (KL[decide]); KL's and KM's
-     launches equal KA's on every path (a step launches each once); each
+     instances and KL's prefilter decision (KL[decide]); KL's launches
+     and KM's tails equal KA's on every path (a step runs each once), KM's
+     equal KD's, KE none in counting and okam, KM's = KE's in threading
+     (no path launches a standalone KM); each
      kernel's ``launches`` is the sum over its paths' runs (per path in
      ``launches_by_path``: phase 3's warmup pass (``warmup``), the
      counting funnel's two passes (``counting``, host-sampled prefilter,
@@ -567,57 +573,91 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
                  f"{da.check_vote_shape(2 * NKW, E)} smem_bytes="
                  f"{da.kc_smem_bytes(2 * NKW, E)} launches/step=1")
     log(f"[3] KC work: {vote_work_line(kc_args, E)}")
+    # KD with KM's tail (the counting step's launch: hf, counted, dest and
+    # the nine read statistics where the mates meet) on the step's
+    # captured inputs
     kd_args = cap["KD"]
+    tail = kd_args[-1]
+    if tail is None:
+        fail("the counting step launched KD without KM's tail")
     st_k = da.init_state(drp, dev)
     st_p = da.init_state(drp, dev)
-    da.assign_count(st_k, *kd_args)
-    da.assign_count_plain(st_p, *kd_args)
+    a_k = da.assign_count(st_k, *kd_args)
+    a_p = da.assign_count_plain(st_p, *kd_args)
     torch.cuda.synchronize()
-    for key in ("counts", "nmapread", "kmc"):
+    for key in ("counts", "nmapread", "kmc", "stats"):
         if not torch.equal(st_k[key], st_p[key]):
             fail(f"KD state {key} disagrees with the plain version")
+    if not bool(st_k["stats"].any()):
+        fail("KD's tail added no read statistic")
+    km_err = max_abs_err(tuple(a_k[x] for x in ("hf", "counted", "dest")),
+                         tuple(a_p[x] for x in ("hf", "counted", "dest")))
+    if km_err != 0:
+        fail(f"KM's tail in KD disagrees with the plain version (max |err| "
+             f"{km_err})")
     n_counted = int((st_k["counts"][:-1].long() & 0xFFFFFFFF).sum())
     n_slots = touched(st_k["counts"])
     kd_blocks, kd_warps = da.assign_count_grid(P)
-    kd = compare("KD assign_count", lambda: da.assign_count(st_k, *kd_args),
+    # KM's bytes beyond KD's own: 7 B of u8 planes and 8 B of bf in, 8 B
+    # of hf, 1 of counted and 8 of dest out a pair, the counters' 72 B
+    # read and written
+    kd = compare("KD assign_count (with KM's tail)",
+                 lambda: da.assign_count(st_k, *kd_args),
                  lambda: da.assign_count_plain(st_p, *kd_args),
-                 B * NKW * 27 + B * (9 * 4 + 8) + P * 9 + n_slots * 8,
+                 B * NKW * 27 + B * (9 * 4 + 8) + P * 9 + n_slots * 8
+                 + 32 * P + 144,
                  f"reads={B} counted_kmers={n_counted} slots={n_slots} "
-                 f"grid: blocks={kd_blocks} warps={kd_warps} "
-                 f"launches/step=1")
-    # KL and KM on the step's captured inputs (KM's counters into a
-    # scratch vector each), and each one's CUDA-graph replay: below ~10 us
-    # only a graph times a kernel
+                 f"stats={st_k['stats'].tolist()} grid: blocks={kd_blocks} "
+                 f"warps={kd_warps} launches/step=1")
+    # KL on the step's captured inputs, and KL's, KD's (with and without
+    # the tail) and the plain tail's CUDA-graph replays: below ~10 us only
+    # a graph times a kernel
     kl_args = cap["KL"]
+    kl_blocks, kl_g = da.pair_filter_grid(P, NKW)
     kl = compare("KL pair_filter", lambda: da.pair_filter(*kl_args),
                  lambda: da.pair_filter_plain(*kl_args),
                  4 * B * NKW + 22 * P,
-                 f"P={P} NKW={NKW} nf=4 nmf=1 cth=20 blocks="
-                 f"{-(-P // 8)} of 8 warps launches/step=1")
-    km_args = cap["KM"]
-    sk = torch.zeros(9, dtype=torch.int64, device=dev)
-    sp = torch.zeros_like(sk)
-    da.step_tail(sk, *km_args)
-    da.step_tail_plain(sp, *km_args)
-    torch.cuda.synchronize()
-    if not torch.equal(sk, sp) or not bool(sk.any()):
-        fail(f"KM's stats {sk.tolist()} differ from the plain version's "
-             f"{sp.tolist()}")
-    km_ = compare("KM step_tail", lambda: da.step_tail(sk, *km_args),
-                  lambda: da.step_tail_plain(sp, *km_args),
-                  57 * P + 144,
-                  f"P={P} stats={sk.tolist()} (one call's) blocks="
-                  f"{-(-P // 256)} of 256 threads launches/step=1")
-    for name, r_, fn in (("KL", kl, lambda: da.pair_filter(*kl_args)),
-                         ("KM", km_, lambda: da.step_tail(sk, *km_args))):
-        r_["graph_ms"] = cuda_ms(graph_of(fn).replay, reps=5) / GRAPH
+                 f"P={P} NKW={NKW} nf=4 nmf=1 cth=20 blocks={kl_blocks} of "
+                 f"{kl_g} pairs (256 threads, a 16-byte chunk each) "
+                 f"launches/step=1")
+    kd_alone = kd_args[:-1] + (None,)
+    sg = da.init_state(drp, dev)
+    graphs = {"KL": lambda: da.pair_filter(*kl_args),
+              "KD": lambda: da.assign_count(sg, *kd_args),
+              "KD alone": lambda: da.assign_count(sg, *kd_alone)}
+    gms = {}
+    for name, fn in graphs.items():
+        gms[name] = cuda_ms(graph_of(fn).replay, reps=5) / GRAPH
+    kl["graph_ms"] = gms["KL"]
+    kd["graph_ms"] = gms["KD"]
+    kd["alone_graph_ms"] = gms["KD alone"]
+    for name, r_ in (("KL", kl), ("KD", kd)):
         log(f"[3] {name} graph_ms={r_['graph_ms']:.4f} ({GRAPH} launches a "
             f"CUDA graph, replayed) ms={r_['ms']:.4f} (window) bound_ms="
             f"{r_['bound_ms']:.4f}; card {smi}")
+    # KM: the tail's plain version on KD's rm, beside what the tail adds
+    # to KD's graph time
+    t_ = tail
+    km_args = (t_.live, t_.nonshort, t_.sub_drop, t_.pair_kf, t_.vote_pass,
+               t_.pack, kd_args[7], t_.qc_drop, kd_args[8], t_.bf,
+               a_k["rm"], kd_args[6], kd_args[11])
+    s9 = torch.zeros(9, dtype=torch.int64, device=dev)
+    km_plain_ms = cuda_ms(lambda: da.step_tail_plain(s9, *km_args))
+    km_ = dict(match=True, max_abs_err=km_err, ms=kd["ms"],
+               graph_ms=kd["graph_ms"], plain_ms=km_plain_ms,
+               bound_ms=(57 * P + 144) / HBM_BYTES_PER_MS, bound_by="bytes",
+               library_ms=None, fused_in="KD (counting, okam), KE "
+               "(threading)", tail_graph_ms=gms["KD"] - gms["KD alone"])
+    log(f"[3] KM step tail fused in KD: match=True max_abs_err={km_err} "
+        f"KD graph_ms={gms['KD']:.4f} KD without the tail "
+        f"{gms['KD alone']:.4f} (the tail adds "
+        f"{km_['tail_graph_ms']:.4f}) plain_ms={km_plain_ms:.4f} "
+        f"bound_ms={km_['bound_ms']:.5f}; card {smi}")
+    del sg
     results = {
         "KL": dict(kl, source="danbing_tk_tpu_torch/csrc/pair_filter.cu",
                    replaces="danbing_tk_tpu/engine/device_align.py:597"),
-        "KM": dict(km_, source="danbing_tk_tpu_torch/csrc/step_tail.cu",
+        "KM": dict(km_, source="danbing_tk_tpu_torch/csrc/step_tail.cuh",
                    replaces="danbing_tk_tpu/engine/device_align.py:1193"),
         "KA": dict(ka, source="danbing_tk_tpu_torch/csrc/kmers.cu",
                    replaces="danbing_tk_tpu/ops/kmers_jax.py:63"),
@@ -893,20 +933,25 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     for key in ("counts", "nmapread", "kmc"):
         if st_k[key].any() or st_p[key].any():
             fail(f"KD in threading mode touched state {key}")
+    # KE with KM's tail (counted = dev_pair & clean_pair)
     ke_args = tcap["KE"]
     st_k, st_p = da.init_state(drp, dev), da.init_state(drp, dev)
-    _, ke_pair = da.thread_walk_graph(st_k, *ke_args)
-    da.thread_walk_graph_plain(st_p, *ke_args)
+    _, ke_pair, ke_tail = da.thread_walk_graph(st_k, *ke_args)
+    want = da.thread_walk_graph_plain(st_p, *ke_args)
     torch.cuda.synchronize()
-    if not torch.equal(st_k["counts"], st_p["counts"]):
-        fail("KE counts disagree with the plain version")
+    for key in ("counts", "stats"):
+        if not torch.equal(st_k[key], st_p[key]):
+            fail(f"KE {key} disagree with the plain version")
+    if max_abs_err(ke_tail, want[2]) != 0 or not bool(st_k["stats"].any()):
+        fail("KM's tail in KE disagrees with the plain version")
     n_thr_counted = int((st_k["counts"][:-1].long() & 0xFFFFFFFF).sum())
     n_thr_slots = touched(st_k["counts"])
-    ke_b, ke_walked, ke_counted, ke_rows = ke_bytes(*ke_args, ke_pair,
+    ke_b, ke_walked, ke_counted, ke_rows = ke_bytes(*ke_args[:8], ke_pair,
                                                     n_thr_slots)
-    ke = compare("KE thread_walk",
+    ke = compare("KE thread_walk (with KM's tail)",
                  lambda: da.thread_walk_graph(st_k, *ke_args),
-                 lambda: da.thread_walk_graph_plain(st_p, *ke_args), ke_b,
+                 lambda: da.thread_walk_graph_plain(st_p, *ke_args),
+                 ke_b + 48 * P + 144,
                  f"pairs={P} vote_pass={n_vote} clean_pairs={n_clean} "
                  f"walked_positions={ke_walked} graph_rows={ke_rows} "
                  f"counted_kmers={n_thr_counted} "
@@ -1100,7 +1145,9 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     da.assign_count(st_k, *kda_args)
     da.assign_count_plain(st_p, *kda_args)
     torch.cuda.synchronize()
-    for key in ("counts", "nmapread", "kmc"):
+    if kda_args[-1] is None:
+        fail("the okam step launched KD without KM's tail")
+    for key in ("counts", "nmapread", "kmc", "stats"):
         if not torch.equal(st_k[key], st_p[key]):
             fail(f"KD[annot] state {key} disagrees with the plain version")
     n_slots_a = touched(st_k["counts"])
@@ -2729,7 +2776,7 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "KK[sample]": "KK[sample] prefilter_sample",
              "KL": "KL pair_filter",
              "KL[decide]": "KL[decide] prefilter_decide",
-             "KM": "KM step_tail"}
+             "KM": "KM step_tail (fused in KD / KE)"}
     paths = {"warmup": res["wlaunches"],
              "counting": res["launches"],
              "counting_device_sampled": res["dlaunches"],
@@ -2740,10 +2787,21 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "analysis": res["alaunches"],
              "build_prune": res["bq_launches"]["build_prune"],
              "qc": res["bq_launches"]["qc"]}
+    # a step launches KA and KL once each and runs KM's tail once, in KD's
+    # launch (counting, okam) or in KE's (threading); no standalone KM
     for path, c in paths.items():
         if not c["KL"] == c["KM"] == c["KA"]:
             fail(f"the {path} path launched KA {c['KA']}, KL {c['KL']} and "
-                 f"KM {c['KM']} times: a step launches each once")
+                 f"ran KM {c['KM']} times: a step runs each once")
+        if c["KM"] != c["KD"]:
+            fail(f"the {path} path ran KM {c['KM']} times in {c['KD']} "
+                 f"steps (KD launches)")
+    for path in ("counting", "okam"):
+        if paths[path]["KE"] != 0:
+            fail(f"the {path} path launched KE: its tail runs in KD")
+    if not 0 < paths["threading"]["KE"] == paths["threading"]["KM"]:
+        fail(f"the threading path ran KM {paths['threading']['KM']} times "
+             f"in {paths['threading']['KE']} KE launches")
     kern = [dict(name=names[t], route="cuda",
                  launches=sum(c[t] for c in paths.values()),
                  launches_by_path={p: c[t] for p, c in paths.items()},

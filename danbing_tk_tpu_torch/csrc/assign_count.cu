@@ -46,6 +46,14 @@
 //      nmapread / kmc at dst0 (clamped to [0, nloci] as the plain version
 //      does).
 //
+// The counting and okam instances also run the step's per-pair tail (KM,
+// step_tail.cuh) where the mates meet in step 3: lane 0 of the even warp
+// writes the pair's hf, counted and dest and leaves its nine read
+// statistics in shared memory beside s_trash, and nine threads of the block
+// add them into stats, one 64-bit atomic a counter (1,024 blocks x 9 at P =
+// 4096), as thread 0 adds the trash slot.  dtk_assign_count runs no tail
+// (a null stats pointer); dtk_assign_count_tail takes its planes.
+//
 // A bait-filtered pair (KF's bf_pair, null without bait) enters as
 // rm_entry = (kf == 1) | bf_pair (device_align.py:1088): both mates are
 // removed, so the pair is not counted.  With kAnnot (okam steps) step 1
@@ -56,7 +64,7 @@
 // in_tr) & kvalid with in_tr = afound & ((aval >> 2) & 1)) and the slot
 // plane, and counts / nmapread / kmc are left to KE (csrc/thread_walk.cu),
 // which counts only the pairs whose walk is clean.
-#include "common.cuh"
+#include "step_tail.cuh"
 
 constexpr unsigned KD_FULL = 0xFFFFFFFFu;
 constexpr int KD_WARPS = 8;   // reads (4 pairs) a block
@@ -168,7 +176,7 @@ assign_count_kernel(int64_t P, int NKW, KdIn in,
                     const int32_t* __restrict__ kf,
                     const int32_t* __restrict__ nk,
                     const int64_t* __restrict__ loff, int64_t nloci,
-                    int64_t nslots, int nm_tr,
+                    int64_t nslots, int nm_tr, DtkTail tail,
                     unsigned int* __restrict__ counts,
                     unsigned int* __restrict__ nmapread,
                     unsigned int* __restrict__ kmc,
@@ -178,6 +186,7 @@ assign_count_kernel(int64_t P, int NKW, KdIn in,
                     uint8_t* __restrict__ ann_out) {
     __shared__ int s_rm[KD_WARPS], s_seg[KD_WARPS];
     __shared__ unsigned int s_trash[KD_WARPS];
+    __shared__ long long s_stat[KD_WARPS / 2][DTK_NSTAT];
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int64_t R = 2 * P;
     const int64_t r = (int64_t)blockIdx.x * KD_WARPS + w;
@@ -309,10 +318,21 @@ assign_count_kernel(int64_t P, int NKW, KdIn in,
         } else {
             trash = (unsigned int)NKW;
         }
-        if (lane == 0 && (w & 1) == 0 && counted) {
-            atomicAdd(nmapread + dcl, (unsigned int)(2 - rm0 - rm1));
-            atomicAdd(kmc + dcl, (unsigned int)(s_seg[mw] + s_seg[mw + 1]));
+        if (lane == 0 && (w & 1) == 0) {
+            if (counted) {
+                atomicAdd(nmapread + dcl, (unsigned int)(2 - rm0 - rm1));
+                atomicAdd(kmc + dcl,
+                          (unsigned int)(s_seg[mw] + s_seg[mw + 1]));
+            }
+            // ---- the pair's tail (KM): counted as above, nmate its
+            // mates not removed
+            if (tail.stats != nullptr)
+                dtk_pair_tail(tail, p, dev, counted,
+                              counted ? 2 - rm0 - rm1 : 0, kf[r], kf[r + 1],
+                              dst, nloci, s_stat[w >> 1]);
         }
+    } else if (lane == 0 && (w & 1) == 0) {
+        for (int i = 0; i < DTK_NSTAT; ++i) s_stat[w >> 1][i] = 0;
     }
     if (lane == 0) s_trash[w] = trash;
     __syncthreads();
@@ -320,12 +340,43 @@ assign_count_kernel(int64_t P, int NKW, KdIn in,
         unsigned int t = 0;
         for (int k = 0; k < KD_WARPS; ++k) t += s_trash[k];
         if (t) atomicAdd(counts + nslots, t);
+    } else if (tail.stats != nullptr && threadIdx.x >= 32 &&
+               threadIdx.x < 32 + DTK_NSTAT) {
+        dtk_tail_flush(s_stat, KD_WARPS / 2, tail.stats, threadIdx.x - 32);
     }
 }
 
 // Reads (warps) a block of assign_count_kernel: the launch is
 // ceil(2P / this) blocks, one warp a read.
 DTK_EXPORT int dtk_assign_count_block_warps() { return KD_WARPS; }
+
+static int kd_launch(int64_t P, int64_t NKW, const void* found,
+                     const void* val, const void* annv, const void* kvalid,
+                     const void* afound_t, const void* aval_t,
+                     const void* dst0, const void* dev_pair,
+                     const void* bf_pair, const void* kf, const void* nk,
+                     const void* loff, int64_t nloci, int64_t nslots,
+                     int64_t nm_tr, int64_t threading, int64_t annot,
+                     const DtkTail& tail, void* counts, void* nmapread,
+                     void* kmc, void* out, void* tr_member, void* slot,
+                     void* ann, void* stream) {
+    KdIn in{(const uint8_t*)found, (const int64_t*)val,
+            (const int64_t*)annv, (const uint8_t*)kvalid,
+            (const uint8_t*)afound_t, (const int64_t*)aval_t};
+    if (P <= 0) return (int)cudaGetLastError();
+    auto kernel = threading ? (annot ? assign_count_kernel<true, true>
+                                     : assign_count_kernel<true, false>)
+                            : (annot ? assign_count_kernel<false, true>
+                                     : assign_count_kernel<false, false>);
+    kernel<<<dtk_grid(2 * P, KD_WARPS), KD_WARPS * 32, 0,
+             (cudaStream_t)stream>>>(
+        P, (int)NKW, in, (const int64_t*)dst0, (const uint8_t*)dev_pair,
+        (const uint8_t*)bf_pair, (const int32_t*)kf, (const int32_t*)nk,
+        (const int64_t*)loff, nloci, nslots, (int)nm_tr, tail,
+        (unsigned int*)counts, (unsigned int*)nmapread, (unsigned int*)kmc,
+        (int32_t*)out, (uint8_t*)tr_member, (int64_t*)slot, (uint8_t*)ann);
+    return (int)cudaGetLastError();
+}
 
 DTK_EXPORT int dtk_assign_count(int64_t P, int64_t NKW, const void* found,
                                 const void* val, const void* annv,
@@ -339,20 +390,39 @@ DTK_EXPORT int dtk_assign_count(int64_t P, int64_t NKW, const void* found,
                                 void* counts, void* nmapread, void* kmc,
                                 void* out, void* tr_member, void* slot,
                                 void* ann, void* stream) {
-    KdIn in{(const uint8_t*)found, (const int64_t*)val,
-            (const int64_t*)annv, (const uint8_t*)kvalid,
-            (const uint8_t*)afound_t, (const int64_t*)aval_t};
-    if (P <= 0) return (int)cudaGetLastError();
-    auto kernel = threading ? (annot ? assign_count_kernel<true, true>
-                                     : assign_count_kernel<true, false>)
-                            : (annot ? assign_count_kernel<false, true>
-                                     : assign_count_kernel<false, false>);
-    kernel<<<dtk_grid(2 * P, KD_WARPS), KD_WARPS * 32, 0,
-             (cudaStream_t)stream>>>(
-        P, (int)NKW, in, (const int64_t*)dst0, (const uint8_t*)dev_pair,
-        (const uint8_t*)bf_pair, (const int32_t*)kf, (const int32_t*)nk,
-        (const int64_t*)loff, nloci, nslots, (int)nm_tr,
-        (unsigned int*)counts, (unsigned int*)nmapread, (unsigned int*)kmc,
-        (int32_t*)out, (uint8_t*)tr_member, (int64_t*)slot, (uint8_t*)ann);
-    return (int)cudaGetLastError();
+    const DtkTail none{};
+    return kd_launch(P, NKW, found, val, annv, kvalid, afound_t, aval_t,
+                     dst0, dev_pair, bf_pair, kf, nk, loff, nloci, nslots,
+                     nm_tr, threading, annot, none, counts, nmapread, kmc,
+                     out, tr_member, slot, ann, stream);
+}
+
+// dtk_assign_count with the step's tail (counting and okam instances):
+// live, nonshort, sub_drop, pair_kf, vote_pass, qc_drop (P,) bool, pack
+// (P,) u8, bf (2P,) int32 -> hf (2P,) int32, counted (P,) bool, dest (P,)
+// int64; adds the nine counters into stats (9,) int64.
+DTK_EXPORT int dtk_assign_count_tail(
+    int64_t P, int64_t NKW, const void* found, const void* val,
+    const void* annv, const void* kvalid, const void* afound_t,
+    const void* aval_t, const void* dst0, const void* dev_pair,
+    const void* bf_pair, const void* kf, const void* nk, const void* loff,
+    int64_t nloci, int64_t nslots, int64_t nm_tr, int64_t annot,
+    const void* live, const void* nonshort, const void* sub_drop,
+    const void* pair_kf, const void* vote_pass, const void* pack,
+    const void* qc_drop, const void* bf, void* counts, void* nmapread,
+    void* kmc, void* out, void* ann, void* hf, void* counted, void* dest,
+    void* stats, void* stream) {
+    const DtkTail tail{(const uint8_t*)live, (const uint8_t*)nonshort,
+                       (const uint8_t*)sub_drop, (const uint8_t*)pair_kf,
+                       (const uint8_t*)vote_pass, (const uint8_t*)pack,
+                       (const uint8_t*)qc_drop, (const int32_t*)bf,
+                       (int32_t*)hf, (uint8_t*)counted, (int64_t*)dest,
+                       (unsigned long long*)stats};
+    if (stats == nullptr) return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)kf & 3) return (int)cudaErrorMisalignedAddress;
+    if (const int e = dtk_tail_check(tail)) return e;
+    return kd_launch(P, NKW, found, val, annv, kvalid, afound_t, aval_t,
+                     dst0, dev_pair, bf_pair, kf, nk, loff, nloci, nslots,
+                     nm_tr, 0, annot, tail, counts, nmapread, kmc, out,
+                     nullptr, nullptr, ann, stream);
 }

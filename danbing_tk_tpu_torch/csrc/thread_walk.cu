@@ -42,12 +42,20 @@
 // position of the plane go to the trash count, summed per block into one
 // atomic.
 //
+// With dtk_thread_walk_graph_tail the pair meeting also runs the step's
+// per-pair tail (KM, step_tail.cuh) with counted = dev_pair & clean_pair
+// and nmate from KD's rm (taken before the walk replaces counted): lane 0
+// of the even warp writes hf, counted and dest and leaves the pair's nine
+// read statistics in shared memory, and nine threads of the block add them
+// into stats, one 64-bit atomic a counter.
+//
 // Bound on the H100: bytes.  9 B (nc, kvalid) per position a walk reads,
 // the distinct graph rows its probes read at the levels they need (random
 // 128-B rows of a table far past L2), and for a clean pair 1 B of
 // tr_member per in-read position, 8 B of slot per TR member and a 32-B
 // atomic sector per slot it adds to; plus nk, dev_pair and dst0 in, clean
 // and clean_pair out.
+#include "step_tail.cuh"
 #include "tile_probe.cuh"
 
 constexpr int KE_WARPS = 8;       // mates (4 pairs) a block
@@ -64,12 +72,15 @@ thread_walk_graph_kernel(int64_t P, int NKW,
                          const uint8_t* __restrict__ dev_pair,
                          const uint8_t* __restrict__ tr_member,
                          const int64_t* __restrict__ slot, int64_t nslots,
-                         DtkLevels graph, unsigned int* __restrict__ counts,
+                         DtkLevels graph, const int32_t* __restrict__ kf,
+                         const int32_t* __restrict__ rm, int64_t nloci,
+                         DtkTail tail, unsigned int* __restrict__ counts,
                          uint8_t* __restrict__ clean_out,
                          uint8_t* __restrict__ clean_pair_out) {
     __shared__ DtkTile s_tile[KE_WARPS];
     __shared__ int s_clean[KE_WARPS];
     __shared__ unsigned int s_trash[KE_WARPS];
+    __shared__ long long s_stat[KE_WARPS / 2][DTK_NSTAT];
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int64_t r = (int64_t)blockIdx.x * KE_WARPS + w;
     const bool active = r < 2 * P;              // warp-uniform; pairs whole
@@ -125,7 +136,21 @@ thread_walk_graph_kernel(int64_t P, int NKW,
     if (active) {
         const int mw = w & ~1;
         const bool pair_clean = s_clean[mw] && s_clean[mw + 1];
-        if (lane == 0 && w == mw) clean_pair_out[p] = pair_clean;
+        if (lane == 0 && w == mw) {
+            clean_pair_out[p] = pair_clean;
+            if (tail.stats != nullptr) {
+                // ---- the pair's tail (KM): KD's nmate, then the walk's
+                // counted
+                const int r0 = rm[2 * p], r1 = rm[2 * p + 1];
+                const bool dp = dev_pair[p] != 0;
+                const bool cnt = dp && pair_clean;
+                const long long nmate =
+                    cnt && !(r0 == 1 && r1 == 1) ? 2 - (long long)r0 - r1
+                                                 : 0;
+                dtk_pair_tail(tail, p, dp, cnt, nmate, kf[2 * p],
+                              kf[2 * p + 1], dst0[p], nloci, s_stat[w >> 1]);
+            }
+        }
         if (pair_clean) {                       // dev_pair, n > 0
             const int nin = n < NKW ? n : NKW;
             trash = (unsigned int)(NKW - nin);  // past the read
@@ -146,6 +171,8 @@ thread_walk_graph_kernel(int64_t P, int NKW,
         } else {
             trash = (unsigned int)NKW;
         }
+    } else if (lane == 0 && (w & 1) == 0) {
+        for (int i = 0; i < DTK_NSTAT; ++i) s_stat[w >> 1][i] = 0;
     }
     if (lane == 0) s_trash[w] = trash;
     __syncthreads();
@@ -153,6 +180,9 @@ thread_walk_graph_kernel(int64_t P, int NKW,
         unsigned int t = 0;
         for (int k = 0; k < KE_WARPS; ++k) t += s_trash[k];
         if (t) atomicAdd(counts + nslots, t);
+    } else if (tail.stats != nullptr && threadIdx.x >= 32 &&
+               threadIdx.x < 32 + DTK_NSTAT) {
+        dtk_tail_flush(s_stat, KE_WARPS / 2, tail.stats, threadIdx.x - 32);
     }
 }
 
@@ -160,14 +190,14 @@ thread_walk_graph_kernel(int64_t P, int NKW,
 // ceil(2P / this) blocks, one warp a mate.
 DTK_EXPORT int dtk_thread_walk_block_warps() { return KE_WARPS; }
 
-DTK_EXPORT int dtk_thread_walk_graph(int64_t P, int64_t NKW, const void* nc,
-                                     const void* dst0, const void* kvalid,
-                                     const void* nk, const void* dev_pair,
-                                     const void* tr_member, const void* slot,
-                                     int64_t nslots, const void* gtabs,
-                                     const void* gnbs, const void* gsalts,
-                                     int64_t gnlev, void* counts, void* clean,
-                                     void* clean_pair, void* stream) {
+static int ke_launch(int64_t P, int64_t NKW, const void* nc,
+                     const void* dst0, const void* kvalid, const void* nk,
+                     const void* dev_pair, const void* tr_member,
+                     const void* slot, int64_t nslots, const void* gtabs,
+                     const void* gnbs, const void* gsalts, int64_t gnlev,
+                     const void* kf, const void* rm, int64_t nloci,
+                     const DtkTail& tail, void* counts, void* clean,
+                     void* clean_pair, void* stream) {
     DtkLevels graph;
     if (!dtk_levels(&graph, gtabs, gnbs, gsalts, gnlev))
         return (int)cudaErrorInvalidValue;
@@ -180,7 +210,51 @@ DTK_EXPORT int dtk_thread_walk_graph(int64_t P, int64_t NKW, const void* nc,
         P, (int)NKW, (const int64_t*)nc, (const int64_t*)dst0,
         (const uint8_t*)kvalid, (const int32_t*)nk,
         (const uint8_t*)dev_pair, (const uint8_t*)tr_member,
-        (const int64_t*)slot, nslots, graph, (unsigned int*)counts,
+        (const int64_t*)slot, nslots, graph, (const int32_t*)kf,
+        (const int32_t*)rm, nloci, tail, (unsigned int*)counts,
         (uint8_t*)clean, (uint8_t*)clean_pair);
     return (int)cudaGetLastError();
+}
+
+DTK_EXPORT int dtk_thread_walk_graph(int64_t P, int64_t NKW, const void* nc,
+                                     const void* dst0, const void* kvalid,
+                                     const void* nk, const void* dev_pair,
+                                     const void* tr_member, const void* slot,
+                                     int64_t nslots, const void* gtabs,
+                                     const void* gnbs, const void* gsalts,
+                                     int64_t gnlev, void* counts, void* clean,
+                                     void* clean_pair, void* stream) {
+    const DtkTail none{};
+    return ke_launch(P, NKW, nc, dst0, kvalid, nk, dev_pair, tr_member, slot,
+                     nslots, gtabs, gnbs, gsalts, gnlev, nullptr, nullptr, 0,
+                     none, counts, clean, clean_pair, stream);
+}
+
+// dtk_thread_walk_graph with the step's tail: kf and rm (KD's) (2P,)
+// int32, live, nonshort, sub_drop, pair_kf, vote_pass, qc_drop (P,) bool,
+// pack (P,) u8, bf (2P,) int32 -> hf (2P,) int32, counted (P,) bool, dest
+// (P,) int64; adds the nine counters into stats (9,) int64.
+DTK_EXPORT int dtk_thread_walk_graph_tail(
+    int64_t P, int64_t NKW, const void* nc, const void* dst0,
+    const void* kvalid, const void* nk, const void* dev_pair,
+    const void* tr_member, const void* slot, int64_t nslots,
+    const void* gtabs, const void* gnbs, const void* gsalts, int64_t gnlev,
+    const void* kf, const void* rm, int64_t nloci, const void* live,
+    const void* nonshort, const void* sub_drop, const void* pair_kf,
+    const void* vote_pass, const void* pack, const void* qc_drop,
+    const void* bf, void* counts, void* clean, void* clean_pair, void* hf,
+    void* counted, void* dest, void* stats, void* stream) {
+    const DtkTail tail{(const uint8_t*)live, (const uint8_t*)nonshort,
+                       (const uint8_t*)sub_drop, (const uint8_t*)pair_kf,
+                       (const uint8_t*)vote_pass, (const uint8_t*)pack,
+                       (const uint8_t*)qc_drop, (const int32_t*)bf,
+                       (int32_t*)hf, (uint8_t*)counted, (int64_t*)dest,
+                       (unsigned long long*)stats};
+    if (stats == nullptr) return (int)cudaErrorInvalidValue;
+    if (((uintptr_t)kf & 3) || ((uintptr_t)rm & 3))
+        return (int)cudaErrorMisalignedAddress;
+    if (const int e = dtk_tail_check(tail)) return e;
+    return ke_launch(P, NKW, nc, dst0, kvalid, nk, dev_pair, tr_member, slot,
+                     nslots, gtabs, gnbs, gsalts, gnlev, kf, rm, nloci, tail,
+                     counts, clean, clean_pair, stream);
 }

@@ -20,10 +20,10 @@ Pipeline per batch of P read pairs (2P reads, L columns):
                                                      (csrc/read_filter.cu)
    -> KB  lookup_bucket on the (kmer, dst0) trfl table for vv k-mers
    -> KD  assign_count: annotation (and the .kam ann plane with
-          with_annot), the assignTRkmc scan, count atomics
-                                                     (csrc/assign_count.cu)
-   -> KM  step_tail: hf, counted, dest and the nine read statistics
-                                                     (csrc/step_tail.cu)
+          with_annot), the assignTRkmc scan, count atomics, and at its
+          pair meeting KM, the step's tail: hf, counted, dest and the nine
+          read statistics                    (csrc/assign_count.cu,
+                                              csrc/step_tail.cuh)
    -> KG  novel_edges (with -bu): the tre probe of each counted mate's
           in-segment (k+1)-mer edges, bit-packed  (csrc/novel_edges.cu)
 
@@ -44,13 +44,13 @@ and under a collective probe (the sharded index's row blocks):
    -> KL[decide] prefilter_decision                  (csrc/pair_filter.cu)
 
 In graph-threading mode (cfg.threading) KD stops at the tr_member and slot
-planes, and one launch follows before KM (which then counts only the
-pairs that walk clean):
+planes, and one launch follows, which runs KM at its pair meeting (counting
+only the pairs that walk clean):
 
    -> KE  thread_walk_graph: the (nc kmer, dst0) graph-table probe and the
-          clean-walk DFA per mate, up to its first failure, and the
-          TR-member count atomics of pairs whose both mates walk clean
-                                                     (csrc/thread_walk.cu)
+          clean-walk DFA per mate, up to its first failure, the
+          TR-member count atomics of pairs whose both mates walk clean,
+          and the step's tail                        (csrc/thread_walk.cu)
 
 Decision equivalence with the reference is the JAX module's: ties,
 test2-only passes and expansion overflows are flagged for the host referee
@@ -72,6 +72,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -412,9 +413,22 @@ def pair_filter_plain(found, kvalid, nk, any_valid, live, nf: int, nmf: int,
     return found, kf, pair_nonshort, pair_nonshort & ~pair_sub, pair_kf, use
 
 
+def pair_filter_grid(P: int, NKW: int) -> tuple:
+    """KL's launch for P pairs of NKW positions a read on the card:
+    (blocks, pairs a block), a block's pairs' masked found in its shared
+    memory (builds the kernel library)."""
+    g = bind(kernel_lib("pair_filter"), "dtk_pair_filter_block_pairs",
+             "i")(NKW)
+    if g <= 0:
+        raise ValueError(f"pair_filter: NKW = {NKW} passes a block's "
+                         f"shared memory")
+    return -(-P // g), g
+
+
 def pair_filter(found, kvalid, nk, any_valid, live, nf: int, nmf: int,
                 cth: int):
-    """KL: the sub/k-filter, a warp a pair (csrc/pair_filter.cu).  Same
+    """KL: the sub/k-filter, 8 pairs a block, a thread a 16-byte chunk of
+    their rows, one round trip in and one out (csrc/pair_filter.cu).  Same
     contract as pair_filter_plain."""
     if found.device.type == "cpu":
         return pair_filter_plain(found, kvalid, nk, any_valid, live, nf,
@@ -702,10 +716,54 @@ def _add_u32(acc: torch.Tensor, idx: torch.Tensor, inc: torch.Tensor):
     acc.copy_(torch.where(s >= (1 << 31), s - (1 << 32), s).int())
 
 
+class StepTail(NamedTuple):
+    """The per-pair planes of the step's tail (KM, step_tail_plain) beyond
+    what KD and KE read for their own work: live, nonshort, sub_drop,
+    pair_kf (KL's), vote_pass, qc_drop (P,) bool, pack (P,) uint8 (KC's
+    referee bits), bf (2P,) int32 (KF's, else zeros)."""
+    live: torch.Tensor
+    nonshort: torch.Tensor
+    sub_drop: torch.Tensor
+    pair_kf: torch.Tensor
+    vote_pass: torch.Tensor
+    pack: torch.Tensor
+    qc_drop: torch.Tensor
+    bf: torch.Tensor
+
+
+def _tail_checked(tail: StepTail, P: int) -> StepTail:
+    """The tail's planes made contiguous, their dtypes and shapes
+    checked."""
+    flags = (tail.live, tail.nonshort, tail.sub_drop, tail.pair_kf,
+             tail.vote_pass, tail.qc_drop)
+    if any(t.dtype != torch.bool or t.shape != (P,) for t in flags) \
+            or tail.pack.dtype != torch.uint8 or tail.pack.shape != (P,):
+        raise ValueError("step tail: the pair planes are (P,) bool, pack "
+                         "(P,) uint8")
+    if tail.bf.dtype != torch.int32 or tail.bf.shape != (2 * P,):
+        raise ValueError("step tail: bf is (2P,) int32")
+    return StepTail(*(t.contiguous() for t in tail))
+
+
+def _tail_outputs(P: int, dev) -> tuple:
+    """The tail's outputs: hf (2P,) int32, counted (P,) bool, dest (P,)
+    int64."""
+    return (torch.empty(2 * P, dtype=torch.int32, device=dev),
+            torch.empty(P, dtype=torch.bool, device=dev),
+            torch.empty(P, dtype=torch.int64, device=dev))
+
+
+def _stats_checked(state) -> torch.Tensor:
+    st = state["stats"]
+    if st.dtype != torch.int64 or st.shape != (9,) or not st.is_contiguous():
+        raise ValueError("state['stats'] must be a contiguous (9,) int64")
+    return st
+
+
 def assign_count_plain(state, found, val, annv, kvalid, afound_t, aval_t,
                        dst0, dev_pair, kf, nk, loff, nloci: int, nm_tr: int,
                        threading: bool = False, bf_pair=None,
-                       annot: bool = False):
+                       annot: bool = False, tail: StepTail | None = None):
     """Plain torch version of KD.  found/kvalid/afound_t (2P, NKW) bool
     (found already masked by kvalid); val/annv/aval_t (2P, NKW) int64 u32
     values from the dbi and trfl probes; dst0 (P,) int64; dev_pair (P,)
@@ -715,7 +773,13 @@ def assign_count_plain(state, found, val, annv, kvalid, afound_t, aval_t,
     per-read assignTRkmc fields (ASSIGN_KEYS, each (2P,) int32), with
     ``annot`` also the (2P, NKW) uint8 "ann" plane.  With ``threading``
     the state is left alone and the result also holds the (2P, NKW)
-    planes "tr_member" (uint8) and "slot" (int64), KE's inputs."""
+    planes "tr_member" (uint8) and "slot" (int64), KE's inputs.  With a
+    ``tail`` (counting and okam steps) the result also holds the step's
+    tail, step_tail_plain's "hf", "counted" and "dest" on KD's rm, and
+    its nine read statistics are added into state["stats"]."""
+    if threading and tail is not None:
+        raise ValueError("assign_count: the threading step's tail runs in "
+                         "KE")
     dev = found.device
     R, NKW = found.shape
     P = R // 2
@@ -804,6 +868,12 @@ def assign_count_plain(state, found, val, annv, kvalid, afound_t, aval_t,
     dcl = torch.where(counted, dst0, nloci).clamp(0, nloci)
     _add_u32(state["nmapread"], dcl, torch.where(counted, nmate, 0))
     _add_u32(state["kmc"], dcl, torch.where(counted, seglen, 0))
+    if tail is not None:
+        t = tail
+        out["hf"], out["counted"], out["dest"] = step_tail_plain(
+            state["stats"], t.live, t.nonshort, t.sub_drop, t.pair_kf,
+            t.vote_pass, t.pack, dev_pair, t.qc_drop, kf, t.bf, out["rm"],
+            dst0, nloci)
     return out
 
 
@@ -817,15 +887,20 @@ def assign_count_grid(P: int) -> tuple:
 
 def assign_count(state, found, val, annv, kvalid, afound_t, aval_t,
                  dst0, dev_pair, kf, nk, loff, nloci: int, nm_tr: int,
-                 threading: bool = False, bf_pair=None, annot: bool = False):
+                 threading: bool = False, bf_pair=None, annot: bool = False,
+                 tail: StepTail | None = None):
     """KD: annotation, the assignTRkmc scan per read (a warp a read, as a
     warp scan over chunks of 32 positions) and the count scatter (u32
-    atomics).  Same contract as assign_count_plain."""
+    atomics), with a ``tail`` also the step's tail (KM) where the mates
+    meet.  Same contract as assign_count_plain."""
     if found.device.type == "cpu":
         return assign_count_plain(state, found, val, annv, kvalid,
                                   afound_t, aval_t, dst0, dev_pair, kf, nk,
                                   loff, nloci, nm_tr, threading, bf_pair,
-                                  annot)
+                                  annot, tail)
+    if threading and tail is not None:
+        raise ValueError("assign_count: the threading step's tail runs in "
+                         "KE")
     R, NKW = found.shape
     P = R // 2
     for t in (found, kvalid, afound_t):
@@ -855,19 +930,36 @@ def assign_count(state, found, val, annv, kvalid, afound_t, aval_t,
         slot = torch.empty((R, NKW), dtype=torch.int64, device=found.device)
     ann = torch.empty((R, NKW), dtype=torch.uint8, device=found.device) \
         if annot else None
-    fn = bind(kernel_lib("assign_count"), "dtk_assign_count",
-              "ii" + "p" * 12 + "iiiii" + "p" * 8)
-    check(fn(P, NKW, *[ptr(a) for a in args],
-             None if bf_pair is None else ptr(bf_pair), ptr(kf), ptr(nk),
-             ptr(loff), nloci, state["counts"].shape[0] - 1, nm_tr,
-             int(threading), int(annot), ptr(state["counts"]),
-             ptr(state["nmapread"]), ptr(state["kmc"]), ptr(out),
-             None if tr_member is None else ptr(tr_member),
-             None if slot is None else ptr(slot),
-             None if ann is None else ptr(ann), stream_of(found)),
-          "assign_count")
+    lib = kernel_lib("assign_count")
+    kd = (P, NKW, *[ptr(a) for a in args],
+          None if bf_pair is None else ptr(bf_pair), ptr(kf), ptr(nk),
+          ptr(loff), nloci, state["counts"].shape[0] - 1, nm_tr)
+    if tail is None:
+        fn = bind(lib, "dtk_assign_count",
+                  "ii" + "p" * 12 + "iiiii" + "p" * 8)
+        check(fn(*kd, int(threading), int(annot), ptr(state["counts"]),
+                 ptr(state["nmapread"]), ptr(state["kmc"]), ptr(out),
+                 None if tr_member is None else ptr(tr_member),
+                 None if slot is None else ptr(slot),
+                 None if ann is None else ptr(ann), stream_of(found)),
+              "assign_count")
+    else:
+        tail = _tail_checked(tail, P)
+        stats = _stats_checked(state)
+        hf, counted, dest = _tail_outputs(P, found.device)
+        fn = bind(lib, "dtk_assign_count_tail",
+                  "ii" + "p" * 12 + "iiii" + "p" * 8 + "p" * 10)
+        check(fn(*kd, int(annot), *[ptr(t) for t in tail],
+                 ptr(state["counts"]), ptr(state["nmapread"]),
+                 ptr(state["kmc"]), ptr(out),
+                 None if ann is None else ptr(ann), ptr(hf), ptr(counted),
+                 ptr(dest), ptr(stats), stream_of(found)),
+              "assign_count")
     launched("KD")
     res = dict(zip(ASSIGN_KEYS, out.unbind(0)))
+    if tail is not None:
+        launched("KM")
+        res.update(hf=hf, counted=counted, dest=dest)
     if annot:
         res["ann"] = ann
     if threading:
@@ -913,15 +1005,26 @@ def thread_walk_plain(state, nc, gfound, gmask, kvalid, nk, dev_pair,
 
 
 def thread_walk_graph_plain(state, graph, nc, dst0, kvalid, nk, dev_pair,
-                            tr_member, slot):
+                            tr_member, slot, tail: StepTail | None = None,
+                            kf=None, rm=None, nloci: int = 0):
     """Plain torch version of KE: KB's plain version on the graph table
     (a DevTable) at (nc, dst0) (dst0 (P,) int64), then thread_walk_plain
     on its (gfound, gmask).  Same state update and returns as
-    thread_walk_plain."""
+    thread_walk_plain; with a ``tail`` (and kf, KD's rm (2P,) int32 and
+    nloci) the step's tail follows, step_tail_plain with clean_pair, and
+    returns (clean, clean_pair, (hf, counted, dest)), its nine read
+    statistics added into state["stats"]."""
     loc = dst0.repeat_interleave(2)[:, None].expand(-1, nc.shape[1])
     gfound, gmask, _ = dt.lookup_bucket_plain(graph, nc, loc)
-    return thread_walk_plain(state, nc, gfound, gmask, kvalid, nk, dev_pair,
-                             tr_member, slot)
+    clean, clean_pair = thread_walk_plain(state, nc, gfound, gmask, kvalid,
+                                          nk, dev_pair, tr_member, slot)
+    if tail is None:
+        return clean, clean_pair
+    t = tail
+    return clean, clean_pair, step_tail_plain(
+        state["stats"], t.live, t.nonshort, t.sub_drop, t.pair_kf,
+        t.vote_pass, t.pack, dev_pair, t.qc_drop, kf, t.bf, rm, dst0, nloci,
+        clean_pair)
 
 
 def thread_walk_grid(P: int) -> tuple:
@@ -933,13 +1036,16 @@ def thread_walk_grid(P: int) -> tuple:
 
 
 def thread_walk_graph(state, graph, nc, dst0, kvalid, nk, dev_pair,
-                      tr_member, slot):
+                      tr_member, slot, tail: StepTail | None = None,
+                      kf=None, rm=None, nloci: int = 0):
     """KE: the graph probe at (nc, dst0), the threading DFA walk up to each
     mate's first failure and the count scatter (u32 atomics), a warp a
-    mate.  Same contract as thread_walk_graph_plain."""
+    mate, with a ``tail`` also the step's tail (KM) where the mates meet.
+    Same contract as thread_walk_graph_plain."""
     if nc.device.type == "cpu":
         return thread_walk_graph_plain(state, graph, nc, dst0, kvalid, nk,
-                                       dev_pair, tr_member, slot)
+                                       dev_pair, tr_member, slot, tail, kf,
+                                       rm, nloci)
     R, NKW = nc.shape
     P = R // 2
     for t, dtype in ((nc, torch.int64), (kvalid, torch.bool),
@@ -961,18 +1067,38 @@ def thread_walk_graph(state, graph, nc, dst0, kvalid, nk, dev_pair,
     rest = [x.contiguous() for x in (dev_pair, tr_member, slot)]
     clean = torch.empty(R, dtype=torch.bool, device=nc.device)
     clean_pair = torch.empty(P, dtype=torch.bool, device=nc.device)
-    fn = bind(kernel_lib("thread_walk"), "dtk_thread_walk_graph",
-              "ii" + "p" * 7 + "i" + "pppi" + "pppp")
-    check(fn(P, NKW, *[ptr(a) for a in args], ptr(nk),
-             *[ptr(a) for a in rest], state["counts"].shape[0] - 1,
-             *dt.level_args(graph), ptr(state["counts"]), ptr(clean),
-             ptr(clean_pair), stream_of(nc)), "thread_walk_graph")
+    lib = kernel_lib("thread_walk")
+    ke = (P, NKW, *[ptr(a) for a in args], ptr(nk), *[ptr(a) for a in rest],
+          state["counts"].shape[0] - 1, *dt.level_args(graph))
+    if tail is None:
+        fn = bind(lib, "dtk_thread_walk_graph",
+                  "ii" + "p" * 7 + "i" + "pppi" + "pppp")
+        check(fn(*ke, ptr(state["counts"]), ptr(clean), ptr(clean_pair),
+                 stream_of(nc)), "thread_walk_graph")
+        launched("KE")
+        return clean, clean_pair
+    if any(t is None or t.dtype != torch.int32 or t.shape != (R,)
+           for t in (kf, rm)):
+        raise ValueError("thread_walk_graph: the tail needs kf and rm "
+                         "(2P,) int32")
+    tail = _tail_checked(tail, P)
+    stats = _stats_checked(state)
+    kf, rm = kf.contiguous(), rm.contiguous()
+    hf, counted, dest = _tail_outputs(P, nc.device)
+    fn = bind(lib, "dtk_thread_walk_graph_tail",
+              "ii" + "p" * 7 + "i" + "pppi" + "ppi" + "p" * 8 + "p" * 8)
+    check(fn(*ke, ptr(kf), ptr(rm), nloci, *[ptr(t) for t in tail],
+             ptr(state["counts"]), ptr(clean), ptr(clean_pair), ptr(hf),
+             ptr(counted), ptr(dest), ptr(stats), stream_of(nc)),
+          "thread_walk_graph")
     launched("KE")
-    return clean, clean_pair
+    launched("KM")
+    return clean, clean_pair, (hf, counted, dest)
 
 
 # ---------------------------------------------------------------------------
-# KM step_tail (the per-pair tail and the read statistics)
+# KM, the step's per-pair tail and its read statistics: run by KD and KE at
+# their pair meeting (csrc/step_tail.cuh)
 # ---------------------------------------------------------------------------
 
 def step_tail_plain(stats, live, nonshort, sub_drop, pair_kf, vote_pass,
@@ -1013,49 +1139,6 @@ def step_tail_plain(stats, live, nonshort, sub_drop, pair_kf, vote_pass,
         torch.where(qc_drop, 2 - kf_p.sum(1), 0).sum(),
         ((bf != 0) & (kf == 0)).sum(),
     ]).long()
-    return hf, counted, dest
-
-
-def step_tail(stats, live, nonshort, sub_drop, pair_kf, vote_pass, pack,
-              dev_pair, qc_drop, kf, bf, rm, dst0, nloci: int,
-              clean_pair=None):
-    """KM: the per-pair tail and the read statistics, a thread a pair, one
-    64-bit atomic a block a counter (csrc/step_tail.cu).  Same contract as
-    step_tail_plain."""
-    if live.device.type == "cpu":
-        return step_tail_plain(stats, live, nonshort, sub_drop, pair_kf,
-                               vote_pass, pack, dev_pair, qc_drop, kf, bf,
-                               rm, dst0, nloci, clean_pair)
-    P = live.shape[0]
-    flags = [live, nonshort, sub_drop, pair_kf, vote_pass, dev_pair, qc_drop]
-    if clean_pair is not None:
-        flags.append(clean_pair)
-    if any(t.dtype != torch.bool or t.shape != (P,) for t in flags) \
-            or pack.dtype != torch.uint8 or pack.shape != (P,):
-        raise ValueError("step_tail: the pair planes are (P,) bool, pack "
-                         "(P,) uint8")
-    if any(t.dtype != torch.int32 or t.shape != (2 * P,)
-           for t in (kf, bf, rm)):
-        raise ValueError("step_tail: kf, bf and rm are (2P,) int32")
-    if dst0.dtype != torch.int64 or dst0.shape != (P,) \
-            or stats.dtype != torch.int64 or stats.shape != (9,) \
-            or not stats.is_contiguous():
-        raise ValueError("step_tail: dst0 (P,) int64, stats (9,) int64")
-    dev = live.device
-    flags = [t.contiguous() for t in flags]
-    pack = pack.contiguous()
-    kf, bf, rm, dst0 = (t.contiguous() for t in (kf, bf, rm, dst0))
-    hf = torch.empty(2 * P, dtype=torch.int32, device=dev)
-    counted = torch.empty(P, dtype=torch.bool, device=dev)
-    dest = torch.empty(P, dtype=torch.int64, device=dev)
-    fn = bind(kernel_lib("step_tail"), "dtk_step_tail",
-              "p" * 13 + "ii" + "pppp" + "p")
-    check(fn(*[ptr(t) for t in flags[:5]], ptr(pack), ptr(flags[5]),
-             ptr(flags[6]), *[ptr(t) for t in (kf, bf, rm, dst0)],
-             None if clean_pair is None else ptr(flags[7]), P, nloci,
-             ptr(hf), ptr(counted), ptr(dest), ptr(stats), stream_of(live)),
-          "step_tail")
-    launched("KM")
     return hf, counted, dest
 
 
@@ -1693,10 +1776,15 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
         else:
             afound_t, aval_t, _ = dt.lookup_bucket(tabs["trfl"], pq, pq_loc)
 
-        # ---- assignTRkmc + accumulation (K7, K8) ----
+        # ---- assignTRkmc + accumulation (K7, K8), and the per-pair tail
+        # and the read statistics (K8) where the mates meet: KD's in
+        # counting, KE's in threading
+        tail = StepTail(live, pair_nonshort, sub_drop, pair_kf, vote_pass,
+                        pack, qc_drop, bf)
         kd_args = (found, val, annv, kvalid, afound_t, aval_t, dst0,
                    dev_pair, kf, nk, tabs["loff"], nloci, cfg.nm_tr,
-                   threading, bf_pair, bool(with_annot))
+                   threading, bf_pair, bool(with_annot),
+                   None if threading else tail)
         if capture is not None:
             capture.update(
                 KA=(codes, rlen, k, threading, has_tre),
@@ -1704,26 +1792,21 @@ def make_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
                 KC=(kmer, val, use, pair_kf, tabs["vv"], E, cth),
                 KB_trfl=(tabs["trfl"], pq, pq_loc), KD=kd_args)
         a = assign_count(state, *kd_args)
-        thr_out, clean_pair = {}, None
+        thr_out = {}
         if threading:
             # ---- DFA walk (K12): KE probes the graph table at (nc, dst0)
             # as it walks
             tr_member = a.pop("tr_member")
             ke_args = (tabs["graph"], ex["nc"], dst0, kvalid, nk, dev_pair,
-                       tr_member, a.pop("slot"))
+                       tr_member, a.pop("slot"), tail, kf, a["rm"], nloci)
             if capture is not None:
                 capture["KE"] = ke_args
-            clean, clean_pair = thread_walk_graph(state, *ke_args)
+            clean, clean_pair, (hf, counted, dest) = thread_walk_graph(
+                state, *ke_args)
             thr_out = dict(clean=clean, clean_pair=clean_pair,
                            tr_member=tr_member)
-
-        # ---- the per-pair tail and the read statistics (K8) ----
-        km_args = (live, pair_nonshort, sub_drop, pair_kf, vote_pass, pack,
-                   dev_pair, qc_drop, kf, bf, a["rm"], dst0, nloci,
-                   clean_pair)
-        if capture is not None:
-            capture["KM"] = km_args
-        hf, counted, dest = step_tail(state["stats"], *km_args)
+        else:
+            hf, counted, dest = a.pop("hf"), a.pop("counted"), a.pop("dest")
         out = dict(
             pair_alive=pair_kf, vote_pass=vote_pass, referee=referee,
             referee_tie=(pack & 2) != 0, referee_ovf=(pack & 4) != 0,

@@ -49,16 +49,18 @@ NATIVE_SRCS = {"native": os.path.join(ROOT, "native", "dtk_native.cpp"),
 KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
            "thread_walk", "read_filter", "novel_edges", "bias_correct",
            "sharded_lookup", "site_scorer", "prefilter_sample",
-           "pair_filter", "step_tail")
+           "pair_filter")
 
-# launches of each kernel (KA-KM: KERNELS in order, KK being the fused
+# launches of each kernel (KA-KL: KERNELS in order, KK being the fused
 # prefilter launch), and of the instances a source builds beside its
 # kernel: KC's large-E instances (the retry tier's, and the
 # global-workspace mode past a block's shared memory), KK's host-sampled
 # instance (the default prefilter) and its sample-only one (under a
 # collective probe), and KL's prefilter decision (after a collective
 # probe); its wrapper adds one where it launches the kernel, and nowhere
-# else
+# else.  KM, the step's tail (step_tail.cuh), runs inside KD's (counting,
+# okam) or KE's (threading) launch: their wrappers add one to KM where
+# they launch with it
 LAUNCHES = dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF", "KG", "KH",
                           "KI", "KJ", "KK", "KL", "KM", "KC[large-E]",
                           "KK[q]", "KK[sample]", "KL[decide]"), 0)

@@ -31,9 +31,13 @@ would save).
 
 Each instance is first run through both builds, which must give the same
 fields, planes and state.  Both sides are the same bare ctypes call (no
-wrapper, its arguments built once), and each time is the median over 10 CUDA-event windows of 20
-back-to-back launches, divided by 20, so the host's enqueue cost stays out
-of it, in ``--pairs`` alternating pairs (parent first in even pairs).
+wrapper, its arguments built once) of ``dtk_assign_count``: KD without the
+step's tail (KM), which the counting step runs in KD's launch through
+``dtk_assign_count_tail`` (``tools/step_window.py`` times KD as the step
+launches it, beside another checkout's KD and KM), and each time is the
+median over 10 CUDA-event windows of 20 back-to-back launches, divided by
+20, so the host's enqueue cost stays out of it, in ``--pairs`` alternating
+pairs (parent first in even pairs).
 Prints the card, both builds' registers and shared memory, KD's grid,
 every pair, both medians and quartiles, and the change's wins.  Needs a
 CUDA card.
@@ -158,7 +162,7 @@ def main(argv=None):
         cap: dict = {}
         da.make_step(drp, cfg, P, L, expand_cap=E, device=dev, capture=cap,
                      **kw)(da.init_state(drp, dev), codes, rlen, live)
-        return list(cap["KD"])
+        return list(cap["KD"])[:16]          # KD's own arguments
 
     base = dict(ksize=k, cth=20, n_filter=4, nm_filter=1)
     inst = {"counting": capture(AlignConfig(**base, okam=False), 1, 0.0)}
@@ -179,7 +183,7 @@ def main(argv=None):
     da.make_step(gd, AlignConfig(**base, okam=False), P, L, expand_cap=E,
                  device=dev, capture=gcap)(da.init_state(gd, dev), gcodes,
                                            grlen, live)
-    inst["golden"] = list(gcap["KD"])
+    inst["golden"] = list(gcap["KD"])[:16]
     models = {"golden": gd}
     blocks, warps = da.assign_count_grid(P)
     print(f"KD grid (change): blocks={blocks} warps={warps}", flush=True)

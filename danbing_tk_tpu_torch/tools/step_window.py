@@ -12,7 +12,17 @@ the host's launches, so this is the host's enqueue rate), the median host ms
 of one call ended by a synchronize, and the launches of one step by kernel;
 the same for the host-sampled prefilter's dispatch of 4P pairs (those
 reads four times over; the native sampler's queries uploaded first).
-Prints one JSON line, with the card and its power limit.
+Then, on the step's captured inputs, the CUDA-graph replays (GRAPH
+launches a graph, the median of windows of 5 replays) of KL
+(``pair_filter``) and of KD as the step launches it (``assign_count``),
+with the step's tail (KM) in KD's launch where the checkout runs it there,
+else KD and the checkout's own KM launch (``step_tail``) in one graph;
+and of KE (``thread_walk_graph``, with KM the same way) on the golden
+threading step's inputs (``-gc 50 3``, the first P pairs of
+``reads.sim.fa``, the graph table added).  So one call with the parent and
+this tree in turns gives the same-call A/B of each and of the step
+window.  Prints one JSON line, with the card and
+its power limit.
 """
 
 from __future__ import annotations
@@ -24,6 +34,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+GRAPH = 20                # launches a CUDA graph replays
 
 
 def main() -> None:
@@ -91,6 +103,55 @@ def main() -> None:
 
     step_w, step_c, step_l = timed(lambda: step(state, *inputs))
     pre_w, pre_c, pre_l = timed(lambda: pre(*pre_in))
+
+    # the kernels on the steps' captured inputs, each as a CUDA graph
+    cap: dict = {}
+    da.make_step(drp, cfg, P, L, expand_cap=512, device=dev, capture=cap)(
+        da.init_state(drp, dev), *inputs)
+    st = da.init_state(drp, dev)
+    rp = RPGG(os.path.join(gold, "pan"))
+    drp.add_graph(rp)
+    tcfg = AlignConfig(ksize=21, cth=20, n_filter=4, nm_filter=1,
+                       simmode=2, threading=True, thread_cth=50,
+                       maxncorrection=3, aln=True)
+    tseqs = [ln.strip() for ln in open(os.path.join(gold, "reads.sim.fa"))
+             if not ln.startswith(">")]
+    tcodes, trlen = pack_reads(tseqs[: 2 * P], L)
+    tcap: dict = {}
+    da.make_step(drp, tcfg, P, L, expand_cap=512, device=dev,
+                 capture=tcap)(da.init_state(drp, dev), tcodes, trlen,
+                               np.ones(P, dtype=bool))
+    tst = da.init_state(drp, dev)
+    kernels = {"KL": lambda: da.pair_filter(*cap["KL"])}
+    if "KM" in cap:                      # KM a launch of its own
+        kernels["KD+KM"] = lambda: (da.assign_count(st, *cap["KD"]),
+                                    da.step_tail(st["stats"], *cap["KM"]))
+        kernels["KE+KM"] = lambda: (
+            da.thread_walk_graph(tst, *tcap["KE"]),
+            da.step_tail(tst["stats"], *tcap["KM"]))
+    else:                                # KM in KD's and KE's launches
+        kernels["KD+KM"] = lambda: da.assign_count(st, *cap["KD"])
+        kernels["KE+KM"] = lambda: da.thread_walk_graph(tst, *tcap["KE"])
+    graph_ms = {}
+    for name, fn in kernels.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(GRAPH):
+                fn()
+        ms = []
+        for _ in range(args.reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(5):
+                g.replay()
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1) / (5 * GRAPH))
+        graph_ms[name] = statistics.median(ms)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -98,6 +159,8 @@ def main() -> None:
         root=args.root, P=P, L=L, step_window_ms=step_w, step_call_ms=step_c,
         step_launches=step_l, prefilter_window_ms=pre_w,
         prefilter_call_ms=pre_c, prefilter_launches=pre_l,
+        graph_ms=graph_ms,
+        km_launch="own" if "KM" in cap else "in KD and KE",
         card=smi.strip())), flush=True)
 
 

@@ -27,7 +27,7 @@ from test_torch_kmers_filter_cases import (FLAGS, KF_MODES, ka_cases,
 from test_torch_pair_vote import vote_cases
 from test_torch_site_scorer_cases import kj_args, kj_cases
 from test_torch_step_tail_cases import (kl_args, kl_cases, kld_args,
-                                        kld_cases, km_args, km_cases)
+                                        kld_cases, km_cases)
 from test_torch_walk_edges_cases import (ke_args, ke_cases, ke_state,
                                          kg_args, kg_cases)
 
@@ -275,15 +275,15 @@ def test_kkq_is_the_host_sampled_dispatch(cuda, drp):
     assert n == {"KB": 1, "KL[decide]": 1} and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("NKW", [1, 2, 33, 140, 300])
-@pytest.mark.parametrize("nf", [1, 2, 4, 5])
+@pytest.mark.parametrize("NKW", [1, 2, 7, 33, 140, 141, 250, 300])
+@pytest.mark.parametrize("nf", [0, 1, 2, 4, 5])
 def test_kl_adversarial_matches_plain(cuda, NKW, nf):
     """KL equals pair_filter_plain on every plane of the seeded
     adversarial pairs of tests/test_torch_step_tail_cases.kl_cases (nk 0,
     1, nf - 1 and past NKW, found counts at cth - 1 and cth, every
     position found, a mate without a valid k-mer, dead pairs; an odd pair
-    count), for nmf 0, 1, nf and nf + 1 and cth 1, 20 and NKW + 1; one
-    launch each."""
+    count, so the last block of 8 pairs holds 1), for nmf 0, 1, nf and nf
+    + 1 and cth 1, 20 and NKW + 1; one launch each."""
     P = 1001
     for cth in (1, 20, NKW + 1):
         case = kl_cases(11, P, NKW, nf, cth)
@@ -295,8 +295,31 @@ def test_kl_adversarial_matches_plain(cuda, NKW, nf):
             for g, w in zip(got, want):
                 assert g.dtype == w.dtype and torch.equal(g.cpu(), w), \
                     (nmf, cth)
-            if nmf == 1 and cth == 20 and NKW >= cth:
+            if nmf == 1 and cth == 20 and NKW >= cth and nf:
                 assert bool(want[3].any()) and bool(want[4].any())
+
+
+@pytest.mark.parametrize("NKW", [7, 140, 141, 20000])
+def test_kl_unaligned_matches_plain(cuda, NKW):
+    """KL on found and kvalid planes that start 3 and 9 bytes past a
+    16-byte boundary (views into larger buffers: every block's span is
+    loaded byte-wise), and at NKW = 20000, where a block takes 4 pairs."""
+    P, nf, nmf, cth = 61, 4, 1, 20
+    case = kl_cases(19, P, NKW, nf, cth)
+    args = list(kl_args(case, cuda, nf, nmf, cth))
+    for i, off in ((0, 3), (1, 9)):
+        buf = torch.zeros(P * 2 * NKW + 32, dtype=torch.bool, device=cuda)
+        view = buf[off: off + P * 2 * NKW].view(2 * P, NKW)
+        view.copy_(args[i])
+        assert view.data_ptr() % 16 == off
+        args[i] = view
+    blocks, g = da.pair_filter_grid(P, NKW)
+    assert g == (4 if NKW == 20000 else 8) and blocks == -(-P // g)
+    got, n = _launched(da.pair_filter, *args)
+    assert n == {"KL": 1}
+    want = da.pair_filter_plain(*kl_args(case, "cpu", nf, nmf, cth))
+    for g_, w in zip(got, want):
+        assert torch.equal(g_.cpu(), w)
 
 
 @pytest.mark.parametrize("nf", [1, 4, 17])
@@ -313,35 +336,86 @@ def test_kld_adversarial_matches_plain(cuda, nf):
         assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("threading", [False, True])
+TAIL_KEYS = ("live", "nonshort", "sub_drop", "pair_kf", "vote_pass", "pack",
+             "qc_drop", "bf")
+
+
+def _tail(case: dict, device) -> da.StepTail:
+    """The step tail's planes of a km_cases dict, on ``device``."""
+    return da.StepTail(*(torch.from_numpy(case[k]).to(device)
+                         for k in TAIL_KEYS))
+
+
+@pytest.mark.parametrize("inst", ["counting", "annot", "threading"])
 @pytest.mark.parametrize("P", [1, 255, 1001, 4096])
-def test_km_adversarial_matches_plain(cuda, threading, P):
-    """KM equals step_tail_plain on the seeded pair planes of
-    tests/test_torch_step_tail_cases.km_cases (kf, rm and bf past 0 and
-    1, dst0 = NAN32, threading's clean_pair, partial blocks), its
-    counters added into a non-zero stats vector; rm given as a view that
-    starts off an 8-byte boundary; one launch each."""
-    case = km_cases(17, P, threading)
+def test_km_adversarial_matches_plain(cuda, inst, P):
+    """KM, the step's tail, run by KD (counting and annot instances) and
+    by KE (threading) where the mates meet, equals the plain composition
+    (assign_count_plain / thread_walk_graph_plain, then step_tail_plain)
+    on KD's and KE's seeded cases (tests/test_torch_assign_count.kd_cases,
+    tests/test_torch_walk_edges_cases.ke_cases) with the seeded pair planes
+    of tests/test_torch_step_tail_cases.km_cases (kf, rm and bf past 0 and
+    1, dst0 = NAN32, partial blocks): hf, counted, dest and the nine
+    counters, added into a non-zero stats vector; KE's rm given as a view
+    that starts off an 8-byte boundary; one launch each, counted as KD or
+    KE and KM."""
     base = torch.arange(9, dtype=torch.int64) * 1000
-    args = list(km_args(case, cuda))
-    buf = torch.zeros(2 * P + 1, dtype=torch.int32, device=cuda)
-    buf[1:].copy_(args[10])
-    args[10] = buf[1:]
-    assert args[10].data_ptr() % 8
-    sk = base.to(cuda)
-    got, n = _launched(da.step_tail, sk, *args)
-    assert n == {"KM": 1}
-    sp = base.clone()
-    want = da.step_tail_plain(sp, *km_args(case, "cpu"))
-    for g, w in zip(got, want):
+    km = km_cases(17, P, inst == "threading")
+    if inst != "threading":
+        case = kd_cases(17, P, 140)
+        T = lambda a, d: torch.from_numpy(np.ascontiguousarray(a)).to(d)
+
+        def run(fn, d):
+            st = {k: T(case[k].copy(), d) for k in ("counts", "nmapread",
+                                                   "kmc")}
+            st["stats"] = base.clone().to(d)
+            out = fn(st, *[T(case[k], d) for k in (
+                "found", "val", "annv", "kvalid", "afound_t", "aval_t",
+                "dst0", "dev_pair", "kf", "nk", "loff")], case["nloci"],
+                case["nm_tr"], False, T(case["bf_pair"], d),
+                inst == "annot", _tail(km, d))
+            return out, st
+
+        (got, sk), n = _launched(run, da.assign_count, cuda)
+        assert n == {"KD": 1, "KM": 1}
+        want, sp = run(da.assign_count_plain, "cpu")
+        assert set(got) == set(want) >= {"hf", "counted", "dest"}
+        pairs = [(got[k], want[k]) for k in want]
+        states = ("counts", "nmapread", "kmc", "stats")
+    else:
+        case = ke_cases(17, P, 140)
+        kf = torch.from_numpy(km["kf"])
+        buf = torch.zeros(2 * P + 1, dtype=torch.int32, device=cuda)
+        buf[1:].copy_(torch.from_numpy(km["rm"]))
+        assert buf[1:].data_ptr() % 8
+
+        def state(d):
+            st = ke_state(case, d)
+            st["stats"] = base.clone().to(d)
+            return st
+
+        sk, sp = state(cuda), state("cpu")
+        got, n = _launched(da.thread_walk_graph, sk, *ke_args(case, cuda),
+                           _tail(km, cuda), kf.to(cuda), buf[1:], 24)
+        assert n == {"KE": 1, "KM": 1}
+        want = da.thread_walk_graph_plain(
+            sp, *ke_args(case, "cpu"), _tail(km, "cpu"), kf,
+            torch.from_numpy(km["rm"]), 24)
+        pairs = list(zip(got[:2] + got[2], want[:2] + want[2]))
+        states = ("counts", "stats")
+    for g, w in pairs:
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
-    assert torch.equal(sk.cpu(), sp)
+    for key in states:
+        assert torch.equal(sk[key].cpu(), sp[key]), key
+    assert not torch.equal(sk["stats"].cpu(), base) or P == 1
 
 
 @pytest.mark.parametrize("mode", ["counting", "threading"])
 def test_kl_km_match_plain_on_step_inputs(cuda, drp_graph, mode):
-    """KL and KM replayed on a golden step's captured inputs equal their
-    plain versions, and a step launches each once."""
+    """KL and KM (the tail, in KD's launch when counting and in KE's when
+    threading) replayed on a golden step's captured inputs equal their
+    plain versions, and a step launches each once: KM with KD or KE, no
+    launch of its own."""
     P, L = 1024, 192
     codes, rlen = _reads(P, L)
     cfg = AlignConfig(**(THR if mode == "threading" else KW))
@@ -349,18 +423,25 @@ def test_kl_km_match_plain_on_step_inputs(cuda, drp_graph, mode):
     step = da.make_step(drp_graph, cfg, P, L, device=cuda, capture=cap)
     state = da.init_state(drp_graph, cuda)
     _, n = _launched(step, state, codes, rlen, np.ones(P, dtype=bool))
-    assert n["KL"] == 1 and n["KM"] == 1
-    assert n.get("KE", 0) == (mode == "threading")
+    thr = mode == "threading"
+    assert n["KL"] == n["KM"] == n["KD"] == 1
+    assert n.get("KE", 0) == thr
     for g, w in zip(da.pair_filter(*cap["KL"]),
                     da.pair_filter_plain(*cap["KL"])):
         assert torch.equal(g, w)
-    sk = torch.zeros(9, dtype=torch.int64, device=cuda)
-    sp = torch.zeros_like(sk)
-    for g, w in zip(da.step_tail(sk, *cap["KM"]),
-                    da.step_tail_plain(sp, *cap["KM"])):
+    sk, sp = da.init_state(drp_graph, cuda), da.init_state(drp_graph, cuda)
+    if thr:
+        got = da.thread_walk_graph(sk, *cap["KE"])
+        want = da.thread_walk_graph_plain(sp, *cap["KE"])
+        pairs = zip(got[:2] + got[2], want[:2] + want[2])
+    else:
+        got = da.assign_count(sk, *cap["KD"])
+        want = da.assign_count_plain(sp, *cap["KD"])
+        pairs = ((got[k], want[k]) for k in ("hf", "counted", "dest"))
+    for g, w in pairs:
         assert torch.equal(g, w)
-    assert torch.equal(sk, sp) and bool(sk.any())
-    assert torch.equal(sk, state["stats"])
+    assert torch.equal(sk["stats"], sp["stats"]) and bool(sk["stats"].any())
+    assert torch.equal(sk["stats"], state["stats"])
 
 
 @pytest.mark.parametrize("NKW", [1, 2, 131, 140, 300, 2000])
@@ -418,9 +499,10 @@ def test_kc_kd_match_plain_on_step_inputs(cuda, drp, E, off):
     sk, sp = da.init_state(drp, cuda), da.init_state(drp, cuda)
     got = da.assign_count(sk, *cap["KD"])
     want = da.assign_count_plain(sp, *cap["KD"])
+    assert set(got) == set(want) >= {"hf", "counted", "dest"}
     for key in want:
         assert torch.equal(got[key], want[key]), key
-    for key in ("counts", "nmapread", "kmc"):
+    for key in ("counts", "nmapread", "kmc", "stats"):
         assert torch.equal(sk[key], sp[key]), key
 
 
@@ -474,14 +556,13 @@ def test_kb_graph_kd_ke_match_plain_on_step_inputs(cuda, drp_graph):
     assert set(got) == set(want) >= {"tr_member", "slot"}
     for key in want:
         assert torch.equal(got[key], want[key]), key
-    n0 = build.launch_counts()["KE"]
-    got = da.thread_walk_graph(sk, *cap["KE"])
+    got, n = _launched(da.thread_walk_graph, sk, *cap["KE"])
     want = da.thread_walk_graph_plain(sp, *cap["KE"])
-    assert build.launch_counts()["KE"] == n0 + 1
-    for g, w in zip(got, want):
+    assert n == {"KE": 1, "KM": 1}
+    for g, w in zip(got[:2] + got[2], want[:2] + want[2]):
         assert torch.equal(g, w)
     assert bool(got[1].any()) and not bool(got[1].all())
-    for key in ("counts", "nmapread", "kmc"):
+    for key in ("counts", "nmapread", "kmc", "stats"):
         assert torch.equal(sk[key], sp[key]), key
 
 

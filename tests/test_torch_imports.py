@@ -160,18 +160,25 @@ def test_kernels_have_counters_and_notes():
     build.reset_launch_counts()
     counts = build.launch_counts()
     # one count per kernel source, KC's large-E instance beside KC, KK's
-    # host-sampled and sample-only instances beside KK (the fused launch)
-    # and KL's prefilter decision beside KL (the sub/k-filter)
+    # host-sampled and sample-only instances beside KK (the fused launch),
+    # KL's prefilter decision beside KL (the sub/k-filter), and KM (the
+    # step's tail, step_tail.cuh) inside KD's and KE's launches
     assert counts == dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF",
                                     "KG", "KH", "KI", "KJ", "KK", "KL",
                                     "KM", "KC[large-E]", "KK[q]",
                                     "KK[sample]", "KL[decide]"), 0)
-    assert len(counts) == len(build.KERNELS) + 4
+    assert len(counts) == len(build.KERNELS) + 5
     assert "bias_correct" in build.KERNELS
     assert "sharded_lookup" in build.KERNELS
     assert "site_scorer" in build.KERNELS
     assert "prefilter_sample" in build.KERNELS
-    assert "pair_filter" in build.KERNELS and "step_tail" in build.KERNELS
+    assert "pair_filter" in build.KERNELS and "step_tail" not in build.KERNELS
+    with open(os.path.join(build.CSRC, "step_tail.cuh")) as f:
+        src = f.read()
+    assert "Replaces K8" in src and "Bound on the H100" in src
+    for name in ("assign_count", "thread_walk"):
+        with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
+            assert '#include "step_tail.cuh"' in f.read(), name
     for name in build.KERNELS:
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             src = f.read()

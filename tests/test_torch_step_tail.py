@@ -47,7 +47,7 @@ WRAPPERS = ((km, "extract_kmers"), (tda, "extract_kmers"),
             (tdt, "lookup_bucket"), (tda, "pair_filter"),
             (tda, "pair_vote"), (tda, "read_filter"),
             (tda, "assign_count"), (tda, "thread_walk_graph"),
-            (tda, "step_tail"), (tda, "novel_edges"))
+            (tda, "novel_edges"))
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -8,17 +8,20 @@ tests/test_torch_gpu.py holds the kernels against on the card.
   dead pairs; NKW = 1, 2, 31, 32, 33, 140 and 300 (ballot words whose
   mate boundary falls inside a word, on it, or past one word); nf = 0,
   1, 2, 4, 5 and 40 (more samples than a warp's lanes), nmf = 0, 1, nf
-  and nf + 1 and negative.  The emulation follows csrc/pair_filter.cu
-  warp by warp: a pair's 2 NKW positions swept in words of 32, the mates'
-  counts by popc under the mate mask, the sampled positions read back
-  from the words, the use plane from them.
+  and nf + 1 and negative.  The emulation is a pair's positions in
+  ballot words of 32 (the kernel's first design, a warp a pair): the
+  mates' counts by popc under the mate mask, the sampled positions read
+  back from the words, the use plane from them;
+  tests/test_torch_pair_filter_staged.py emulates the kernel's chunk
+  design.
 * KL[decide] (prefilter_decide): ``kld_cases``, (2P, nf) found and valid
   planes, short mates and dead pairs, nf = 1, 4 and 17.
 * KM (step_tail_plain): ``km_cases``, random pair planes (sub_drop within
   nonshort), kf, rm and bf beyond 0 and 1, dst0 up to NAN32, with and
   without clean_pair (threading), an odd pair count.  The emulation
-  follows csrc/step_tail.cu: a thread a pair, the nine counters summed
-  by blocks of 256 pairs, then over the blocks.
+  follows csrc/step_tail.cuh as KD and KE run it: a thread a pair, the
+  nine counters summed by blocks of 4 pairs, then over the blocks
+  (tests/test_torch_pair_filter_staged.py holds the fused tails).
 
 Every comparison is exact.  The module imports torch and the port only
 (the card's machine has no JAX).
@@ -89,7 +92,8 @@ def kl_args(case: dict, device, nf: int, nmf: int, cth: int) -> tuple:
 
 
 def kl_emulated(case: dict, nf: int, nmf: int, cth: int) -> tuple:
-    """pair_filter_kernel warp by warp (a warp a pair), in Python ints."""
+    """KL's arithmetic a pair at a time over ballot words of 32, in
+    Python ints."""
     found, kvalid, nk = case["found"], case["kvalid"], case["nk"]
     R, NKW = found.shape
     P = R // 2
@@ -238,17 +242,17 @@ def km_args(case: dict, device, nloci: int = 24) -> tuple:
 
 
 def km_emulated(case: dict, nloci: int = 24) -> tuple:
-    """step_tail_kernel: a thread a pair, each counter summed per block of
-    256 pairs, then over the blocks."""
+    """dtk_pair_tail: a thread a pair, each counter summed per block of
+    4 pairs (KD's and KE's), then over the blocks."""
     c = {k: v for k, v in case.items()}
     P = len(c["live"])
     hf = np.zeros(2 * P, np.int32)
     counted = np.zeros(P, bool)
     dest = np.zeros(P, np.int64)
     stats = [0] * 9
-    for b0 in range(0, P, 256):
+    for b0 in range(0, P, 4):
         part = [0] * 9
-        for p in range(b0, min(b0 + 256, P)):
+        for p in range(b0, min(b0 + 4, P)):
             lv, ns, sd = c["live"][p], c["nonshort"][p], c["sub_drop"][p]
             ref = bool(c["pack"][p] & 1)
             k0, k1 = int(c["kf"][2 * p]), int(c["kf"][2 * p + 1])

@@ -27,8 +27,9 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      hf, counted, dest and the nine counters) and KL (the sub/k-filter,
      a block of 8 pairs staged in shared memory) replayed on the step's
      captured inputs, KK's
-     sample-only instance (KK[sample]) on the prefilter dispatch's reads
-     (its queries also equal to the host sampler's), KK's fused launch
+     sample-only instance (KK[sample], the fused launch's staged front
+     end) on the prefilter dispatch's reads (its queries also equal to
+     the host sampler's; window and CUDA-graph replay), KK's fused launch
      (sample, member probe and decision) on the same reads, with its
      bound from the rows it reads (engine/device_align.py
      prefilter_fused_work), and KK[q] (the probe and decision over the
@@ -129,14 +130,18 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      pair_vote_plain, with what sets its work (live entries and events
      per pair); (d) phase 5's batches through ShardedAlignRunner
      (shard_index, E = 512 -> [4096]; its prefilter samples on the card
-     with KK[sample], for KI's collective probe) over a fresh copy of
-     phase 5's flat view: reads/s, retried
+     with KK[sample], for KI[count]'s collective probe) over a fresh copy
+     of phase 5's flat view: reads/s, retried
      pairs, the referee share beside phase 5's and
      its resolved pairs, the collectives' ms per step, peak memory; KI and
-     KC[large-E] launched, KI's launches by table, KL[decide] once a
-     prefilter dispatch; then KL[decide] after KI (the collective member
-     probe of phase 3's host-sampled queries) against its plain version
-     and KK[q]'s survivors, timed (window and CUDA-graph replay)
+     KC[large-E] launched, KI's launches by table (dbi and trfl), one
+     KK[sample], KI[count] and KL[decide] a prefilter dispatch; then on
+     phase 3's dispatch reads (KK[sample]'s queries) KI[count] against
+     its plain version at D = 1 and on 4 row blocks summed (= D = 1 = the
+     collective's count), KL[decide] on the summed counts and nk against
+     its plain version and KK[q]'s survivors, each timed (window and
+     CUDA-graph replay), and the collective dispatch's window with its
+     reduce_scatter bytes
   6. the production-size threading funnel (-gc 85 3): the index's graph
      table (the fa2kmers -g rule over the loci's sequences), built on the
      host in phase 2 and uploaded only now, so the counting phases never
@@ -190,7 +195,8 @@ Phases; any failure exits non-zero (nothing is caught and continued):
   9. the kernels line (JSON): KA-KM (KK: the fused prefilter launch; KM
      fused in KD / KE, its source csrc/step_tail.cuh), KC's
      large-E instance, KK's host-sampled (KK[q]) and sample-only
-     instances and KL's prefilter decision (KL[decide]); KL's launches
+     instances, KI's count instance (KI[count]) and KL's prefilter
+     decision (KL[decide]); KL's launches
      and KM's tails equal KA's on every path (a step runs each once), KM's
      equal KD's, KE none in counting and okam, KM's = KE's in threading
      (no path launches a standalone KM); each
@@ -224,9 +230,10 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM HBM3, published peak
 COUNTING = ("KA", "KB", "KL", "KC", "KD", "KM")
 THREADING = COUNTING + ("KE",)
 OKAM = COUNTING + ("KF", "KG")          # -b -qc -bu adds KF and KG
-SHARDED = ("KA", "KL", "KC", "KD", "KM", "KI", "KK[sample]",
+SHARDED = ("KA", "KL", "KC", "KD", "KM", "KI", "KI[count]", "KK[sample]",
            "KL[decide]")            # shard_index: KI in place of KB,
-                                    # queries by KK[sample], KL[decide]
+                                    # queries by KK[sample], KI[count]'s
+                                    # hit counts, KL[decide]
 BUILD_PRUNE = THREADING                 # build's align -g (run_file)
 QC = COUNTING + ("KF",)                 # qc's -e 1, -s 2 and -b maps
 BQ_NLOCI, BQ_COV, BQ_PROCS = 256, 2, 2  # phase 4c (b)'s scenario and run
@@ -688,6 +695,12 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
                   f"shape=({Bp},{L}) nf=4 threads={Bp * 4} queries = the "
                   f"host sampler's; launches/dispatch=1 (the sharded "
                   f"prefilter under a collective probe, shard_index)")
+    kks["graph_ms"] = cuda_ms(graph_of(
+        lambda: km.prefilter_sample(pb_d, pr_d, k, 4)).replay,
+        reps=5) / GRAPH
+    log(f"[3] KK[sample] prefilter_sample graph_ms={kks['graph_ms']:.4f} "
+        f"({GRAPH} launches a CUDA graph, replayed) ms={kks['ms']:.4f} "
+        f"(window) bound_ms={kks['bound_ms']:.4f}; card {smi}")
     results["KK[sample]"] = dict(
         kks, source="danbing_tk_tpu_torch/csrc/prefilter_sample.cu",
         replaces="danbing_tk_tpu/engine/device_align.py:343")
@@ -882,7 +895,8 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     # ---- 5s. the sharded funnel (world-1 NCCL group) ----
     sharded = sharded_phase(args, dev, dict(
         drp=drp, seqs=seqs, cap=cap, q_mem=q_mem, qvalid=qv, qnon=qn,
-        batches=batches, P=P, L=L, E=E, k=k, RL=RL, cfg=cfg,
+        batches=batches, P=P, L=L, E=E, k=k, RL=RL, cfg=cfg, pb=pb_d,
+        pr=pr_d,
         reads_s=2 * npairs / wall, ref_share=ref_share, flat=flat, smi=smi))
 
     # ---- 6. production-size threading funnel ----
@@ -1237,6 +1251,9 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
                          source="danbing_tk_tpu_torch/csrc/sharded_lookup.cu",
                          replaces="danbing_tk_tpu/parallel/sharded_index.py:53",
                          by_table=sharded["ki_all"])
+    results["KI[count]"] = dict(
+        sharded["KIC"], source="danbing_tk_tpu_torch/csrc/sharded_lookup.cu",
+        replaces="danbing_tk_tpu/parallel/sharded_index.py:131")
     results["KC[large-E]"] = dict(
         sharded["KCL"], source="danbing_tk_tpu_torch/csrc/pair_vote.cu",
         replaces="danbing_tk_tpu/engine/device_align.py:618")
@@ -2240,10 +2257,13 @@ def sharded_phase(args, dev, ctx) -> dict:
     against KB; (c) KC's large-E mode at E = 4096 and P = _tier_P(4096) on
     overflow pairs of the TR pool against pair_vote_plain; (d) phase 5's
     batches through ShardedAlignRunner(shard_index=True, expand_cap=512,
-    retry_expand=[4096]), one KL[decide] a prefilter dispatch, then
-    KL[decide] after KI on phase 3's host-sampled queries against its
-    plain version.  Returns the KI, KC[large-E] and KL[decide] results
-    and the launches of (d)."""
+    retry_expand=[4096]), one KK[sample], KI[count] and KL[decide] a
+    prefilter dispatch; then on phase 3's dispatch reads KI[count] at D =
+    1 and over 4 row blocks against its plain version, and KL[decide]
+    after the collective count against its plain version and KK[q]'s
+    survivors, and the collective dispatch's window.  Returns the KI,
+    KI[count], KC[large-E] and KL[decide] results and the launches of
+    (d)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2255,6 +2275,7 @@ def sharded_phase(args, dev, ctx) -> dict:
     from danbing_tk_tpu_torch.engine.host_align import AlignConfig, RPGG
     from danbing_tk_tpu_torch.index import device_table as dt
     from danbing_tk_tpu_torch.kernels import build
+    from danbing_tk_tpu_torch.ops import kmers as km
     from danbing_tk_tpu_torch.parallel import mesh as pm
     from danbing_tk_tpu_torch.parallel import sharded_index as si
     from danbing_tk_tpu_torch.parallel.runner import ShardedAlignRunner
@@ -2532,7 +2553,7 @@ def sharded_phase(args, dev, ctx) -> dict:
         f"slots, bound_ms={k15_bound:.4f}) memory_held_before={held} "
         f"max_memory_allocated={peak} stats={stats} launches={sl}")
     # KI's launches by table: each step (tier steps too) probes dbi and
-    # trfl once, each prefilter dispatch the member table once
+    # trfl once; each prefilter dispatch's member probe is KI[count]'s
     ki_n = dict(dbi=srunner.n_steps, trfl=srunner.n_steps,
                 member=sl["KI"] - 2 * srunner.n_steps)
     for tname, r_ in ki_res.items():
@@ -2541,40 +2562,108 @@ def sharded_phase(args, dev, ctx) -> dict:
             f"D=4 slowest block ms={r_['ms']:.4f} bound_ms="
             f"{r_['bound_ms']:.4f}; D=1 ms={r_['d1_ms']:.4f} bound_ms="
             f"{r_['d1_bound_ms']:.4f} KB_ms={r_['d1_kb_ms']:.4f}")
-    # KL[decide] after KI: phase 3's host-sampled queries through the
-    # collective member probe, then the decision on the card against its
-    # plain version and the host-sampled prefilter's (KK[q]) survivors
-    if sl["KL[decide]"] != sl["KK[sample]"]:
-        fail(f"the sharded funnel decided {sl['KL[decide]']} of "
-             f"{sl['KK[sample]']} prefilter dispatches with KL[decide]")
+    # one KK[sample], KI[count] and KL[decide] a prefilter dispatch
+    if not sl["KL[decide]"] == sl["KI[count]"] == sl["KK[sample]"] \
+            or ki_n["member"] != 0:
+        fail(f"the sharded funnel's prefilter dispatches launched "
+             f"KK[sample] {sl['KK[sample]']}, KI[count] {sl['KI[count]']}, "
+             f"KL[decide] {sl['KL[decide]']} and a member KI "
+             f"{ki_n['member']} times")
+    # KI[count] and KL[decide] on phase 3's dispatch (16,384 pairs): its
+    # reads sampled by KK[sample], the member table at D = 1 and over its
+    # 4 row blocks summed, then through the collective; KL[decide] on the
+    # summed counts and the sampler's nk, against its plain version and
+    # the host-sampled prefilter's (KK[q]) survivors on the same reads
     q_mem, qv, qn = ctx["q_mem"], ctx["qvalid"], ctx["qnon"]
-    Pq, nfq = qn.shape[0] // 2, q_mem.shape[1]
+    Pq = qn.shape[0] // 2
+    sq, _, snk = km.prefilter_sample(ctx["pb"], ctx["pr"], k, 4)
+    mtab = tabs["member"]
+    blk1, meta1 = si.row_blocks(mtab, 1)[0]
+    hits1 = dt.lookup_bucket_owned_count(blk1, meta1, sq)
+    err = max_abs_err(hits1, dt.lookup_bucket_owned_count_plain(
+        blk1, meta1, sq))
+    tot = torch.zeros_like(hits1)
+    for blk, meta in si.row_blocks(mtab, D):
+        h = dt.lookup_bucket_owned_count(blk, meta, sq)
+        err = max(err, max_abs_err(
+            h, dt.lookup_bucket_owned_count_plain(blk, meta, sq)))
+        tot += h
     mblk = si.device_block(drp, "member", 1, 0, dev)
-    found = si.lookup_bucket_sharded(*mblk, q_mem, group=mesh.group)[0]
+    hits = si.prefilter_hits_sharded(*mblk, sq, group=mesh.group)
+    torch.cuda.synchronize()
+    if err or not torch.equal(tot, hits1) or not torch.equal(hits, hits1):
+        fail(f"KI[count] disagrees with its plain version (max |err| "
+             f"{err}), or its D = 4 blocks' sum or the collective's count "
+             f"with D = 1")
+
+    def kic_bytes(tab, q):
+        """Bytes KI[count] moves at D = 1 on this data: each gathered
+        query read once, each distinct row a non-EMPTY query probes up to
+        its first hit read once, 4 B a read written."""
+        qf = q.reshape(-1)
+        qf = qf[qf != -1]
+        lo, hi = qf & 0xFFFFFFFF, (qf >> 32) & 0xFFFFFFFF
+        rows = 0
+        need = torch.ones(qf.numel(), dtype=torch.bool, device=qf.device)
+        for t, salt in zip(tab.levels, tab.salts):
+            b = dt.bucket_index(lo[need], hi[need], None, salt, t.shape[0])
+            rows += int(torch.unique(b).numel())
+            sub = dt.DevTable([t], [salt], False, tab.nval)
+            need &= ~dt.lookup_bucket_plain(sub, qf)[0]
+        return 8 * q.numel() + 4 * q.shape[0] + rows * 8 * tab.W * 4, rows
+
+    kic_b, kic_rows = kic_bytes(mtab, sq)
+    kic = dict(match=True, max_abs_err=err,
+               ms=cuda_ms(lambda: dt.lookup_bucket_owned_count(
+                   blk1, meta1, sq)),
+               plain_ms=cuda_ms(lambda: dt.lookup_bucket_owned_count_plain(
+                   blk1, meta1, sq), n=3, reps=3, warm=1),
+               bound_ms=kic_b / HBM_BYTES_PER_MS, bound_by="bytes",
+               library_ms=None, sharded_launches=sl["KI[count]"])
+    kic["graph_ms"] = cuda_ms(graph_of(
+        lambda: dt.lookup_bucket_owned_count(blk1, meta1, sq)).replay,
+        reps=5) / GRAPH
+    log(f"[5s-d] KI[count] sharded_lookup_count (member, D=1, the world-1 "
+        f"dispatch's shape) reads={sq.shape[0]} nf={sq.shape[1]} match=True "
+        f"max_abs_err={err} D=4 blocks' sum = D=1 = the collective's; "
+        f"reads_with_hits={int((hits1 > 0).sum())} ms={kic['ms']:.4f} "
+        f"graph_ms={kic['graph_ms']:.4f} plain_ms={kic['plain_ms']:.4f} "
+        f"bound_ms={kic['bound_ms']:.4f} bytes={kic_b} rows={kic_rows} "
+        f"launches={sl['KI[count]']} (one a dispatch); card {smi}")
     pl = torch.ones(Pq, dtype=torch.bool, device=dev)
-    kld_args = (found, qv, qn, pl, 1, Pq)
+    kld_args = (hits, snk, pl, 1, Pq)
     got = da.prefilter_decision(*kld_args)
     err = max_abs_err(got, da.prefilter_decide(*kld_args))
     if err or not torch.equal(got, da.make_prefilter_step_q(
             drp, ctx["cfg"], Pq, dev)(q_mem, qv, qn, pl)):
-        fail(f"KL[decide] after KI disagrees with its plain version (max "
-             f"|err| {err}) or with KK[q]'s survivors")
+        fail(f"KL[decide] after KI[count] disagrees with its plain version "
+             f"(max |err| {err}) or with KK[q]'s survivors")
     kld = dict(match=True, max_abs_err=err,
                ms=cuda_ms(lambda: da.prefilter_decision(*kld_args)),
                plain_ms=cuda_ms(lambda: da.prefilter_decide(*kld_args)),
-               bound_ms=(4 * nfq + 4) * Pq / HBM_BYTES_PER_MS,
+               bound_ms=18 * Pq / HBM_BYTES_PER_MS,
                bound_by="bytes", library_ms=None)
     kld["graph_ms"] = cuda_ms(graph_of(
         lambda: da.prefilter_decision(*kld_args)).replay, reps=5) / GRAPH
-    log(f"[5s-d] KL[decide] prefilter_decide after KI (member, world 1) "
-        f"P={Pq} nf={nfq} match=True max_abs_err={err} survivors="
+    log(f"[5s-d] KL[decide] prefilter_decide after KI[count] (member, "
+        f"world 1) P={Pq} match=True max_abs_err={err} survivors="
         f"{int(got.sum())} ms={kld['ms']:.4f} graph_ms="
         f"{kld['graph_ms']:.4f} plain_ms={kld['plain_ms']:.4f} bound_ms="
-        f"{kld['bound_ms']:.4f} launches={sl['KL[decide]']} (one a "
-        f"dispatch); card {smi}")
+        f"{kld['bound_ms']:.5f} (hits and nk int32, live, survive: 18 B a "
+        f"pair) launches={sl['KL[decide]']} (one a dispatch); card {smi}")
+    # the collective prefilter's dispatch window on the same reads:
+    # KK[sample], all_gather, KI[count], reduce_scatter, KL[decide], the
+    # survivors' all_gather (device tensors, world 1)
+    pstep, _ = si.make_sharded_prefilter(drp, ctx["cfg"], mesh, Pq, L)
+    if not torch.equal(pstep(ctx["pb"], ctx["pr"], pl), got):
+        fail("the collective prefilter's survivors differ from KL[decide]'s")
+    disp_ms = cuda_ms(lambda: pstep(ctx["pb"], ctx["pr"], pl))
+    log(f"[5s-d] collective prefilter dispatch (P={Pq}, world 1) window "
+        f"ms={disp_ms:.4f} reduce_scatter_bytes={hits.numel() * 4} (one "
+        f"int32 a read); card {smi}")
     del srunner
     dist.destroy_process_group()
-    return dict(KI=ki_res["dbi"], KCL=kcl, KLD=kld, launches=sl,
+    return dict(KI=ki_res["dbi"], KCL=kcl, KLD=kld, KIC=kic, launches=sl,
                 ki_all=ki_res)
 
 
@@ -2770,7 +2859,9 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "KC": "KC pair_vote", "KC[large-E]": "KC pair_vote[large-E]",
              "KD": "KD assign_count", "KE": "KE thread_walk",
              "KF": "KF read_filter", "KG": "KG novel_edges",
-             "KI": "KI sharded_lookup", "KJ": "KJ site_scorer",
+             "KI": "KI sharded_lookup",
+             "KI[count]": "KI[count] sharded_lookup_count",
+             "KJ": "KJ site_scorer",
              "KK": "KK prefilter_fused",
              "KK[q]": "KK[q] prefilter_fused_q",
              "KK[sample]": "KK[sample] prefilter_sample",

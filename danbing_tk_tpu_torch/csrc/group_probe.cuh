@@ -1,7 +1,9 @@
 // The cooperative bucket-table probe of KB (bucket_lookup.cu), which KI
 // (sharded_lookup.cu) also launches for a row block that holds every row
-// of a non-composite table (D = 1, the sharded funnel at world 1); KF
-// (read_filter.cu) probes in the same layout with its group max.
+// of a non-composite table (D = 1, the sharded funnel at world 1), its
+// count instance (KI[count]) taking the lanes' answers in registers
+// (dtk_group_probe_lanes); KF (read_filter.cu) probes in the same layout
+// with its group max.
 //
 // A row of 8 slots (8 * W u32: 128 B at W = 4, 64 B for the member
 // table's W = 2) lands in a random place, so what bounds a probe is how
@@ -69,19 +71,17 @@ inline int dtk_vector_width(const Lv& lv, int W) {
     return VW;
 }
 
-// One warp's tile of 32 queries from q[base]; every lane of the warp
-// calls it.  ul: 32 bytes of shared memory for this warp.
-template <int VW, class TF, class TV>
-__device__ __forceinline__ void dtk_group_probe(
-    const int64_t* __restrict__ q, const int64_t* __restrict__ qloc,
-    int64_t n, int64_t base, const DtkLevels& lv, int W, int composite,
-    int nval, TF* __restrict__ found, TV* __restrict__ val,
-    TV* __restrict__ val2, uint8_t* ul) {
+// One warp's tile of up to 32 queries held in its lanes (lane i: key myq
+// and locus myloc where inb, else 0 and 0; the inb lanes need not be the
+// low ones); every lane of the warp calls it.  Sets *rf, *rv, *rv2 to the
+// answer to the lane's query, a repeated query's lanes each to theirs.
+// ul: 32 bytes of shared memory for this warp.
+template <int VW>
+__device__ __forceinline__ void dtk_group_probe_lanes(
+    bool inb, uint64_t myq, uint32_t myloc, const DtkLevels& lv, int W,
+    int composite, int nval, uint8_t* ul, uint32_t* rf, uint32_t* rv,
+    uint32_t* rv2) {
     const int lane = threadIdx.x & 31, g = lane >> 3, s = lane & 7;
-    const int64_t mi = base + lane;
-    const bool inb = mi < n;
-    const uint64_t myq = inb ? (uint64_t)q[mi] : 0ull;
-    const uint32_t myloc = composite && inb ? (uint32_t)qloc[mi] : 0u;
     // a repeated (key, locus) is probed once, by its lowest lane; the match
     // runs only where some query repeats its neighbour's (random k-mers
     // seldom do)
@@ -102,12 +102,12 @@ __device__ __forceinline__ void dtk_group_probe(
     const unsigned uniq = __ballot_sync(DTK_FULL, inb && lead == lane);
     const int nu = __popc(uniq);
     const int rank = __popc(uniq & ((1u << lead) - 1u));  // lead's, of nu
-    // unique query -> its lane (the identity when nothing repeats: the
-    // in-range lanes are the low ones)
-    const bool dup = uniq != inm;
+    // unique query -> its lane: the identity when the leaders are the low
+    // lanes (a tile of distinct queries from lane 0)
+    const bool dup = uniq != (nu == 32 ? DTK_FULL : (1u << nu) - 1u);
     if (dup && inb && lead == lane) ul[rank] = (uint8_t)lane;
     __syncwarp();
-    uint32_t rf = 0, rv = 0, rv2 = 0;            // query mi's answer
+    *rf = *rv = *rv2 = 0;                        // the lane's answer
 
 #pragma unroll 1
     for (int it = 0; it * 4 < nu; ++it) {
@@ -144,11 +144,28 @@ __device__ __forceinline__ void dtk_group_probe(
         const uint32_t fa = __shfl_sync(DTK_FULL, a, src);
         const uint32_t fb = __shfl_sync(DTK_FULL, b2, src);
         if (rr >= 0 && rr < 4) {
-            rf = ff;
-            rv = fa;
-            rv2 = fb;
+            *rf = ff;
+            *rv = fa;
+            *rv2 = fb;
         }
     }
+}
+
+// One warp's tile of 32 queries from q[base]; every lane of the warp
+// calls it.  ul: 32 bytes of shared memory for this warp.
+template <int VW, class TF, class TV>
+__device__ __forceinline__ void dtk_group_probe(
+    const int64_t* __restrict__ q, const int64_t* __restrict__ qloc,
+    int64_t n, int64_t base, const DtkLevels& lv, int W, int composite,
+    int nval, TF* __restrict__ found, TV* __restrict__ val,
+    TV* __restrict__ val2, uint8_t* ul) {
+    const int64_t mi = base + (threadIdx.x & 31);
+    const bool inb = mi < n;
+    const uint64_t myq = inb ? (uint64_t)q[mi] : 0ull;
+    const uint32_t myloc = composite && inb ? (uint32_t)qloc[mi] : 0u;
+    uint32_t rf, rv, rv2;                        // query mi's answer
+    dtk_group_probe_lanes<VW>(inb, myq, myloc, lv, W, composite, nval, ul,
+                              &rf, &rv, &rv2);
     if (inb) {
         found[mi] = (TF)rf;
         val[mi] = (TV)rv;

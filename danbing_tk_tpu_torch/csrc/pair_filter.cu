@@ -56,10 +56,17 @@
 // decisions' divisions and sample reads, once a pair in warp 0, were then
 // made in every chunk's thread.
 //
-// KL[decide] reads found and valid (2P, nf) u8, nonshort (2P,) and live
-// (P,) and writes survive (P,): a thread a pair, 256 a block.  Bound:
-// bytes, 4 nf + 3 B a pair in, 1 B out (327,680 B at 16,384 pairs and nf
-// = 4: 0.1 us); the launch is what it costs.
+// KL[decide] reads hits (2P,) int32 (each read's valid sampled k-mers
+// found: the collective probe's count, KI[count] summed over the ranks),
+// nonshort (2P,) as bool, or as the sampler's nk int32 (a read is
+// nonshort where nk > 0), and live (P,), and writes survive (P,): a
+// thread a pair, 256 a block.  A pair survives when it is live and each
+// mate is nonshort with hits >= nmf.  Bound: bytes, 4 x 2 + 2 + 1 B a pair
+// in (8 B of nk in place of 2 of nonshort), 1 B out (196,608 B, or
+// 294,912 B with nk, at 16,384 pairs: under 0.1 us); the launch is what
+// it costs.  Its first form read the (2P, nf) found and valid planes of a
+// collective probe that returned KI's three value planes per query; the
+// counting now happens on the probe's side (sharded_lookup.cu).
 #include "common.cuh"
 
 constexpr int KL_G = 8;                  // pairs a block at most
@@ -256,24 +263,17 @@ pair_filter_kernel(const uint8_t* __restrict__ found,
     }
 }
 
+template <class NS>
 __global__ void __launch_bounds__(KLD_THREADS)
-prefilter_decide_kernel(const uint8_t* __restrict__ found,
-                        const uint8_t* __restrict__ valid,
-                        const uint8_t* __restrict__ nonshort,
-                        const uint8_t* __restrict__ live, int64_t P, int nf,
+prefilter_decide_kernel(const int32_t* __restrict__ hits,
+                        const NS* __restrict__ nonshort,
+                        const uint8_t* __restrict__ live, int64_t P,
                         int64_t nmf, uint8_t* __restrict__ survive) {
     const int64_t p = (int64_t)blockIdx.x * KLD_THREADS + threadIdx.x;
     if (p >= P) return;
-    bool ok = live[p] != 0 && nonshort[2 * p] != 0 &&
-              nonshort[2 * p + 1] != 0;
-    for (int m = 0; m < 2 && ok; ++m) {
-        const int64_t r = (2 * p + m) * nf;
-        int64_t hits = 0;
-        for (int j = 0; j < nf; ++j)
-            hits += found[r + j] != 0 && valid[r + j] != 0;
-        ok = hits >= nmf;
-    }
-    survive[p] = ok;
+    survive[p] = live[p] != 0 && nonshort[2 * p] > 0 &&
+                 nonshort[2 * p + 1] > 0 && hits[2 * p] >= nmf &&
+                 hits[2 * p + 1] >= nmf;
 }
 
 // found (2P, NKW) bool (KB's dbi probe, before the kvalid mask), kvalid
@@ -316,18 +316,26 @@ DTK_EXPORT int dtk_pair_filter_block_pairs(int64_t NKW) {
     return NKW < 1 || NKW > (1 << 24) ? 0 : kl_block_pairs(NKW);
 }
 
-// found and valid (2P, nf) bool, nonshort (2P,) bool, live (P,) bool ->
-// survive (P,) bool.
-DTK_EXPORT int dtk_prefilter_decide(const void* found, const void* valid,
-                                    const void* nonshort, const void* live,
-                                    int64_t P, int64_t nf, int64_t nmf,
-                                    void* survive, void* stream) {
-    if (nf < 0 || nf > (1 << 20)) return (int)cudaErrorInvalidValue;
+// hits (2P,) int32, nonshort (2P,) of ns_bytes 1 (bool) or 4 (int32 nk),
+// live (P,) bool -> survive (P,) bool.
+DTK_EXPORT int dtk_prefilter_decide(const void* hits, const void* nonshort,
+                                    int64_t ns_bytes, const void* live,
+                                    int64_t P, int64_t nmf, void* survive,
+                                    void* stream) {
+    if (ns_bytes != 1 && ns_bytes != 4) return (int)cudaErrorInvalidValue;
+    if (((uintptr_t)hits & 3) ||
+        (ns_bytes == 4 && ((uintptr_t)nonshort & 3)))
+        return (int)cudaErrorMisalignedAddress;
     if (P <= 0) return (int)cudaGetLastError();
-    prefilter_decide_kernel<<<dtk_grid(P, KLD_THREADS), KLD_THREADS, 0,
-                              (cudaStream_t)stream>>>(
-        (const uint8_t*)found, (const uint8_t*)valid,
-        (const uint8_t*)nonshort, (const uint8_t*)live, P, (int)nf, nmf,
-        (uint8_t*)survive);
+    const unsigned blocks = (unsigned)dtk_grid(P, KLD_THREADS);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (ns_bytes == 1)
+        prefilter_decide_kernel<<<blocks, KLD_THREADS, 0, st>>>(
+            (const int32_t*)hits, (const uint8_t*)nonshort,
+            (const uint8_t*)live, P, nmf, (uint8_t*)survive);
+    else
+        prefilter_decide_kernel<<<blocks, KLD_THREADS, 0, st>>>(
+            (const int32_t*)hits, (const int32_t*)nonshort,
+            (const uint8_t*)live, P, nmf, (uint8_t*)survive);
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 // KK prefilter_sample: the sampled-k-mer prefilter of a padded batch of
-// read pairs, in two instances.
+// read pairs, in three instances.
 //
 // Replaces K3's sampler, danbing_tk_tpu/engine/device_align.py:343
 // prefilter_sample (the TPU extracts every window's k-mer, K1, and gathers
@@ -11,7 +11,8 @@
 //   nk = max(rlen - k + 1, 0), S = nk / (nf - 1),
 //   start j = j * S for j < nf - 1 and nk - 1 for the last sample,
 //   clipped to [0, L - k];
-//   valid: no code 255 in the window, start + k <= rlen, start < nk;
+//   valid: no code above 3 (255 is N) in the window, start + k <=
+//   rlen, start < nk;
 //   q = min(forward, reverse complement) of the window's k 2-bit codes,
 //   EMPTY (-1) where not valid.
 // With nf = 1 the one start is nk - 1 (S is never read: no division).
@@ -65,62 +66,24 @@
 //
 // The sample-only instance (dtk_prefilter_sample, "KK[sample]") writes
 // q (B, nf) int64, valid and nk for a probe that must run elsewhere: the
-// sharded prefilter's collective probe over the ranks' row blocks (KI).
-// A thread a (read, sample), 256 a block; bound: B L code bytes and 4 B
-// of rlen a read in, 9 B a sample and 4 B of nk a read out.
+// sharded prefilter's collective probe over the ranks' row blocks
+// (KI[count]).  Bound: B L code bytes and 4 B of rlen a read in, 9 B a
+// sample and 4 B of nk a read out (6.68 MB at the sharded prefilter's
+// dispatch of 32,768 reads, L = 160, nf = 4: 0.0020 ms).  It is the fused
+// kernel's front end without the probe (prefilter_fused_kernel<0,
+// false>): a warp takes 2 KKF_PPW consecutive reads (8 warps a block),
+// stages their rows through shared memory with 16-byte loads, builds each
+// window with kk_window's lpq lanes, and the first lane of each query
+// writes its q and valid (the warp's queries in (read, sample) order, so
+// a tile's stores are contiguous), one lane a read its nk.  Its first
+// design, a thread a (read, sample) reading its window's k code bytes
+// with k dependent byte loads (a warp's load spread over 8 rows of 160 B,
+// never one coalesced pass), took 0.0045 ms in a CUDA graph (PERF.md,
+// Findings).
 #include "group_probe.cuh"
 
-constexpr int KK_THREADS = 256;          // threads a block
-
-__global__ void __launch_bounds__(KK_THREADS)
-prefilter_sample_kernel(const uint8_t* __restrict__ codes,
-                        const int32_t* __restrict__ rlen, int64_t B, int L,
-                        int k, int nf, int64_t* __restrict__ q,
-                        uint8_t* __restrict__ valid,
-                        int32_t* __restrict__ nk_out) {
-    const int64_t t = (int64_t)blockIdx.x * KK_THREADS + threadIdx.x;
-    if (t >= B * nf) return;
-    const int64_t r = t / nf;
-    const int j = (int)(t - r * nf);
-    const int rl = rlen[r];
-    const int nk = rl - k + 1 > 0 ? rl - k + 1 : 0;
-    if (j == 0) nk_out[r] = nk;
-    int s = j == nf - 1 ? nk - 1 : j * (nk / (nf - 1));
-    const int last = L - k;
-    s = s < 0 ? 0 : (s > last ? last : s);
-    bool ok = s + k <= rl && s < nk;
-    uint64_t fwd = 0, rc = 0;
-    const uint8_t* w = codes + r * L + s;
-    for (int i = 0; i < k && ok; ++i) {
-        const uint32_t b = __ldg(w + i);
-        ok = b <= 3u;
-        fwd = (fwd << 2) | (b & 3u);
-        rc |= (uint64_t)(3u - (b & 3u)) << (2 * i);
-    }
-    q[t] = ok ? (int64_t)(rc < fwd ? rc : fwd) : -1;
-    valid[t] = ok;
-}
-
-// q (B, nf) int64, valid (B, nf) bool, nk (B,) int32.  A code is 0-3 or
-// 255; any other byte invalidates its window too (as 255 does).
-DTK_EXPORT int dtk_prefilter_sample(const void* codes, const void* rlen,
-                                    int64_t B, int64_t L, int64_t k,
-                                    int64_t nf, void* q, void* valid,
-                                    void* nk, void* stream) {
-    if (k < 1 || k > 31 || L < k || nf < 1)
-        return (int)cudaErrorInvalidValue;
-    if ((uintptr_t)q & 7) return (int)cudaErrorMisalignedAddress;
-    if (B <= 0) return (int)cudaGetLastError();
-    const int64_t n = B * nf;
-    prefilter_sample_kernel<<<(unsigned)((n + KK_THREADS - 1) / KK_THREADS),
-                              KK_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)codes, (const int32_t*)rlen, B, (int)L, (int)k,
-        (int)nf, (int64_t*)q, (uint8_t*)valid, (int32_t*)nk);
-    return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// The fused instance
+// The fused instance and the sample-only instance (its front end)
 // ---------------------------------------------------------------------------
 
 constexpr int KKF_WARPS = 8;             // warps a block
@@ -138,24 +101,55 @@ __host__ __device__ inline int kkf_warp_bytes(int L) {
 // Copies the n bytes at g (of a tensor that ends at end) into sw; returns
 // where they start there.  With vec (the tensor starts on a 16-B
 // boundary) lane c loads the 16-B chunks c, c + 32, ... that cover them,
-// byte by byte only past the tensor's end.
+// byte by byte only past the tensor's end, KKF_STAGE chunks a lane in
+// flight before any is stored (a load then its store, chunk by chunk,
+// costs a round trip to device memory each: at L = 160 three in turn).
+constexpr int KKF_STAGE = 4;
+
 __device__ __forceinline__ const uint8_t* kkf_stage(
     const uint8_t* __restrict__ g, const uint8_t* end, int n, bool vec,
     uint8_t* sw, int lane) {
     if (!vec) {
+#pragma unroll 8
         for (int i = lane; i < n; i += 32) sw[i] = __ldg(g + i);
         return sw;
     }
     const int off = (int)((uintptr_t)g & 15);
     const uint8_t* a = g - off;
     const int nch = (off + n + 15) >> 4;
-    for (int c = lane; c < nch; c += 32) {
-        const uint8_t* x = a + 16 * c;
-        if (x + 16 <= end) {
-            *(uint4*)(sw + 16 * c) = __ldg((const uint4*)x);
-        } else {
-            for (int b = 0; b < 16 && x + b < end; ++b)
-                sw[16 * c + b] = __ldg(x + b);
+    if (a + 16 * nch <= end) {                   // every warp's but the last
+        for (int c0 = lane; c0 < nch; c0 += 32 * KKF_STAGE) {
+            uint4 v[KKF_STAGE];
+#pragma unroll
+            for (int u = 0; u < KKF_STAGE; ++u)
+                if (c0 + 32 * u < nch)
+                    v[u] = __ldg((const uint4*)(a + 16 * (c0 + 32 * u)));
+#pragma unroll
+            for (int u = 0; u < KKF_STAGE; ++u)
+                if (c0 + 32 * u < nch)
+                    *(uint4*)(sw + 16 * (c0 + 32 * u)) = v[u];
+        }
+        return sw + off;
+    }
+    for (int c0 = lane; c0 < nch; c0 += 32 * KKF_STAGE) {
+        uint4 v[KKF_STAGE];
+#pragma unroll
+        for (int u = 0; u < KKF_STAGE; ++u) {
+            const int c = c0 + 32 * u;
+            if (c < nch && a + 16 * c + 16 <= end)
+                v[u] = __ldg((const uint4*)(a + 16 * c));
+        }
+#pragma unroll
+        for (int u = 0; u < KKF_STAGE; ++u) {
+            const int c = c0 + 32 * u;
+            const uint8_t* x = a + 16 * c;
+            if (c >= nch) break;
+            if (x + 16 <= end) {
+                *(uint4*)(sw + 16 * c) = v[u];
+            } else {
+                for (int b = 0; b < 16 && x + b < end; ++b)
+                    sw[16 * c + b] = __ldg(x + b);
+            }
         }
     }
     return sw + off;
@@ -172,32 +166,78 @@ __device__ __forceinline__ uint64_t kk_canonical(uint64_t fwd, int k) {
     return rc < fwd ? rc : fwd;
 }
 
+// The n (0 to 31) codes from byte p of the staged rows, as a 2-bit word
+// (first code highest); clears *ok where a code exceeds 3 (255 is N).  It
+// reads the 4-byte-aligned words over them (the bytes before p and past
+// p + n masked to 0), and a word's four codes pack into 8 bits with one
+// multiply: x * 0x40100401 moves byte i's two bits to bits 31 - 2i and
+// 30 - 2i, the cross terms landing below bit 24 without carries while
+// every byte is <= 3 (a larger one has cleared *ok).  A code a byte took
+// 7 instructions and a load; a word of four takes 6.
+__device__ __forceinline__ uint64_t kk_codes(const uint8_t* p, int n,
+                                             bool* ok) {
+    constexpr uint32_t PACK = 0x40100401u, HIGH = 0xFCFCFCFCu;
+    if (n <= 0) return 0;
+    const int lead = (int)((uintptr_t)p & 3);
+    const uint32_t* w = (const uint32_t*)(p - lead);
+    const int last = (lead + n - 1) >> 2;        // the last word
+    const int tail = lead + n - 4 * last;        // its codes' end, 1 to 4
+    uint32_t x = w[0] & (DTK_FULL << (8 * lead));
+    if (last == 0) x &= DTK_FULL >> (32 - 8 * tail);
+    uint32_t bad = x;
+    uint64_t f = (x * PACK) >> (24 + 2 * (4 - (last == 0 ? tail : 4)));
+    for (int j = 1; j < last; ++j) {
+        x = w[j];
+        bad |= x;
+        f = (f << 8) | ((x * PACK) >> 24);
+    }
+    if (last > 0) {
+        x = w[last] & (DTK_FULL >> (32 - 8 * tail));
+        bad |= x;
+        f = (f << (2 * tail)) | ((x * PACK) >> (24 + 2 * (4 - tail)));
+    }
+    *ok = *ok && (bad & HIGH) == 0;
+    return f;
+}
+
+// The front end's shape, set once a launch by the host: L, k, nf, lsh
+// (lpq = 2^lsh lanes build a query: the most that fit the warp's 2
+// KKF_PPW nf queries in 32 lanes, 1 from nf = 3) and the float
+// reciprocals of nf, 2 nf and nf - 1 (0 at nf = 1) for kk_div.
+struct KkShape {
+    int L, k, nf, lsh;
+    float rnf, rnq, rnf1;
+};
+
+// floor(n / d) for 0 <= n < 2^22 from r = 1 / d rounded to float: (n +
+// 0.5) / d lies at least 0.5 / d from any integer and (n + 0.5) r is
+// within (n + 0.5) / d * 2^-23 of it, less than that.  Four instructions
+// where an integer division by a value known only at run time takes ~20
+// (the front end did three a query).
+__device__ __forceinline__ int kk_div(int n, float r) {
+    return (int)__fmul_rn(__fadd_rn((float)n, 0.5f), r);
+}
+
 // Sample j of a read from its staged row (the arithmetic above), built by
 // the lpq lanes of its query, a 2^n-lane block of the warp: lane seg of
 // them reads the window's codes [seg sl, (seg + 1) sl), sl = ceil(k /
 // lpq), and xor-shuffles merge the parts.  Every lane of the warp calls
 // it (have: the lane's query exists).  Returns whether the window is
-// valid, with *key its canonical k-mer in every lane of the query.
+// valid, with *key its canonical k-mer in every lane of the query.  With
+// nf = 1 the start is nk - 1 and S is not used (rnf1 = 0: no division).
 __device__ __forceinline__ bool kk_window(const uint8_t* row, int rl, int nk,
-                                          int L, int k, int nf, int j,
-                                          bool have, int seg, int lpq,
+                                          const KkShape& sh, int j,
+                                          bool have, int seg,
                                           uint64_t* key) {
-    int s = j == nf - 1 ? nk - 1 : j * (nk / (nf - 1));
-    const int last = L - k;
+    const int k = sh.k, lpq = 1 << sh.lsh;
+    int s = j == sh.nf - 1 ? nk - 1 : j * kk_div(nk, sh.rnf1);
+    const int last = sh.L - k;
     s = s < 0 ? 0 : (s > last ? last : s);
     bool ok = have && s + k <= rl && s < nk;
-    const int sl = (k + lpq - 1) / lpq;
+    const int sl = (k + lpq - 1) >> sh.lsh;
     const int a = min(seg * sl, k), e = min(a + sl, k);
     uint64_t f = 0;
-    if (ok) {
-#pragma unroll 4
-        for (int i = a; i < e; ++i) {
-            const uint32_t b = row[s + i];
-            ok &= b <= 3u;
-            f = (f << 2) | b;                    // past a bad code: unused
-        }
-        f <<= 2 * (k - e);
-    }
+    if (ok) f = kk_codes(row + s + a, e - a, &ok) << (2 * (k - e));
     for (int o = 1; o < lpq; o <<= 1) {
         f |= __shfl_xor_sync(DTK_FULL, f, o);
         ok = __shfl_xor_sync(DTK_FULL, (int)ok, o) && ok;
@@ -263,80 +303,163 @@ __device__ __forceinline__ void kkf_probe_round(const DtkLevels& lv, int W,
     }
 }
 
-template <int VW>
+// The front end of KK's fused launch and of its sample-only instance.  A
+// warp takes the 2 KKF_PPW consecutive reads from r0 of R (KKF_PPW pairs
+// when PROBE) and stages their rows.  PROBE: the probe round and the
+// decision, survive (R / 2,) its only output; else each query's q and
+// valid and each read's nk.
+template <int VW, bool PROBE>
 __global__ void __launch_bounds__(KKF_WARPS * 32)
 prefilter_fused_kernel(const uint8_t* __restrict__ codes,
                        const int32_t* __restrict__ rlen,
-                       const uint8_t* __restrict__ live, int64_t P, int L,
-                       int k, int nf, int nmf, DtkLevels lv, int W, bool vec,
-                       uint8_t* __restrict__ survive) {
+                       const uint8_t* __restrict__ live, int64_t R,
+                       KkShape sh, int nmf, DtkLevels lv, int W, bool vec,
+                       uint8_t* __restrict__ survive,
+                       int64_t* __restrict__ q, uint8_t* __restrict__ valid,
+                       int32_t* __restrict__ nk_out) {
     extern __shared__ __align__(16) uint8_t kkf_smem[];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int64_t p0 =
-        ((int64_t)blockIdx.x * KKF_WARPS + warp) * KKF_PPW;
-    if (p0 >= P) return;                         // whole warps
-    const int np = (int)(P - p0 < KKF_PPW ? P - p0 : KKF_PPW);
-    // the pairs' row bytes are loaded with their rlen and live: lane
-    // 2 pp + m holds read (pp, m)'s rlen, lane pp pair pp's live
-    const int rl = lane < 2 * np ? rlen[2 * p0 + lane] : 0;
-    const bool lp = lane < np && live[p0 + lane] != 0;
+    const int64_t r0 =
+        ((int64_t)blockIdx.x * KKF_WARPS + warp) * 2 * KKF_PPW;
+    if (r0 >= R) return;                         // whole warps
+    const int nr = (int)(R - r0 < 2 * KKF_PPW ? R - r0 : 2 * KKF_PPW);
+    // the reads' row bytes are loaded with their rlen (and live): lane
+    // r holds read r's rlen (read (pp, m) = 2 pp + m), lane pp pair pp's
+    // live
+    const int L = sh.L, k = sh.k, nf = sh.nf;
+    const int rl = lane < nr ? rlen[r0 + lane] : 0;
+    const bool lp = PROBE && lane < nr / 2 && live[r0 / 2 + lane] != 0;
     const int wb = kkf_warp_bytes(L);
     uint8_t* sw = kkf_smem + warp * wb;
-    uint8_t* ul = sw + wb - 96;                  // compacted query lanes
-    uint8_t* upm = ul + 32;                      // their 2 pair + mate
-    int* hits = (int*)(upm + 32);                // of each (pair, mate)
-    const uint8_t* rows = kkf_stage(codes + 2 * p0 * L, codes + 2 * P * L,
-                                    2 * np * L, vec, sw, lane);
-    if (lane < 2 * KKF_PPW) hits[lane] = 0;
-    const unsigned ns = __ballot_sync(DTK_FULL, rl - k + 1 > 0);
-    const unsigned lpm = __ballot_sync(DTK_FULL, lp);
-    unsigned alive = 0;                          // live, both mates nonshort
+    const uint8_t* rows = kkf_stage(codes + r0 * L, codes + R * L, nr * L,
+                                    vec, sw, lane);
+    // query w of the warp: its lpq = 2^lsh lanes, qt queries a tile
+    const int nw = 2 * KKF_PPW * nf, lsh = sh.lsh;
+    const int qt = 32 >> lsh, ntile = (nw + qt - 1) >> (5 - lsh);
+    const int seg = lane & ((1 << lsh) - 1), qi = lane >> lsh;
+    if constexpr (!PROBE) {
+        // query w: read w / nf, sample w % nf, at q[r0 nf + w]
+        if (lane < nr) nk_out[r0 + lane] = rl - k + 1 > 0 ? rl - k + 1 : 0;
+        __syncwarp();                            // the staged rows
+        const int nwr = nr * nf;
+        for (int t = 0; t < ntile; ++t) {
+            const int w = qt * t + qi, r = kk_div(w, sh.rnf);
+            const int rlq = __shfl_sync(DTK_FULL, rl, r < 32 ? r : 31);
+            const bool have = w < nwr;
+            uint64_t key;
+            const bool ok = kk_window(rows + (have ? r : 0) * L, rlq,
+                                      max(rlq - k + 1, 0), sh, w - r * nf,
+                                      have, seg, &key);
+            if (have && seg == 0) {
+                q[r0 * nf + w] = ok ? (int64_t)key : -1;
+                valid[r0 * nf + w] = ok;
+            }
+        }
+    } else {
+        // query w: pair w / nq, u = w % nq = 2 j + mate
+        const int64_t p0 = r0 / 2;
+        const int np = nr / 2, nq = 2 * nf;
+        uint8_t* ul = sw + wb - 96;              // compacted query lanes
+        uint8_t* upm = ul + 32;                  // their 2 pair + mate
+        int* hits = (int*)(upm + 32);            // of each (pair, mate)
+        if (lane < 2 * KKF_PPW) hits[lane] = 0;
+        const unsigned ns = __ballot_sync(DTK_FULL, rl - k + 1 > 0);
+        const unsigned lpm = __ballot_sync(DTK_FULL, lp);
+        unsigned alive = 0;                      // live, both mates nonshort
 #pragma unroll
-    for (int pp = 0; pp < KKF_PPW; ++pp)
-        if ((lpm >> pp & 1u) && (ns >> (2 * pp) & 3u) == 3u)
-            alive |= 1u << pp;
-    // decided before any row is probed: nmf <= 0 passes a live pair with
-    // nonshort mates, nmf > nf cannot be reached, a dead pair fails
-    if (nmf <= 0 || nmf > nf || !alive) {
-        if (lane < np)
-            survive[p0 + lane] = nmf <= 0 && (alive >> lane & 1u);
-        return;
-    }
-    __syncwarp();
-    // query w of the warp: pair w / nq, u = w % nq = 2 j + mate.  lpq =
-    // 2^lsh lanes build a query, the most that fit the warp's KKF_PPW nq
-    // queries in 32 lanes (1 from nf = 3), qt queries a tile
-    const int nq = 2 * nf, nw = KKF_PPW * nq;
-    int lsh = 0;
-    while (lsh < 5 && (nw << (lsh + 1)) <= 32) ++lsh;
-    const int lpq = 1 << lsh, qt = 32 >> lsh, ntile = (nw + qt - 1) / qt;
-    const int seg = lane & (lpq - 1), qi = lane >> lsh;
-    const int g = lane >> 3, s = lane & 7;
-    for (int t = 0; t < ntile; ++t) {
-        const int w = qt * t + qi, pp = w / nq, u = w - pp * nq;
-        const int pm = 2 * pp + (u & 1);
-        const int rlq = __shfl_sync(DTK_FULL, rl, pm < 32 ? pm : 31);
-        const bool have = w < nw && (alive >> pp & 1u);
-        uint64_t key;
-        const bool ok = kk_window(rows + (have ? pm : 0) * L, rlq,
-                                  max(rlq - k + 1, 0), L, k, nf, u >> 1,
-                                  have, seg, lpq, &key) && seg == 0;
-        const unsigned vb = __ballot_sync(DTK_FULL, ok);
-        __syncwarp();                            // the last tile's reads
-        if (ok) {
-            const int r = __popc(vb & ((1u << lane) - 1u));
-            ul[r] = (uint8_t)lane;
-            upm[r] = (uint8_t)pm;
+        for (int pp = 0; pp < KKF_PPW; ++pp)
+            if ((lpm >> pp & 1u) && (ns >> (2 * pp) & 3u) == 3u)
+                alive |= 1u << pp;
+        // decided before any row is probed: nmf <= 0 passes a live pair
+        // with nonshort mates, nmf > nf cannot be reached, a dead pair
+        // fails
+        if (nmf <= 0 || nmf > nf || !alive) {
+            if (lane < np)
+                survive[p0 + lane] = nmf <= 0 && (alive >> lane & 1u);
+            return;
         }
         __syncwarp();
-        const int nv = __popc(vb);
-        if (nv == 0) continue;
-        kkf_probe_round<VW>(lv, W, key, nv, ul, upm, hits, g, s);
+        const int g = lane >> 3, s = lane & 7;
+        for (int t = 0; t < ntile; ++t) {
+            const int w = qt * t + qi, pp = kk_div(w, sh.rnq);
+            const int u = w - pp * nq;
+            const int pm = 2 * pp + (u & 1);
+            const int rlq = __shfl_sync(DTK_FULL, rl, pm < 32 ? pm : 31);
+            const bool have = w < nw && (alive >> pp & 1u);
+            uint64_t key;
+            const bool ok = kk_window(rows + (have ? pm : 0) * L, rlq,
+                                      max(rlq - k + 1, 0), sh, u >> 1, have,
+                                      seg, &key) && seg == 0;
+            const unsigned vb = __ballot_sync(DTK_FULL, ok);
+            __syncwarp();                        // the last tile's reads
+            if (ok) {
+                const int r = __popc(vb & ((1u << lane) - 1u));
+                ul[r] = (uint8_t)lane;
+                upm[r] = (uint8_t)pm;
+            }
+            __syncwarp();
+            const int nv = __popc(vb);
+            if (nv == 0) continue;
+            kkf_probe_round<VW>(lv, W, key, nv, ul, upm, hits, g, s);
+        }
+        __syncwarp();
+        if (lane < np)
+            survive[p0 + lane] = (alive >> lane & 1u) &&
+                                 hits[2 * lane] >= nmf &&
+                                 hits[2 * lane + 1] >= nmf;
     }
-    __syncwarp();
-    if (lane < np)
-        survive[p0 + lane] = (alive >> lane & 1u) && hits[2 * lane] >= nmf &&
-                             hits[2 * lane + 1] >= nmf;
+}
+
+// Launches prefilter_fused_kernel<VW, PROBE> over R reads.
+template <int VW, bool PROBE>
+static cudaError_t kkf_launch(const uint8_t* codes, const int32_t* rlen,
+                              const uint8_t* live, int64_t R, int L, int k,
+                              int nf, int nmf, const DtkLevels& lv, int W,
+                              uint8_t* survive, int64_t* q, uint8_t* valid,
+                              int32_t* nk, cudaStream_t st) {
+    const size_t smem = (size_t)KKF_WARPS * kkf_warp_bytes(L);
+    auto kernel = prefilter_fused_kernel<VW, PROBE>;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+    }
+    KkShape sh{L, k, nf, 0, 1.0f / (float)nf, 1.0f / (float)(2 * nf),
+               nf > 1 ? 1.0f / (float)(nf - 1) : 0.0f};
+    while (sh.lsh < 5 && ((2 * KKF_PPW * nf) << (sh.lsh + 1)) <= 32)
+        ++sh.lsh;
+    const int64_t per_block = (int64_t)KKF_WARPS * 2 * KKF_PPW;
+    const unsigned blocks = (unsigned)((R + per_block - 1) / per_block);
+    const bool vec = ((uintptr_t)codes & 15) == 0;
+    kernel<<<blocks, KKF_WARPS * 32, smem, st>>>(codes, rlen, live, R, sh,
+                                                 nmf, lv, W, vec, survive,
+                                                 q, valid, nk);
+    return cudaGetLastError();
+}
+
+// Whether the front end takes these shapes (its shared memory included;
+// nf <= 2^16 keeps every kk_div operand below 2^22).
+static bool kkf_shapes_ok(int64_t L, int64_t k, int64_t nf) {
+    return k >= 1 && k <= 31 && L >= k && L <= (1 << 20) && nf >= 1 &&
+           nf <= (1 << 16) &&
+           (size_t)KKF_WARPS * kkf_warp_bytes((int)L) <= KKF_SMEM_MAX;
+}
+
+// q (B, nf) int64, valid (B, nf) bool, nk (B,) int32 from codes (B, L) u8
+// and rlen (B,) int32.  A code is 0-3 or 255; any other byte invalidates
+// its window too (as 255 does).
+DTK_EXPORT int dtk_prefilter_sample(const void* codes, const void* rlen,
+                                    int64_t B, int64_t L, int64_t k,
+                                    int64_t nf, void* q, void* valid,
+                                    void* nk, void* stream) {
+    if (!kkf_shapes_ok(L, k, nf)) return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)q & 7) return (int)cudaErrorMisalignedAddress;
+    if (B <= 0) return (int)cudaGetLastError();
+    DtkLevels none{};
+    return (int)kkf_launch<0, false>(
+        (const uint8_t*)codes, (const int32_t*)rlen, nullptr, B, (int)L,
+        (int)k, (int)nf, 0, none, 0, nullptr, (int64_t*)q, (uint8_t*)valid,
+        (int32_t*)nk, (cudaStream_t)stream);
 }
 
 // survive (P,) bool from codes (2P, L) u8, rlen (2P,) int32 and live (P,)
@@ -349,38 +472,22 @@ DTK_EXPORT int dtk_prefilter_fused(const void* codes, const void* rlen,
                                    const void* salts, int64_t nlev,
                                    int64_t W, void* survive, void* stream) {
     DtkLevels lv;
-    if (k < 1 || k > 31 || L < k || L > (1 << 20) || nf < 1 ||
-        nf > (1 << 20) || W < 2 || !dtk_levels(&lv, tabs, nbs, salts, nlev))
+    if (!kkf_shapes_ok(L, k, nf) || W < 2 ||
+        !dtk_levels(&lv, tabs, nbs, salts, nlev))
         return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)KKF_WARPS * kkf_warp_bytes((int)L);
-    if (smem > KKF_SMEM_MAX) return (int)cudaErrorInvalidValue;
     if (P <= 0) return (int)cudaGetLastError();
     // nmf only compares with counts in [0, nf]
     const int m = (int)(nmf < 0 ? 0 : (nmf > nf + 1 ? nf + 1 : nmf));
     const int VW = dtk_vector_width(lv, (int)W);
-    const bool vec = ((uintptr_t)codes & 15) == 0;
-    const int64_t per_block = (int64_t)KKF_WARPS * KKF_PPW;
-    const unsigned blocks = (unsigned)((P + per_block - 1) / per_block);
-    const cudaStream_t st = (cudaStream_t)stream;
 #define DTK_KKF_LAUNCH(V)                                                   \
-    do {                                                                    \
-        auto kernel = prefilter_fused_kernel<V>;                            \
-        if (smem > 48 * 1024) {                                             \
-            const cudaError_t e = cudaFuncSetAttribute(                     \
-                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,        \
-                (int)smem);                                                 \
-            if (e != cudaSuccess) return (int)e;                            \
-        }                                                                   \
-        kernel<<<blocks, KKF_WARPS * 32, smem, st>>>(                       \
-            (const uint8_t*)codes, (const int32_t*)rlen,                    \
-            (const uint8_t*)live, P, (int)L, (int)k, (int)nf, m, lv,        \
-            (int)W, vec, (uint8_t*)survive);                                \
-    } while (0)
-    if (VW == 4) DTK_KKF_LAUNCH(4);
-    else if (VW == 2) DTK_KKF_LAUNCH(2);
-    else DTK_KKF_LAUNCH(0);
+    kkf_launch<V, true>((const uint8_t*)codes, (const int32_t*)rlen,        \
+                        (const uint8_t*)live, 2 * P, (int)L, (int)k,        \
+                        (int)nf, m, lv, (int)W, (uint8_t*)survive, nullptr, \
+                        nullptr, nullptr, (cudaStream_t)stream)
+    if (VW == 4) return (int)DTK_KKF_LAUNCH(4);
+    if (VW == 2) return (int)DTK_KKF_LAUNCH(2);
+    return (int)DTK_KKF_LAUNCH(0);
 #undef DTK_KKF_LAUNCH
-    return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -40,7 +40,8 @@ table and decides:
 and under a collective probe (the sharded index's row blocks):
 
    -> KK[sample] prefilter_sample: the queries      (ops/kmers.py)
-   -> KI  the collective probe               (parallel/sharded_index.py)
+   -> KI[count] the collective probe: one summed hit count a read
+                                              (parallel/sharded_index.py)
    -> KL[decide] prefilter_decision                  (csrc/pair_filter.cu)
 
 In graph-threading mode (cfg.threading) KD stops at the tr_member and slot
@@ -1384,36 +1385,42 @@ def query_int64(qlo, qhi) -> np.ndarray:
             | np.asarray(qlo, np.uint32)).view(np.int64)
 
 
-def prefilter_decide(found, valid, nonshort, live, nmf: int, P: int):
-    """The sampled-k-mer prefilter's decision (the JAX prefilter_decide,
-    with ``nonshort`` = nk > 0), KL[decide]'s plain version: a read passes
-    with >= nmf valid sampled k-mers found, a pair when both of its reads
-    pass and it is live."""
-    read_pass = (found & valid).sum(1) >= nmf
-    return (read_pass & nonshort).view(P, 2).all(1) & live
+def prefilter_decide(hits, nonshort, live, nmf: int, P: int):
+    """The sampled-k-mer prefilter's decision (the JAX prefilter_decide
+    over a read's summed hits, ``(found & valid).sum(1)``), KL[decide]'s
+    plain version: a read passes with >= nmf valid sampled k-mers found
+    and nonshort (``nonshort`` bool, or the sampler's nk: > 0), a pair
+    when both of its reads pass and it is live."""
+    read_pass = (hits >= nmf) & (nonshort > 0)
+    return read_pass.view(P, 2).all(1) & live
 
 
-def prefilter_decision(found, valid, nonshort, live, nmf: int, P: int):
+def read_hits(found, valid) -> torch.Tensor:
+    """A read's valid sampled k-mers found: (found & valid).sum(1) of
+    (R, nf) bool planes, as the (R,) int32 that KL[decide] reads."""
+    return (found & valid).sum(1, dtype=torch.int32)
+
+
+def prefilter_decision(hits, nonshort, live, nmf: int, P: int):
     """KL[decide]: prefilter_decide on the card, a thread a pair
     (csrc/pair_filter.cu), after a probe that must run elsewhere (the
-    sharded index's collective probe).  found and valid (2P, nf) bool,
-    nonshort (2P,) bool, live (P,) bool -> survive (P,) bool."""
-    if found.device.type == "cpu":
-        return prefilter_decide(found, valid, nonshort, live, nmf, P)
-    nf = found.shape[1] if found.dim() == 2 else -1
-    if found.dtype != torch.bool or valid.dtype != torch.bool \
-            or found.shape != (2 * P, nf) or valid.shape != found.shape:
-        raise ValueError("prefilter_decision: found and valid are (2P, nf) "
-                         "bool")
+    sharded index's collective probe, whose count crosses the ranks).
+    hits (2P,) int32, nonshort (2P,) bool or the sampler's nk (2P,)
+    int32, live (P,) bool -> survive (P,) bool."""
+    if hits.device.type == "cpu":
+        return prefilter_decide(hits, nonshort, live, nmf, P)
+    if hits.dtype != torch.int32 or hits.shape != (2 * P,):
+        raise ValueError("prefilter_decision: hits are (2P,) int32")
     if nonshort.shape != (2 * P,) or live.shape != (P,) \
-            or nonshort.dtype != torch.bool or live.dtype != torch.bool:
-        raise ValueError("prefilter_decision: nonshort (2P,), live (P,) "
-                         "bool")
-    args = [t.contiguous() for t in (found, valid, nonshort, live)]
-    out = torch.empty(P, dtype=torch.bool, device=found.device)
-    fn = bind(kernel_lib("pair_filter"), "dtk_prefilter_decide", "ppppiiipp")
-    check(fn(*[ptr(t) for t in args], P, nf, nmf, ptr(out),
-             stream_of(found)), "prefilter_decide")
+            or nonshort.dtype not in (torch.bool, torch.int32) \
+            or live.dtype != torch.bool:
+        raise ValueError("prefilter_decision: nonshort (2P,) bool or int32 "
+                         "nk, live (P,) bool")
+    hits, nonshort, live = (t.contiguous() for t in (hits, nonshort, live))
+    out = torch.empty(P, dtype=torch.bool, device=hits.device)
+    fn = bind(kernel_lib("pair_filter"), "dtk_prefilter_decide", "ppipiipp")
+    check(fn(ptr(hits), ptr(nonshort), nonshort.element_size(), ptr(live),
+             P, nmf, ptr(out), stream_of(hits)), "prefilter_decide")
     launched("KL[decide]")
     return out
 
@@ -1431,7 +1438,7 @@ def prefilter_fused_plain(codes, rlen, live, tab: dt.DevTable, k: int,
     rlen (2P,) int32, live (P,) bool -> survive (P,) bool."""
     q, valid, nk = prefilter_sample_plain(codes, rlen, k, nf)
     found = dt.lookup_bucket_plain(tab, q)[0]
-    return prefilter_decide(found, valid, nk > 0, live, nmf,
+    return prefilter_decide(read_hits(found, valid), nk, live, nmf,
                             codes.shape[0] // 2)
 
 
@@ -1479,8 +1486,8 @@ def prefilter_fused_work(codes, rlen, live, tab: dt.DevTable, k: int,
     found = dt.lookup_bucket_plain(tab, q)[0]
     nbytes = B * L + 4 * B + 2 * P + sum(rows) * 8 * tab.W * 4
     return dict(probed=probed,
-                survive=prefilter_decide(found, valid, nonshort, live, nmf,
-                                         P),
+                survive=prefilter_decide(read_hits(found, valid),
+                                         nonshort, live, nmf, P),
                 pairs_probing=probing, rows=rows, nbytes=nbytes)
 
 
@@ -1541,8 +1548,9 @@ def prefilter_fused_q_plain(q, valid, nonshort, live, tab: dt.DevTable,
     """Plain torch version of KK[q]: KB's plain version on ``tab``, then
     prefilter_decide.  q (2P, nf) int64, valid (2P, nf) bool, nonshort
     (2P,) bool, live (P,) bool -> survive (P,) bool."""
-    return prefilter_decide(dt.lookup_bucket_plain(tab, q)[0], valid,
-                            nonshort, live, nmf, live.shape[0])
+    return prefilter_decide(read_hits(dt.lookup_bucket_plain(tab, q)[0],
+                                      valid), nonshort, live, nmf,
+                            live.shape[0])
 
 
 KKQ_SIG = "ppppiii" + "pppi" + "ipp"      # dtk_prefilter_fused_q's arguments
@@ -1622,8 +1630,11 @@ def make_prefilter_step_q(drp: DeviceRPGG, cfg: AlignConfig, P: int,
     """Prefilter over host-sampled queries (kmers_np.sample_subfilter_
     queries / io.native_reader.sample_queries): KK[q], the member probe
     and the decision in one launch (prefilter_fused_q_launcher, bound here
-    once).  With ``probe`` (q -> found: the sharded prefilter's collective
-    probe) the probe, then KL[decide] (prefilter_decision).
+    once).  With ``probe`` (q -> hits (2P,) int32, each read's queries
+    that are not EMPTY and hit: the sharded prefilter's collective probe,
+    parallel/sharded_index.prefilter_hits_sharded; the host sampler's q is
+    EMPTY wherever valid is false) the probe, then KL[decide]
+    (prefilter_decision).
 
     Returns step(q (2P, nf) int64, valid (2P, nf) bool, nonshort (2P,)
     bool, live (P,) bool) -> survive (P,) bool on the device.  ``q`` may
@@ -1645,7 +1656,7 @@ def make_prefilter_step_q(drp: DeviceRPGG, cfg: AlignConfig, P: int,
                                  for x in (valid, nonshort, live))
         if fused is not None:
             return fused(q, valid, nonshort, live)
-        return prefilter_decision(probe(q), valid, nonshort, live, nmf, P)
+        return prefilter_decision(probe(q), nonshort, live, nmf, P)
 
     return step
 
@@ -1656,10 +1667,12 @@ def make_prefilter_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
     the runner's DTK_PREFILTER_HOSTQ=0): the L-byte code rows go to the
     card, where KK's fused launch samples the nf queries of each read,
     probes the membership table and decides (prefilter_fused_launcher,
-    bound here once).  With ``probe`` (q -> found: the sharded
+    bound here once).  With ``probe`` (q -> hits (2P,) int32: the sharded
     prefilter's collective probe, whose queries must cross the ranks) KK's
-    sample-only instance writes the queries, then the probe and KL[decide]
-    (prefilter_decision).  Decision-identical to make_prefilter_step_q.
+    sample-only instance writes the queries (EMPTY where not valid), then
+    the probe counts each read's hits and KL[decide] (prefilter_decision)
+    decides on them and the sampler's nk.  Decision-identical to
+    make_prefilter_step_q.
 
     Returns step(codes (2P, L) u8, rlen (2P,) i32, live (P,) bool) ->
     survive (P,) bool on the device (``L`` None: any width)."""
@@ -1682,8 +1695,8 @@ def make_prefilter_step(drp: DeviceRPGG, cfg: AlignConfig, P: int, L: int,
         live = _as(live, torch.bool, dev)
         if fused is not None:
             return fused(codes, rlen, live)
-        q, valid, nk = prefilter_sample(codes, rlen, k, nf)
-        return prefilter_decision(probe(q), valid, nk > 0, live, nmf, P)
+        q, _, nk = prefilter_sample(codes, rlen, k, nf)
+        return prefilter_decision(probe(q), nk, live, nmf, P)
 
     return step
 

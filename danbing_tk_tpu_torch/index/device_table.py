@@ -442,6 +442,56 @@ def lookup_bucket_owned(block: DevTable, meta, q: torch.Tensor, q_loc=None):
     return out.view(3, *shape).unbind(0)
 
 
+def lookup_bucket_owned_count_plain(block: DevTable, meta,
+                                    q: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of KI[count]: q (R, nf) int64, EMPTY (-1)
+    where a sample is not valid -> hits (R,) int32, how many of a row's
+    queries are not EMPTY and hit in a bucket this rank's ``block`` owns
+    (``meta`` as lookup_bucket_owned_plain's); a repeated query counts as
+    often as it occurs.  The sum over the ranks' blocks is each read's
+    (found & valid).sum(1) in the whole table (the JAX
+    prefilter_decide's)."""
+    if block.composite:
+        raise ValueError("lookup_bucket_owned_count: the prefilter's table "
+                         "is keyed by the k-mer alone")
+    if q.dim() != 2:
+        raise ValueError("lookup_bucket_owned_count: q is (R, nf)")
+    found = lookup_bucket_owned_plain(block, meta, q)[0]
+    return ((found != 0) & (q != -1)).sum(1, dtype=torch.int32)
+
+
+def lookup_bucket_owned_count(block: DevTable, meta,
+                              q: torch.Tensor) -> torch.Tensor:
+    """KI[count] (csrc/sharded_lookup.cu): the sharded prefilter's probe
+    of one rank's row blocks, one int32 hit count a row of the gathered
+    queries (rank-major, so a reduce_scatter takes the plane as it is).
+    KB's group probe where the block holds every row, else a lane a query
+    over the owned levels.  Same contract as
+    lookup_bucket_owned_count_plain."""
+    if q.device.type == "cpu":
+        return lookup_bucket_owned_count_plain(block, meta, q)
+    _check_block(block, meta)
+    if block.composite:
+        raise ValueError("lookup_bucket_owned_count: the prefilter's table "
+                         "is keyed by the k-mer alone")
+    if q.dtype != torch.int64 or q.dim() != 2 or q.shape[1] < 1:
+        raise ValueError("lookup_bucket_owned_count: q is (R, nf >= 1) "
+                         "int64 k-mers")
+    for t in block.levels:
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("row blocks must be contiguous, on the "
+                             "queries' device")
+    q = q.contiguous()
+    R, nf = q.shape
+    hits = torch.empty(R, dtype=torch.int32, device=q.device)
+    fn = bind(kernel_lib("sharded_lookup"), "dtk_sharded_lookup_count",
+              "pii" + "ppppp" + "iipp")
+    check(fn(q.data_ptr(), R, nf, *owned_args(block, meta), block.nval,
+             hits.data_ptr(), stream_of(q)), "sharded_lookup_count")
+    launched("KI[count]")
+    return hits
+
+
 def owned_args(block: DevTable, meta) -> tuple:
     """A rank's row blocks as dtk_sharded_lookup takes them (as
     level_args, with KI's meta): the row pointers, the whole levels'

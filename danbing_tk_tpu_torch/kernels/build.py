@@ -56,14 +56,15 @@ KERNELS = ("kmers", "bucket_lookup", "pair_vote", "assign_count",
 # kernel: KC's large-E instances (the retry tier's, and the
 # global-workspace mode past a block's shared memory), KK's host-sampled
 # instance (the default prefilter) and its sample-only one (under a
-# collective probe), and KL's prefilter decision (after a collective
-# probe); its wrapper adds one where it launches the kernel, and nowhere
-# else.  KM, the step's tail (step_tail.cuh), runs inside KD's (counting,
-# okam) or KE's (threading) launch: their wrappers add one to KM where
-# they launch with it
+# collective probe), KI's count instance (that collective probe) and KL's
+# prefilter decision (after it); its wrapper adds one where it launches
+# the kernel, and nowhere else.  KM, the step's tail (step_tail.cuh), runs
+# inside KD's (counting, okam) or KE's (threading) launch: their wrappers
+# add one to KM where they launch with it
 LAUNCHES = dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF", "KG", "KH",
                           "KI", "KJ", "KK", "KL", "KM", "KC[large-E]",
-                          "KK[q]", "KK[sample]", "KL[decide]"), 0)
+                          "KI[count]", "KK[q]", "KK[sample]", "KL[decide]"),
+                         0)
 
 # no --use_fast_math: KH (bias_correct.cu) must divide and add in IEEE
 # round-to-nearest to give numpy's bytes

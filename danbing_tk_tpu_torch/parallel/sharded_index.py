@@ -13,6 +13,11 @@ Counterpart of danbing_tk_tpu/parallel/sharded_index.py (K14):
        exactly one bucket of one level, which exactly one rank owns, so
        the sum is the owner's answer, landing on the rank that asked.
 
+The sharded prefilter's probe (prefilter_hits_sharded) needs only each
+read's count of hits: KI[count] (lookup_bucket_owned_count) writes one
+int32 a gathered read, and one reduce_scatter of that plane sums the
+ranks' counts (the JAX found plane's (found & valid).sum(1)).
+
 The tables are row blocks of the same numpy BucketTable both packages
 build, taken as views of the table on the card.
 """
@@ -103,6 +108,25 @@ def lookup_bucket_sharded(block: dt.DevTable, meta, q: torch.Tensor,
             (out[2].long() & _M32).view(shape))
 
 
+def prefilter_hits_sharded(block: dt.DevTable, meta, q: torch.Tensor,
+                           group=None) -> torch.Tensor:
+    """The sharded prefilter's collective probe: ``q`` (2P_local, nf)
+    int64 is this rank's sampled queries (EMPTY where not valid); every
+    rank of ``group`` calls it together.  all_gather of the queries
+    (rank-major rows), KI[count] on this rank's blocks (one int32 a
+    gathered read), one reduce_scatter (sum) of that plane as it is.
+    Returns hits (2P_local,) int32: each of this rank's reads' queries
+    that hit in the whole table."""
+    world = dist.get_world_size(group)
+    q = q.contiguous()
+    gq = q.new_empty((world * q.shape[0], q.shape[1]))
+    dist.all_gather_into_tensor(gq, q, group=group)
+    hits = dt.lookup_bucket_owned_count(block, meta, gq)
+    out = hits.new_empty(q.shape[0])
+    dist.reduce_scatter_tensor(out, hits, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
 def collective_probes(drp: da.DeviceRPGG, mesh) -> dict:
     """make_step's probe_fns for a sharded index: the dbi and trfl
     probes through this rank's row blocks."""
@@ -126,8 +150,9 @@ def make_sharded_prefilter(drp: da.DeviceRPGG, cfg: AlignConfig, mesh,
     prefilter_sample and probe): with its whole member table, KK's fused
     launch samples, probes and decides; with ``shard_index`` KK's
     sample-only instance writes the queries, which cross the ranks in the
-    collective probe over the row blocks (KI), then the decision.  The
-    ranks' decisions are all-gathered.  Returns (step, P_local)."""
+    collective probe over the row blocks (KI[count]: one summed hit count
+    a read comes back), then KL[decide].  The ranks' decisions are
+    all-gathered.  Returns (step, P_local)."""
     from .mesh import gather_planes, local_rows
 
     if P_global % mesh.world:
@@ -140,7 +165,7 @@ def make_sharded_prefilter(drp: da.DeviceRPGG, cfg: AlignConfig, mesh,
         blk = device_block(drp, name, mesh.world, mesh.rank, mesh.device)
 
         def probe(q):
-            return lookup_bucket_sharded(*blk, q, group=mesh.group)[0]
+            return prefilter_hits_sharded(*blk, q, group=mesh.group)
     pstep = da.make_prefilter_step(drp, cfg, P_local, L, mesh.device,
                                    probe=probe)
 

@@ -67,7 +67,8 @@ def parent_dispatch(kk_lib, kb_lib, tab: dt.DevTable, k, nf, nmf):
     """The parent's device-sampled dispatch as its step ran it: KK's
     wrapper (contiguous inputs, three allocations, bind, the call), KB's
     (the queries flattened, three allocations, bind, the table's level
-    arguments, the call), then prefilter_decide."""
+    arguments, the call), then prefilter_decide over the found samples'
+    count (read_hits) and nk."""
     def dispatch(codes, rlen, live):
         c = codes.contiguous()
         r = rlen.to(torch.int32).contiguous()
@@ -90,8 +91,8 @@ def parent_dispatch(kk_lib, kb_lib, tab: dt.DevTable, k, nf, nmf):
                        tab.nval, build.ptr(found), build.ptr(val),
                        build.ptr(val2), build.stream_of(qf)),
                     "parent bucket_lookup")
-        return da.prefilter_decide(found.view(q.shape), valid, nk > 0, live,
-                                   nmf, B // 2)
+        return da.prefilter_decide(da.read_hits(found.view(q.shape), valid),
+                                   nk, live, nmf, B // 2)
 
     return dispatch
 

@@ -93,16 +93,19 @@ def test_ka_adversarial_matches_plain(cuda, L, k):
             assert torch.equal(got[key], want[key]), (key, flags)
 
 
-@pytest.mark.parametrize("L", [21, 150, 160, 192])
-@pytest.mark.parametrize("nf", [1, 2, 4, 7])
+@pytest.mark.parametrize("L", [21, 150, 157, 160, 192])
+@pytest.mark.parametrize("nf", [1, 2, 4, 5, 7, 17])
 def test_kk_adversarial_matches_plain(cuda, L, nf):
-    """KK's sample-only instance equals prefilter_sample_plain on the
-    seeded adversarial reads of
-    tests/test_torch_kmers_filter_cases.kk_cases (reads shorter than k,
-    rlen = L, Ns inside sampled windows, L = k: one window a read), an
-    odd read count so the last block is partial."""
+    """KK's sample-only instance (the fused launch's staged front end, 8
+    reads a warp) equals prefilter_sample_plain on the seeded adversarial
+    reads of tests/test_torch_kmers_filter_cases.kk_cases (reads shorter
+    than k, rlen = L, Ns inside sampled windows, L = k: one window a read,
+    L = 157: rows off 16-byte boundaries) with a code byte 4 inside
+    sampled windows of every 7th read, an odd read count so the last warp
+    holds 1 read; at nf = 5 and 17 tiles of 32 queries."""
     k = 21
     codes, rlen = kk_cases(7, 1001, L, k, nf)
+    codes[::7, L // 2] = 4
     c = torch.from_numpy(codes).to(cuda)
     r = torch.from_numpy(rlen).to(cuda)
     n0 = build.launch_counts()["KK[sample]"]
@@ -112,6 +115,12 @@ def test_kk_adversarial_matches_plain(cuda, L, nf):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert want[1].any()
+    # the same rows starting off a 16-byte boundary (byte staging)
+    buf = torch.empty(c.numel() + 16, dtype=torch.uint8, device=cuda)
+    c1 = buf[3:3 + c.numel()].view(c.shape)
+    c1.copy_(c)
+    for g, w in zip(km.prefilter_sample(c1, r, k, nf), want):
+        assert torch.equal(g, w)
 
 
 def _launched(fn, *args):
@@ -204,8 +213,9 @@ def test_kk_fused_matches_plain(cuda, drp, table, nf, layout):
 def test_sharded_prefilter_instances_on_cuda(cuda, drp, shard_index):
     """The sharded prefilter at world 1 (NCCL): with the whole member
     table one fused KK launch a dispatch; with the member table sharded
-    KK's sample-only instance, KI (the queries cross the ranks) and
-    KL[decide]; the same survivors as the host-sampled prefilter."""
+    KK's sample-only instance, KI[count] (the queries cross the ranks,
+    one summed hit count a read comes back) and KL[decide]; the same
+    survivors as the host-sampled prefilter."""
     from danbing_tk_tpu_torch.io.native_reader import sample_queries
     from danbing_tk_tpu_torch.parallel import mesh as pm
     from danbing_tk_tpu_torch.parallel import sharded_index as si
@@ -218,8 +228,8 @@ def test_sharded_prefilter_instances_on_cuda(cuda, drp, shard_index):
     step, _ = si.make_sharded_prefilter(drp, cfg, mesh, P, L,
                                         shard_index=shard_index)
     got, n = _launched(step, codes, rlen, live)
-    assert n == ({"KK[sample]": 1, "KI": 1, "KL[decide]": 1} if shard_index
-                 else {"KK": 1})
+    assert n == ({"KK[sample]": 1, "KI[count]": 1, "KL[decide]": 1}
+                 if shard_index else {"KK": 1})
     qlo, qhi, valid, nonshort = sample_queries(codes, rlen, 21, 4)
     want = da.make_prefilter_step_q(drp, cfg, P, cuda)(
         (qlo, qhi), valid, nonshort, live)
@@ -257,7 +267,10 @@ def test_kkq_matches_plain(cuda, drp, table, nf):
 
 def test_kkq_is_the_host_sampled_dispatch(cuda, drp):
     """make_prefilter_step_q is one KK[q] launch and no KB; with a probe
-    the probe and one KL[decide]."""
+    (KI[count] on the member table's one row block) the probe and one
+    KL[decide]."""
+    from danbing_tk_tpu_torch.parallel.sharded_index import row_blocks
+
     from danbing_tk_tpu_torch.io.native_reader import sample_queries
 
     P, L = 1024, 160
@@ -268,11 +281,12 @@ def test_kkq_is_the_host_sampled_dispatch(cuda, drp):
     args = ((qlo, qhi), valid, nonshort, live)
     got, n = _launched(da.make_prefilter_step_q(drp, cfg, P, cuda), *args)
     assert n == {"KK[q]": 1} and bool(got.any())
-    tab = drp.tables(cuda)["member"]
+    blk, meta = row_blocks(drp.tables(cuda)["member"], 1)[0]
     probed = da.make_prefilter_step_q(
-        drp, cfg, P, cuda, probe=lambda q: dt.lookup_bucket(tab, q)[0])
+        drp, cfg, P, cuda,
+        probe=lambda q: dt.lookup_bucket_owned_count(blk, meta, q))
     want, n = _launched(probed, *args)
-    assert n == {"KB": 1, "KL[decide]": 1} and torch.equal(got, want)
+    assert n == {"KI[count]": 1, "KL[decide]": 1} and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("NKW", [1, 2, 7, 33, 140, 141, 250, 300])
@@ -324,16 +338,18 @@ def test_kl_unaligned_matches_plain(cuda, NKW):
 
 @pytest.mark.parametrize("nf", [1, 4, 17])
 def test_kld_adversarial_matches_plain(cuda, nf):
-    """KL[decide] equals prefilter_decide on seeded (2P, nf) planes with
-    short mates and dead pairs (tests/test_torch_step_tail_cases.
-    kld_cases), for nmf -1 to nf + 1; one launch each."""
+    """KL[decide] equals prefilter_decide on seeded hit counts with short
+    mates and dead pairs (tests/test_torch_step_tail_cases.kld_cases),
+    nonshort given as bool and as the sampler's int32 nk, for nmf -1 to
+    nf + 1; one launch each."""
     case = kld_cases(13, 1001, nf)
     for nmf in (-1, 0, 1, 2, nf, nf + 1):
-        got, n = _launched(da.prefilter_decision,
-                           *kld_args(case, cuda, nmf))
-        assert n == {"KL[decide]": 1}
         want = da.prefilter_decide(*kld_args(case, "cpu", nmf))
-        assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
+        for ns in ("nonshort", "nk"):
+            got, n = _launched(da.prefilter_decision,
+                               *kld_args(case, cuda, nmf, ns))
+            assert n == {"KL[decide]": 1}
+            assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
 
 
 TAIL_KEYS = ("live", "nonshort", "sub_drop", "pair_kf", "vote_pass", "pack",
@@ -1061,6 +1077,91 @@ def test_ki_edge_cases_match_plain(cuda, D, composite, nval):
         for d_, own in enumerate(owners):
             cross |= lv2 & own & (b0 // rows0 != d_)
         assert bool(cross.any())
+
+
+def _count_queries(rng, keys, nf, R=1001):
+    """(R, nf) int64 queries for KI[count]: table keys, misses and EMPTY
+    samples mixed; reads REP (every 10th) take one table key nf times (a
+    read whose windows repeat one k-mer), reads NONE (every 18th, odd)
+    are all EMPTY, and the last 40 reads are one key (tiles of one
+    repeated query)."""
+    pool = np.concatenate([keys.view(np.int64),
+                           rng.integers(0, 1 << 62, len(keys) // 4)])
+    q = rng.choice(pool, (R, nf))
+    q[rng.random((R, nf)) < 0.15] = -1
+    rep = np.arange(R)[REP]
+    q[REP] = keys.view(np.int64)[rng.integers(0, len(keys), len(rep)),
+                                 None]
+    q[NONE] = -1
+    q[-40:] = keys.view(np.int64)[11]
+    return q
+
+
+REP, NONE = slice(2, 960, 10), slice(1, 960, 18)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("nf", [1, 4, 5, 40])
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("nval", [0, 2])
+def test_ki_count_edge_cases_match_plain(cuda, D, nval, nf, aligned):
+    """KI[count] on each of D row blocks of a dense seeded table (the
+    W = 2 member layout, the W = 4 dbi layout; levels on and off their
+    slot alignment) equals lookup_bucket_owned_count_plain, and the
+    blocks' sum equals the whole table's count, each read's non-EMPTY
+    samples that KB finds (a repeated sample counted each time); one
+    launch a block.  nf = 40: a warp's read spans two tiles."""
+    from danbing_tk_tpu_torch.parallel.sharded_index import row_blocks
+
+    rng = np.random.default_rng(31 + D + nval + nf)
+    keys, _, tab = _ki_table(rng, False, nval)
+    dtab = dt.DevTable.upload(tab, cuda)
+    if not aligned:
+        dtab = _shifted(dtab)
+    q = torch.from_numpy(_count_queries(rng, keys, nf)).to(cuda)
+    tot = torch.zeros(q.shape[0], dtype=torch.int32, device=cuda)
+    for block, meta in row_blocks(dtab, D):
+        got, n = _launched(dt.lookup_bucket_owned_count, block, meta, q)
+        assert n == {"KI[count]": 1} and got.dtype == torch.int32
+        assert torch.equal(got, dt.lookup_bucket_owned_count_plain(
+            block, meta, q))
+        tot += got
+    want = da.read_hits(dt.lookup_bucket(dtab, q)[0], q != -1)
+    assert torch.equal(tot, want)
+    assert int(want[REP].min()) == nf and int(want[-40:].min()) == nf
+    assert int(want[NONE].max()) == 0 and int(want.max()) == nf
+
+
+@pytest.mark.parametrize("table", ["member", "dbi"])
+def test_ki_count_matches_plain_on_golden(cuda, drp, table):
+    """KI[count] on the golden member and dbi tables at D = 1 and over 4
+    row blocks summed, on the sampled queries of golden reads (KK[sample])
+    with one read whose 4 windows are one k-mer: the plain version's
+    counts, the D = 1 count for the sum, and (found & valid).sum(1) of
+    KB's probe."""
+    from danbing_tk_tpu_torch.parallel.sharded_index import row_blocks
+
+    P, L, nf = 1000, 160, 4
+    codes, rlen = _reads(P, L)
+    # read 0: one k-mer four times (a 21-base period, the windows 21
+    # bases apart)
+    codes[0, :] = np.tile(codes[1, :21], L // 21 + 1)[:L]
+    rlen[0] = 3 * 21 + 21
+    c = torch.from_numpy(codes).to(cuda)
+    r = torch.from_numpy(rlen).to(cuda)
+    q, valid, _ = km.prefilter_sample(c, r, 21, nf)
+    assert bool((q[0] == q[0, 0]).all()) and int(q[0, 0]) != -1
+    tab = drp.tables(cuda)[table]
+    want = da.read_hits(dt.lookup_bucket(tab, q)[0], valid)
+    one = dt.lookup_bucket_owned_count(*row_blocks(tab, 1)[0], q)
+    assert torch.equal(one, want) and bool(want.any())
+    assert int(want[0]) in (0, nf)
+    tot = sum(dt.lookup_bucket_owned_count(b, m, q)
+              for b, m in row_blocks(tab, 4))
+    assert torch.equal(tot, one)
+    for b, m in row_blocks(tab, 4):
+        assert torch.equal(dt.lookup_bucket_owned_count(b, m, q),
+                           dt.lookup_bucket_owned_count_plain(b, m, q))
 
 
 @pytest.mark.parametrize("NKW", [1, 31, 33, 140, 300])

@@ -159,15 +159,16 @@ def test_kernels_have_counters_and_notes():
 
     build.reset_launch_counts()
     counts = build.launch_counts()
-    # one count per kernel source, KC's large-E instance beside KC, KK's
+    # one count per kernel source, KC's large-E instance beside KC, KI's
+    # count instance (the sharded prefilter's probe) beside KI, KK's
     # host-sampled and sample-only instances beside KK (the fused launch),
     # KL's prefilter decision beside KL (the sub/k-filter), and KM (the
     # step's tail, step_tail.cuh) inside KD's and KE's launches
     assert counts == dict.fromkeys(("KA", "KB", "KC", "KD", "KE", "KF",
                                     "KG", "KH", "KI", "KJ", "KK", "KL",
-                                    "KM", "KC[large-E]", "KK[q]",
-                                    "KK[sample]", "KL[decide]"), 0)
-    assert len(counts) == len(build.KERNELS) + 5
+                                    "KM", "KC[large-E]", "KI[count]",
+                                    "KK[q]", "KK[sample]", "KL[decide]"), 0)
+    assert len(counts) == len(build.KERNELS) + 6
     assert "bias_correct" in build.KERNELS
     assert "sharded_lookup" in build.KERNELS
     assert "site_scorer" in build.KERNELS

@@ -11,8 +11,12 @@ csrc/prefilter_sample.cu) on the CPU, against the JAX package.
   false) and KK's adversarial reads); for
   nf = 1, 2, 4 (nmf 1, and 2 at nf = 4) on the member table and on a
   model without one (the dbi table, W = 4);
+* the front end's float division (kk_div) is exact over its operands'
+  ranges; the kernel's window packing (kk_codes: 32-bit words of the staged
+  rows, four codes a multiply) equals the codes one by one for spans of
+  0-31 codes at every alignment, a byte above 3 invalidating its span;
 * a warp-by-warp emulation of the fused kernel (KKF_PPW pairs a warp,
-  each window built in parts by 4, 2 or 1 lanes and made canonical
+  each window built in parts by 4, 2 or 1 lanes (kk_codes) and made canonical
   through the bit-reversed complement, tiles of 32 queries from nf = 5,
   every valid query of a pair that probes at all probed, hits added up
   per (pair, mate), the host's clamp of nmf, an odd pair count) gives
@@ -114,6 +118,79 @@ def _canonical_emulated(fwd, k):
     return min(rc, fwd)
 
 
+PACK, M32, M64 = 0x40100401, 2**32 - 1, 2**64 - 1
+
+
+def _codes_emulated(flat, i, n, lead):
+    """kk_codes: the n codes from flat[i] on, read as the 32-bit words of
+    the staged row (``lead``: the byte's place in its word, the staged
+    address mod 4; bytes off the span masked to 0), each word's four
+    codes packed by one multiply by PACK mod 2^32.  Returns (the 2n-bit
+    word, whether every code is <= 3)."""
+    if n <= 0:
+        return 0, True
+
+    def word(j):
+        b0 = i - lead + 4 * j
+        return sum(int(flat[b0 + t]) << (8 * t) for t in range(4)
+                   if 0 <= b0 + t < len(flat))
+
+    last = (lead + n - 1) >> 2
+    tail = lead + n - 4 * last
+    x = word(0) & (M32 << (8 * lead)) & M32
+    if last == 0:
+        x &= M32 >> (32 - 8 * tail)
+    bad = x
+    f = ((x * PACK) & M32) >> (24 + 2 * (4 - (tail if last == 0 else 4)))
+    for j in range(1, last):
+        x = word(j)
+        bad |= x
+        f = ((f << 8) | (((x * PACK) & M32) >> 24)) & M64
+    if last > 0:
+        x = word(last) & (M32 >> (32 - 8 * tail))
+        bad |= x
+        f = ((f << (2 * tail))
+             | (((x * PACK) & M32) >> (24 + 2 * (4 - tail)))) & M64
+    return f, bad & 0xFCFCFCFC == 0
+
+
+def test_codes_emulation_packs_words():
+    """_codes_emulated (the kernel's word packing) = the codes one by one,
+    for every span length 0-31 at every alignment, and any byte above 3
+    (4, 128, 255) inside a span invalidates it, none outside it does."""
+    rng = np.random.default_rng(5)
+    flat = rng.integers(0, 4, 96).astype(np.uint8)
+    for i in range(8, 16):
+        for n in range(32):
+            want = 0
+            for b in flat[i:i + n]:
+                want = (want << 2) | int(b)
+            for lead in (i & 3, (i + 1) & 3):
+                assert _codes_emulated(flat, i, n, lead) == (want, True)
+            for bad in (4, 128, 255):
+                g = flat.copy()
+                g[i - 1] = g[i + n] = bad
+                assert _codes_emulated(g, i, n, i & 3)[1]
+                if n:
+                    g[i + n // 2] = bad
+                    assert not _codes_emulated(g, i, n, i & 3)[1]
+
+
+def test_float_division_is_exact():
+    """kk_div: floor(n / d) as the float32 product (n + 0.5) * (1 / d),
+    each step rounded to nearest, for the front end's operands: nk up to
+    2^20 over nf - 1, and query indices up to 8 nf + 31 over nf and 2 nf,
+    nf up to 2^16 (the entry points' limit)."""
+    f32 = np.float32
+    n = np.concatenate([np.arange(1 << 16), np.arange(1 << 16, 1 << 20, 97),
+                        (1 << 20) - np.arange(64),
+                        8 * 65536 * 2 + 31 - np.arange(4096)])
+    for d in list(range(1, 300)) + [511, 1000, 4095, 65535, 65536, 131072]:
+        r = f32(1) / f32(d)
+        got = ((n.astype(f32) + f32(0.5)) * r).astype(np.int64)
+        np.testing.assert_array_equal(got, n // d, err_msg=f"d={d}")
+
+
 def _lanes_a_query(nf):
     """The kernel's lpq: the largest power of 2 (<= 16) with the warp's
     KKF_PPW * 2 nf queries of that many lanes in 32 lanes."""
@@ -137,6 +214,7 @@ def _fused_emulated(codes, rlen, live, found, q, k, nf, nmf):
     kernel does) must equal.  Returns (survive (P,), probed (2P, nf))."""
     B, L = codes.shape
     P = B // 2
+    flat = codes.reshape(-1)
     ppw = tda.KKF_PPW
     m = min(max(nmf, 0), nf + 1)            # dtk_prefilter_fused's clamp
     nq = 2 * nf
@@ -170,12 +248,11 @@ def _fused_emulated(codes, rlen, live, found, q, k, nf, nmf):
             for seg in range(lpq if ok else 0):
                 a = min(seg * sl, k)
                 e = min(a + sl, k)
-                part = 0
-                for i in range(a, e):
-                    b = int(codes[2 * p0 + r, s + i])
-                    ok &= b <= 3
-                    part = ((part << 2) | b) & (2**64 - 1)
-                f |= (part << (2 * (k - e))) & (2**64 - 1)
+                # the staged codes keep the rows' alignment mod 16
+                idx = (2 * p0 + r) * L + s + a
+                part, good = _codes_emulated(flat, idx, e - a, idx & 3)
+                ok &= good
+                f |= (part << (2 * (k - e))) & M64
             if ok:
                 assert _canonical_emulated(f, k) == int(q[2 * p0 + r, j])
                 probed[2 * p0 + r, j] = True

@@ -5,9 +5,12 @@ JAX package.
 * prefilter_sample_plain (what ops/kmers.prefilter_sample runs on a CPU
   tensor) equals the JAX prefilter_sample on KK's seeded adversarial
   batches (tests/test_torch_kmers_filter_cases.kk_cases: reads shorter
-  than k, rlen = L, Ns inside sampled windows), for nf = 1, 2 and 4, on
-  the queries (JAX's (hi << 32) | lo), valid and nk; and a thread-by-
-  thread emulation of csrc/prefilter_sample.cu equals it too;
+  than k, rlen = L, Ns inside sampled windows, rows of an odd L), for
+  nf = 1, 2, 4 and 5, on the queries (JAX's (hi << 32) | lo), valid and
+  nk; and a warp-by-warp emulation of KK[sample] (the fused kernel's
+  staged front end, 8 reads a warp) equals it too; with code bytes 4
+  inside sampled windows, equal to JAX wherever a window holds codes 0-3
+  and 255 only, and invalid (EMPTY) where one holds a 4 (KK's rule);
 * the port's make_prefilter_step (KK's fused route) equals the JAX
   make_prefilter_step and the port's make_prefilter_step_q (the native
   host sampler) on every batch of tests/test_torch_device_align.py, for
@@ -49,7 +52,9 @@ from danbing_tk_tpu_torch.ops import kmers as km
 from danbing_tk_tpu_torch.parallel import mesh as pm
 from danbing_tk_tpu_torch.parallel import sharded_index as si
 from test_torch_device_align import P, L, batches, models  # noqa: F401
-from test_torch_kmers_filter_cases import kk_cases
+from test_torch_kmers_filter_cases import kk_cases, kk_starts
+from test_torch_prefilter_fused import (_canonical_emulated, _codes_emulated,
+                                       _lanes_a_query)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 NFS = [1, 2, 4]
@@ -73,37 +78,58 @@ def _u64(lo, hi):
     return ((hi << np.uint64(32)) | lo).view(np.int64)
 
 
-def _kk_emulated(codes, rlen, k, nf):
-    """csrc/prefilter_sample.cu's thread body, one (read, sample) at a
-    time, in Python integers."""
+def _kk_emulated(codes, rlen, k, nf, vec=True):
+    """KK[sample] (prefilter_fused_kernel<0, false> in
+    csrc/prefilter_sample.cu) warp by warp, in Python integers: a warp
+    takes 2 KKF_PPW consecutive reads, query w of the warp is read w // nf,
+    sample w % nf, built in lpq parts by the lanes of its block, merged
+    and made canonical through the bit-reversed complement; the query's
+    first lane writes q and valid, lane r read r's nk.  Every output is
+    written exactly once.  ``vec``: the rows staged with their alignment
+    mod 16 (codes on a 16-byte boundary), else from the warp's first byte
+    (byte staging)."""
     B, Lc = codes.shape
-    q = np.empty((B, nf), np.int64)
-    valid = np.empty((B, nf), bool)
-    nk_out = np.empty(B, np.int32)
-    for t in range(B * nf):
-        r, j = divmod(t, nf)
-        rl = int(rlen[r])
-        nk = max(rl - k + 1, 0)
-        if j == 0:
-            nk_out[r] = nk
-        s = nk - 1 if j == nf - 1 else j * (nk // (nf - 1))
-        s = min(max(s, 0), Lc - k)
-        ok = s + k <= rl and s < nk
-        fwd = rc = 0
-        i = 0
-        while i < k and ok:
-            b = int(codes[r, s + i])
-            ok = b <= 3
-            fwd = ((fwd << 2) | (b & 3)) & ((1 << 64) - 1)
-            rc |= (3 - (b & 3)) << (2 * i)
-            i += 1
-        q[r, j] = min(fwd, rc) if ok else -1
-        valid[r, j] = ok
+    flat = codes.reshape(-1)
+    rpw = 2 * tda.KKF_PPW
+    lpq = _lanes_a_query(nf)
+    qt = 32 // lpq
+    ntile = -(-rpw * nf // qt)
+    sl = -(-k // lpq)
+    q = np.zeros((B, nf), np.int64)
+    valid = np.zeros((B, nf), bool)
+    nk_out = np.zeros(B, np.int32)
+    writes = np.zeros((B, nf), np.int64)
+    for r0 in range(0, B, rpw):
+        nr = min(rpw, B - r0)
+        for r in range(nr):
+            nk_out[r0 + r] = max(int(rlen[r0 + r]) - k + 1, 0)
+        for w in range(qt * ntile):
+            if w >= nr * nf:
+                continue
+            r, j = divmod(w, nf)
+            rl = int(rlen[r0 + r])
+            nk = max(rl - k + 1, 0)
+            s = nk - 1 if j == nf - 1 else j * (nk // (nf - 1))
+            s = min(max(s, 0), Lc - k)
+            ok = s + k <= rl and s < nk
+            f = 0
+            for seg in range(lpq if ok else 0):
+                a = min(seg * sl, k)
+                e = min(a + sl, k)
+                idx = (r0 + r) * Lc + s + a
+                part, good = _codes_emulated(
+                    flat, idx, e - a, (idx if vec else idx - r0 * Lc) & 3)
+                ok &= good
+                f |= (part << (2 * (k - e))) & (2**64 - 1)
+            q[r0 + r, j] = _canonical_emulated(f, k) if ok else -1
+            valid[r0 + r, j] = ok
+            writes[r0 + r, j] += 1
+    assert (writes == 1).all()
     return q, valid, nk_out
 
 
-@pytest.mark.parametrize("nf", NFS)
-@pytest.mark.parametrize("Lc", [150, 160])
+@pytest.mark.parametrize("nf", NFS + [5])
+@pytest.mark.parametrize("Lc", [150, 157, 160])
 def test_sampler_matches_jax(nf, Lc):
     k = 21
     codes, rlen = kk_cases(16, 128, Lc, k, nf)
@@ -124,6 +150,44 @@ def test_sampler_matches_jax(nf, Lc):
     assert (rlen < k).any() and (rlen == Lc).any()
     v = valid.numpy()
     assert v.any() and (~v & (nk.numpy() > 0)[:, None]).any()
+    for vec in (True, False):
+        emu = _kk_emulated(codes, rlen, k, nf, vec)
+        for name, a, b in zip(("q", "valid", "nk"), emu, (q, valid, nk)):
+            np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("nf", [1, 2, 4, 5])
+@pytest.mark.parametrize("Lc", [157, 163])
+def test_sampler_code_bytes(nf, Lc):
+    """Code bytes 4 and 255 inside sampled windows, rows of an odd L:
+    prefilter_sample_plain (and the kernel's emulation) equals the JAX
+    prefilter_sample on every window without a code byte of 4-254 (255
+    invalidates a window in both); KK's rule makes any such byte
+    invalidate its window too (EMPTY), where the JAX package, whose codes
+    are 0-3 or 255 by its contract, packs the byte into the k-mer."""
+    k = 21
+    codes, rlen = kk_cases(23, 131, Lc, k, nf)
+    starts = kk_starts(rlen, Lc, k, nf)
+    rng = np.random.default_rng([nf, Lc])
+    for r in range(1, len(rlen), 4):
+        j = int(rng.integers(nf))
+        codes[r, starts[r, j] + int(rng.integers(k))] = 4
+    q, valid, nk = km.prefilter_sample(torch.from_numpy(codes),
+                                       torch.from_numpy(rlen), k, nf)
+    jlo, jhi, jvalid, jnk = jax.jit(
+        jda.prefilter_sample, static_argnums=(2, 3, 4))(codes, rlen, k, nf,
+                                                        Lc)
+    win = codes[np.arange(len(rlen))[:, None, None],
+                starts[..., None] + np.arange(k)]
+    odd = ((win > 3) & (win < 255)).any(-1) & (starts + k <= rlen[:, None])
+    assert odd.any()
+    jq, jv = _u64(jlo, jhi), np.asarray(jvalid)
+    np.testing.assert_array_equal(q.numpy()[~odd], jq[~odd])
+    np.testing.assert_array_equal(valid.numpy()[~odd], jv[~odd])
+    np.testing.assert_array_equal(nk.numpy(), np.asarray(jnk))
+    assert not valid.numpy()[odd].any() and (q.numpy()[odd] == -1).all()
+    # a valid query is never EMPTY: KI[count] needs no valid plane
+    assert (q.numpy()[valid.numpy()] != -1).all()
     emu = _kk_emulated(codes, rlen, k, nf)
     for name, a, b in zip(("q", "valid", "nk"), emu, (q, valid, nk)):
         np.testing.assert_array_equal(a, b.numpy(), err_msg=name)

@@ -9,9 +9,9 @@ JAX package on the CPU (the kernels' plain versions).
   grid: tests/test_torch_step_tail_threading.py, a file of its own so
   that the two grids' JAX compiles run on two test workers).
 * make_prefilter_step_q, without a probe (KK[q]) and with one (the
-  collective probe emulated as four row blocks' owned probes summed, then
-  KL[decide]), equals the JAX make_prefilter_step_q on the host sampler's
-  queries of the same batches, for each -kf.
+  collective probe emulated as four row blocks' hit counts summed,
+  KI[count], then KL[decide]), equals the JAX make_prefilter_step_q on
+  the host sampler's queries of the same batches, for each -kf.
 * The glue of a counting step: the aten ops that run outside the kernel
   wrappers (counted with a TorchDispatchMode on the golden panel at P =
   256, L = 160, -kf 4 1, cth 20) are at most 40.
@@ -131,9 +131,8 @@ def test_prefilter_q_matches_jax(models, batches, nf, nmf):  # noqa: F811
     blocks = si.row_blocks(tda._prefilter_table(td, "cpu"), 4)
 
     def probe(q):
-        hit = sum(tdt.lookup_bucket_owned(b, meta, q)[0].long()
-                  for b, meta in blocks)
-        return hit > 0
+        return sum(tdt.lookup_bucket_owned_count(b, meta, q)
+                   for b, meta in blocks).int()
 
     probed = tda.make_prefilter_step_q(td, AlignConfig(**kw), P, "cpu",
                                        probe=probe)

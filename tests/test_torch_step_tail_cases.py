@@ -14,8 +14,9 @@ tests/test_torch_gpu.py holds the kernels against on the card.
   back from the words, the use plane from them;
   tests/test_torch_pair_filter_staged.py emulates the kernel's chunk
   design.
-* KL[decide] (prefilter_decide): ``kld_cases``, (2P, nf) found and valid
-  planes, short mates and dead pairs, nf = 1, 4 and 17.
+* KL[decide] (prefilter_decide): ``kld_cases``, each read's hits (the
+  valid found samples of (2P, nf) planes), nonshort as bool or as the
+  sampler's nk, short mates and dead pairs, nf = 1, 4 and 17.
 * KM (step_tail_plain): ``km_cases``, random pair planes (sub_drop within
   nonshort), kf, rm and bf beyond 0 and 1, dst0 up to NAN32, with and
   without clean_pair (threading), an odd pair count.  The emulation
@@ -170,21 +171,27 @@ def test_kl_plain_matches_emulation(NKW):
 
 
 def kld_cases(seed: int, P: int, nf: int) -> dict:
-    """Seeded KL[decide] inputs: found and valid (2P, nf) bool, nonshort
-    (2P,) bool (every 5th read short), live (P,) bool (every 7th pair
-    dead)."""
+    """Seeded KL[decide] inputs: hits (2P,) int32, the valid found samples
+    of seeded (2P, nf) found and valid planes (kept beside them); nk (2P,)
+    int32 (every 5th read short: nk 0, else 1 to 140) and nonshort = nk >
+    0; live (P,) bool (every 7th pair dead)."""
     rng = np.random.default_rng([seed, P, nf])
     R = 2 * P
-    return dict(found=rng.random((R, nf)) < rng.random((R, 1)),
-                valid=rng.random((R, nf)) < 0.9,
-                nonshort=np.arange(R) % 5 != 4,
-                live=np.arange(P) % 7 != 6)
+    found = rng.random((R, nf)) < rng.random((R, 1))
+    valid = rng.random((R, nf)) < 0.9
+    nk = np.where(np.arange(R) % 5 != 4, rng.integers(1, 141, R),
+                  0).astype(np.int32)
+    return dict(found=found, valid=valid,
+                hits=(found & valid).sum(1).astype(np.int32), nk=nk,
+                nonshort=nk > 0, live=np.arange(P) % 7 != 6)
 
 
-def kld_args(case: dict, device, nmf: int) -> tuple:
-    t = {k: torch.from_numpy(v).to(device) for k, v in case.items()}
-    return (t["found"], t["valid"], t["nonshort"], t["live"], nmf,
-            len(case["live"]))
+def kld_args(case: dict, device, nmf: int, ns: str = "nonshort") -> tuple:
+    """prefilter_decide's arguments: hits, ``ns`` ("nonshort", bool, or
+    "nk", the sampler's int32), live, nmf, P."""
+    t = {k: torch.from_numpy(case[k]).to(device)
+         for k in ("hits", ns, "live")}
+    return (t["hits"], t[ns], t["live"], nmf, len(case["live"]))
 
 
 @pytest.mark.parametrize("nf", [1, 4, 17])
@@ -194,6 +201,9 @@ def test_kld_plain_matches_emulation(nf):
     case = kld_cases(5, 301, nf)
     for nmf in (-1, 0, 1, 2, nf, nf + 1):
         want = da.prefilter_decide(*kld_args(case, "cpu", nmf)).numpy()
+        np.testing.assert_array_equal(
+            want, da.prefilter_decide(*kld_args(case, "cpu", nmf,
+                                                "nk")).numpy())
         hits = (case["found"] & case["valid"]).sum(1)
         ok = case["live"] & case["nonshort"][0::2] & case["nonshort"][1::2]
         got = ok & (hits[0::2] >= nmf) & (hits[1::2] >= nmf)

@@ -192,6 +192,17 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      (failing when the temp disk cannot hold 8 samples' inputs and
      outputs), byte-equal to the host oracle, with each span's seconds and
      the device's share of the wall
+  8d. ``python -m danbing_tk_tpu_torch bench`` as a subprocess on the
+     card at the primary metric's shapes with 262,144 pairs
+     (DTK_BENCH_E2E_PAIRS=262144 DTK_PF_PASSES=3 DTK_BENCH_SCALE=0, the
+     quiesce wait cut to 5 s): exit 0, the last stdout line the primary
+     metric (wgs_funnel_reads_per_sec_per_chip) with a value above 0 and
+     passes >= 1, the real-panel skip line on stderr; the 512-locus panel
+     and its reads file are built by ``bench_panel_funnel --prepare`` in a
+     worker process started after phase 2's kernel build (beside the scale
+     index build, joined here); the line, the worker's warm and timed
+     passes, and the phase's seconds; its last timed pass's launches are
+     the ``bench`` path of phase 9
   9. the kernels line (JSON): KA-KM (KK: the fused prefilter launch; KM
      fused in KD / KE, its source csrc/step_tail.cuh), KC's
      large-E instance, KK's host-sampled (KK[q]) and sample-only
@@ -206,7 +217,8 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      and ``counting_device_sampled``), the sharded, threading and okam
      funnel runs, the site scorer's run, phase 5b's run_file and phase
      4c's device build (``build_prune``) and qc (``qc``), phase 4d's align
-     -bu run (``analysis``), and for KH the
+     -bu run (``analysis``), phase 8d's last timed pass (``bench``,
+     read in its worker process), and for KH the
      pred file run), the counts set to 0 just before each run and read
      just after it (4c (b)'s in its worker process)
  10. the last line: {"ok": true, "device": {...}}
@@ -237,6 +249,7 @@ SHARDED = ("KA", "KL", "KC", "KD", "KM", "KI", "KI[count]", "KK[sample]",
 BUILD_PRUNE = THREADING                 # build's align -g (run_file)
 QC = COUNTING + ("KF",)                 # qc's -e 1, -s 2 and -b maps
 BQ_NLOCI, BQ_COV, BQ_PROCS = 256, 2, 2  # phase 4c (b)'s scenario and run
+BENCH_PAIRS = 262_144                   # phase 8d's reads file
 
 
 def log(msg: str) -> None:
@@ -351,31 +364,37 @@ def main() -> int:
                 log(f"[2] {name}: {line.strip()}")
 
     bq = start_build_qc()
+    bd = start_bench_data()
     try:
-        return run_phases(args, dev, kind, smi, t_start, bq)
+        return run_phases(args, dev, kind, smi, t_start, bq, bd)
     finally:
-        if bq["proc"].poll() is None:
-            bq["proc"].kill()
-            bq["proc"].wait()
         import shutil
 
-        shutil.rmtree(bq["root"], ignore_errors=True)
+        for w in (bq, bd):
+            if w["proc"].poll() is None:
+                w["proc"].kill()
+                w["proc"].wait()
+            shutil.rmtree(w["root"], ignore_errors=True)
 
 
-def run_phases(args, dev, kind, smi, t_start, bq) -> int:
+def run_phases(args, dev, kind, smi, t_start, bq, bd) -> int:
     """Phases 2 (scale index) to 10."""
+    import gc
+
     import torch
 
     res = align_phases(args, dev, smi, bq)
     # ---- 8. pred ----
     # every device tensor of phases 2-7 died with align_phases
-    import gc
-
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[8] device memory held after phase 7: "
         f"{torch.cuda.memory_allocated()} B")
     kh, kh_launches = pred_phase(args.seed, dev)
+    # ---- 8d. the bench command ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["bench_launches"] = bench_phase(bd, smi)
     return finish(res, kh, kh_launches, kind, smi, t_start)
 
 
@@ -1907,6 +1926,86 @@ def start_build_qc() -> dict:
     return dict(root=root, proc=p, log=log_f, t0=time.time())
 
 
+def start_bench_data() -> dict:
+    """Phase 8d's data, started after phase 2's kernel build: the bench's
+    512-locus synthetic panel and its reads file of BENCH_PAIRS pairs,
+    built by ``bench_panel_funnel --prepare`` (host code, no card work) in
+    a worker process beside phase 2's scale index build, into a
+    directory of its own."""
+    root = tempfile.mkdtemp(prefix="dtk_smoke_bench_")
+    log_f = open(os.path.join(root, "prepare.log"), "w")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "danbing_tk_tpu_torch.tools.bench_panel_funnel",
+         "--prepare"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT, DTK_BENCH_BUILD=root,
+                 DTK_BENCH_E2E_PAIRS=str(BENCH_PAIRS)),
+        stdout=log_f, stderr=subprocess.STDOUT)
+    log(f"[2] phase 8d's data started: the bench's 512-locus panel and "
+        f"{BENCH_PAIRS} pairs in a worker process")
+    return dict(root=root, proc=p, log=log_f, t0=time.time())
+
+
+def bench_phase(bd: dict, smi: str) -> dict:
+    """Phase 8d: ``python -m danbing_tk_tpu_torch bench`` on the card at
+    the primary metric's shapes with BENCH_PAIRS pairs (its data from
+    start_bench_data's worker).  Fails unless it exits 0 with the primary
+    metric's line last (value > 0, passes >= 1) and the real-panel skip
+    line on stderr.  Returns its last timed pass's launches."""
+    from danbing_tk_tpu_torch.kernels import build
+    from danbing_tk_tpu_torch.tools.bench_panel_funnel import LAUNCHES_TAG
+
+    t_wait = time.time()
+    try:
+        rc = bd["proc"].wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("phase 8d's data worker did not finish in 300 s")
+    bd["log"].close()
+    with open(bd["log"].name) as f:
+        prep = [ln for ln in f.read().splitlines() if ln.startswith("#")]
+    if rc != 0:
+        fail(f"phase 8d's data worker exited {rc}: {prep[-5:]}")
+    log(f"[8d] data: {'; '.join(ln[2:] for ln in prep)} (the worker "
+        f"started {t_wait - bd['t0']:.1f}s before the join, which waited "
+        f"{time.time() - t_wait:.1f}s)")
+    env = dict(os.environ, PYTHONPATH=ROOT, DTK_BENCH_BUILD=bd["root"],
+               DTK_BENCH_E2E_PAIRS=str(BENCH_PAIRS), DTK_PF_PASSES="3",
+               DTK_BENCH_SCALE="0", DTK_QUIESCE_TIMEOUT="5")
+    t0 = time.time()
+    try:
+        r = subprocess.run([sys.executable, "-m", "danbing_tk_tpu_torch",
+                            "bench"], cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("phase 8d: bench did not finish in 300 s")
+    secs = time.time() - t0
+    err = r.stderr.splitlines()
+    out = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not out:
+        print("\n".join(err[-40:]), file=sys.stderr)
+        fail(f"phase 8d: bench exited {r.returncode}")
+    last = json.loads(out[-1])
+    if last.get("metric") != "wgs_funnel_reads_per_sec_per_chip" \
+            or not last.get("value", 0) > 0 or last.get("passes", 0) < 1:
+        fail(f"phase 8d: bench's last line is {out[-1]}")
+    if not any(ln.startswith("# real-panel funnel (wgs_funnel_real_panel_"
+                             "reads_per_sec) skipped: ") for ln in err):
+        fail("phase 8d: bench printed no real-panel skip line")
+    tagged = [ln for ln in err if LAUNCHES_TAG in ln]
+    if not tagged:
+        fail("phase 8d: the panel worker printed no launches")
+    launches = dict.fromkeys(build.launch_counts(), 0)
+    launches.update(json.loads(tagged[-1].split(LAUNCHES_TAG, 1)[1]))
+    for t in ("KK[q]",) + COUNTING:
+        if launches[t] <= 0:
+            fail(f"phase 8d: bench's timed pass skipped {t}: {launches}")
+    for ln in err:
+        if "warm pass (incl" in ln or "steady median" in ln:
+            log(f"[8d] {ln[2:]}")
+    log(f"[8d] bench line: {out[-1]}; phase_s={secs:.1f} pairs={BENCH_PAIRS} "
+        f"launches {launches}; card {smi}")
+    return launches
+
+
 def start_table_builds(nloci: int, seed: int) -> dict:
     """Phase 6's graph table and phase 7's tre table (host numpy, pure
     functions of the index's sequences), built one after the other in a
@@ -2877,7 +2976,8 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "python_ingest": res["plaunches"],
              "analysis": res["alaunches"],
              "build_prune": res["bq_launches"]["build_prune"],
-             "qc": res["bq_launches"]["qc"]}
+             "qc": res["bq_launches"]["qc"],
+             "bench": res["bench_launches"]}
     # a step launches KA and KL once each and runs KM's tail once, in KD's
     # launch (counting, okam) or in KE's (threading); no standalone KM
     for path, c in paths.items():

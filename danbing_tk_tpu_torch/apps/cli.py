@@ -75,6 +75,14 @@ this CLI's ``align``: with ``--device`` on the device engine on
 ``--torch-device`` (default ``cuda``; without a card they raise before any
 stage runs unless ``--torch-device cpu`` is given), else on the host
 engine with no card work.
+
+``bench`` runs the port's benchmark orchestrator (tools/bench.py): the
+synthetic panel's funnel (the primary metric, printed again last), the
+funnel at the 80,000-locus scale index (when its cache exists or
+DTK_BENCH_SCALE=1), one JSON line a metric, each worker a process of its
+own on ``--torch-device`` (default ``cuda``; without a card it raises
+unless ``--torch-device cpu`` is given).  Exit 3 when the primary metric
+did not land.
 """
 
 from __future__ import annotations
@@ -270,6 +278,14 @@ def _cmd_bam2pe(args):
 
     with open(args.fai) as f:
         bam2pe(f, sys.stdout)
+
+
+def _cmd_bench(args):
+    from .._device import resolve_device
+    from ..tools import bench
+
+    resolve_device(args.torch_device)
+    bench.main(args.torch_device)
 
 
 def _cmd_ktools(args):
@@ -509,7 +525,7 @@ def main(argv=None):
                    help="max read length (align max_read_len)")
     w.add_argument("--prefilter", action="store_true",
                    help="also warm the prefilter dispatch shape "
-                        "(P x PREFILTER_MULT)")
+                        "(P x DTK_PREFILTER_MULT, default 4)")
     w.add_argument("--expand-cap", type=int, default=512)
     w.add_argument("--retry-expand",
                    type=lambda v: [int(x) for x in v.split(",")],
@@ -736,6 +752,14 @@ def main(argv=None):
                     help="torch device of the two SVM stages (default "
                     "cuda; cpu runs them on the host)")
     ca.set_defaults(fn=_cmd_call)
+
+    be = sub.add_parser(
+        "bench", help="the port's benchmark: one JSON line a metric, the "
+        "primary (wgs_funnel_reads_per_sec_per_chip) last")
+    be.add_argument("--torch-device", default="cuda",
+                    help="torch device of the workers (default cuda; cpu "
+                         "runs the kernels' plain versions)")
+    be.set_defaults(fn=_cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -60,9 +60,10 @@ from .host_align import (AlignConfig, BubbleMaps, HostAligner, RPGG,
                          parse_read_name_sim1, parse_read_name_sim2)
 from .native_thread import NativeThreader, row_stride, split_cg_row
 
-# a prefilter dispatch carries PREFILTER_MULT x the step's pairs (the
-# per-read prefilter cost is tiny, so bigger dispatches amortize the
-# per-call overhead); PREFILTER_WINDOW dispatches stay in flight;
+# a prefilter dispatch carries PREFILTER_MULT x the step's pairs, or
+# DTK_PREFILTER_MULT x where it is set, as in the JAX runner (the per-read
+# prefilter cost is tiny, so bigger dispatches amortize the per-call
+# overhead); PREFILTER_WINDOW dispatches stay in flight;
 # READER_PREFETCH batches are parsed ahead by the reader thread
 PREFILTER_MULT = 4
 PREFILTER_WINDOW = 8
@@ -439,7 +440,10 @@ class DeviceAlignRunner:
 
     def dispatch_pairs(self, prefilter: bool) -> int:
         """Pairs per input batch."""
-        return self.P * (PREFILTER_MULT if prefilter else 1)
+        if not prefilter:
+            return self.P
+        return self.P * int(os.environ.get("DTK_PREFILTER_MULT",
+                                           PREFILTER_MULT))
 
     def run_batches(self, batches, prefilter: bool = False,
                     checkpoint: str | None = None,

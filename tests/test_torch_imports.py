@@ -30,9 +30,11 @@ for m in ("engine.threading", "engine.native_thread", "tools.scale_index",
           "analysis.kmc2length", "analysis.length_pipeline", "analysis.eqtl",
           "analysis.eqtl_pipeline", "analysis.dotplot",
           "pipeline.leave_one_out", "utils.config", "utils.observability",
-          "tools.analysis_scenario", "utils.compile_cache"):
+          "tools.analysis_scenario", "utils.compile_cache", "tools.bench",
+          "tools.bench_panel_funnel", "tools.bench_scale_funnel",
+          "tools.bench_e2e", "tools.make_bench_rpgg"):
     assert pkg.__name__ + "." + m in sys.modules, m
-# every command of the JAX CLI but bench, warmup among them
+# every command of the JAX CLI, warmup among them
 import contextlib, io
 from danbing_tk_tpu_torch.apps import cli
 out = io.StringIO()

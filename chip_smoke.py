@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--nloci N] [--pairs N] [--seed S]
 
 Phases; any failure exits non-zero (nothing is caught and continued):
-  1. environment: torch / CUDA / nvcc versions, the card and its power limit
+  1. environment: torch / CUDA / nvcc versions, the card and its power
+     limit, the host's MemTotal and MemAvailable
   2. build through the code ``warmup`` runs (utils/compile_cache.py's
      enable_compile_cache, kernels/build.py's build_all): the twelve CUDA
      kernel sources (nvcc, -Xptxas -v) and the host runtime, threading and
@@ -203,6 +204,26 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      index build, joined here); the line, the worker's warm and timed
      passes, and the phase's seconds; its last timed pass's launches are
      the ``bench`` path of phase 9
+  8f. the genome-wide geometry, once phase 7's tables are freed
+     (danbing_tk_tpu_torch/tools/full_index_probe.py, in this process):
+     the full index's dbi level 0 (2^28 buckets of 8 slots x W = 4 u32,
+     34,359,738,368 B) holding build_full_tables's own k-mers of 285 of
+     its 80,000 loci (whole families, the last locus among them) at
+     build_bucket_table's hash and rank, every other slot EMPTY, uploaded
+     through DevTable.upload's pinned chunks (its seconds and GB/s);
+     locus_offsets of ~15,000 slots a locus, so the count state holds
+     1,199,999,646 slots; then, on a world-1 NCCL group, KB over 65,536
+     hit and miss queries, KI over 1 and 4 row blocks and the collective
+     probe, each = the host lookup; the prefilter over 16,384 pairs three
+     ways (KK[q], KK, and KK[sample] -> KI[count] -> KL[decide]), each =
+     the host's decisions; the counting step (P = 4096) over reads of
+     the planted loci, whose state = the same step's over a compact
+     index of the same entries, with counts in slots past 2^30 (byte
+     offsets past 4 GiB); then each kernel replayed against its plain
+     version (exact) and timed beside its bound (distinct 128-B rows
+     over 3.35 TB/s) and its scale-index time; peak device memory; the
+     launches of the driven run are the ``full_geometry`` path of
+     phase 9
   9. the kernels line (JSON): KA-KM (KK: the fused prefilter launch; KM
      fused in KD / KE, its source csrc/step_tail.cuh), KC's
      large-E instance, KK's host-sampled (KK[q]) and sample-only
@@ -218,7 +239,8 @@ Phases; any failure exits non-zero (nothing is caught and continued):
      funnel runs, the site scorer's run, phase 5b's run_file and phase
      4c's device build (``build_prune``) and qc (``qc``), phase 4d's align
      -bu run (``analysis``), phase 8d's last timed pass (``bench``,
-     read in its worker process), and for KH the
+     read in its worker process), phase 8f's driven run
+     (``full_geometry``), and for KH the
      pred file run), the counts set to 0 just before each run and read
      just after it (4c (b)'s in its worker process)
  10. the last line: {"ok": true, "device": {...}}
@@ -237,7 +259,6 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM HBM3, published peak
 # the counting path's kernels
 COUNTING = ("KA", "KB", "KL", "KC", "KD", "KM")
 THREADING = COUNTING + ("KE",)
@@ -297,19 +318,14 @@ def vote_work_line(kc_args, E: int) -> str:
 
 
 def max_abs_err(a, b) -> int:
-    """Largest |a - b| over matching tensors (tuples / dicts of them)."""
-    import torch
+    """Largest |a - b| over matching tensors (tuples / dicts of them;
+    tools/kernel_bounds.max_abs_err); a shape mismatch fails the run."""
+    from danbing_tk_tpu_torch.tools.kernel_bounds import max_abs_err as err
 
-    if isinstance(a, dict):
-        return max(max_abs_err(a[k], b[k]) for k in a)
-    if isinstance(a, (tuple, list)):
-        return max(max_abs_err(x, y) for x, y in zip(a, b))
-    if a.shape != b.shape:
-        fail(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
-    if a.numel() == 0:
-        return 0
-    return int((a.long() - b.long()).abs().max().item()) if \
-        a.dtype != torch.bool else int((a != b).any().item())
+    try:
+        return err(a, b)
+    except AssertionError as e:
+        fail(f"shape mismatch: {e}")
 
 
 def main() -> int:
@@ -347,6 +363,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"[1] card: {smi}")
+    with open("/proc/meminfo") as f:
+        mem = dict(ln.split(":", 1) for ln in f if ":" in ln)
+    log(f"[1] host memory: MemTotal {mem['MemTotal'].strip()}, "
+        f"MemAvailable {mem['MemAvailable'].strip()}")
 
     # ---- 2. build, through warmup's code ----
     from danbing_tk_tpu_torch.utils.compile_cache import enable_compile_cache
@@ -395,6 +415,10 @@ def run_phases(args, dev, kind, smi, t_start, bq, bd) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     res["bench_launches"] = bench_phase(bd, smi)
+    # ---- 8f. the genome-wide geometry ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["geo_launches"] = geometry_phase(dev, smi, res["results"])
     return finish(res, kh, kh_launches, kind, smi, t_start)
 
 
@@ -412,6 +436,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     from danbing_tk_tpu_torch.io.native_reader import sample_queries
     from danbing_tk_tpu_torch.kernels import build
     from danbing_tk_tpu_torch.ops import kmers as km
+    from danbing_tk_tpu_torch.tools import kernel_bounds as kbd
     from danbing_tk_tpu_torch.tools.ab_kmers_filter import GRAPH, graph_of
     from danbing_tk_tpu_torch.tools.scale_index import (
         ScaleThreadView, build_scale_bait, build_scale_qc, build_scale_rpgg,
@@ -479,47 +504,11 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
             fail(f"{name} disagrees with its plain version (max |err| "
                  f"{err})")
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        bound = bound_bytes / HBM_BYTES_PER_MS
+        bound = kbd.bound_ms(bound_bytes)
         log(f"[{phase}] {name} match=True max_abs_err={err} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} {extra}")
         return dict(match=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by="bytes", library_ms=None)
-
-    def kb_bytes(tab, q, loc=None, stop=False):
-        """Bytes this data makes KB move: each distinct row it reads (its
-        level-0 row for every query, its level-l row for a query that
-        missed levels < l), read once; plus 8 B per query (16 with a
-        locus) in and 17 B out.  With ``stop`` (KG's and KE's probe) a
-        query reads level l only after a miss on a full row at every
-        level < l: a level passes on only a full bucket's overflow.
-        Returns (bytes, distinct rows, row reads)."""
-        qf = q.reshape(-1)
-        lf = None if loc is None else loc.reshape(-1).long() & 0xFFFFFFFF
-        lo, hi = qf & 0xFFFFFFFF, (qf >> 32) & 0xFFFFFFFF
-        rows = reads = 0
-        need = torch.ones(qf.numel(), dtype=torch.bool, device=q.device)
-        for lv, (t, salt) in enumerate(zip(tab.levels, tab.salts)):
-            b = dt.bucket_index(lo[need], hi[need],
-                                None if lf is None else lf[need], salt,
-                                t.shape[0])
-            rows += int(torch.unique(b).numel())
-            reads += int(need.sum())
-            sub = dt.DevTable([t], [salt], tab.composite, tab.nval)
-            hit = dt.lookup_bucket_plain(sub, qf, lf)[0]
-            if stop:
-                full = torch.zeros_like(need)
-                r = t[b].view(-1, 8, tab.W)
-                full[need] = ((r[..., 0] & r[..., 1]) != -1).all(-1)
-                need &= ~hit & full
-            else:
-                need &= ~hit
-        return (rows * 8 * tab.W * 4
-                + q.numel() * (8 + 8 * (loc is not None) + 17)), rows, reads
-
-    def touched(counts):
-        """Distinct count slots a run wrote (the trash slot aside): each
-        is read and written once, 8 B."""
-        return int((counts[:-1] != 0).sum())
 
     def ke_bytes(graph, nc, dst0, kvalid, nk, dev_pair, tr_member, slot,
                  clean_pair, n_slots):
@@ -552,7 +541,8 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
         probed = (walk_r[:, None] & kvalid & inr
                   & (torch.arange(NKW, device=nc.device)
                      <= first[:, None]))
-        _, rows, _ = kb_bytes(graph, nc[probed], loc[probed], stop=True)
+        _, rows, _ = kbd.probe_bytes(graph, nc[probed], loc[probed],
+                                     stop=True)
         thr_r = (dev_pair & clean_pair).repeat_interleave(2)
         members = int(torch.where(thr_r, nin, 0).sum())
         counted = int(((tr_member != 0) & inr & thr_r[:, None]).sum())
@@ -570,20 +560,20 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     ka = compare("KA extract_kmers[counting]",
                  lambda: km.extract_kmers(ka_c, ka_r, k, False, False),
                  lambda: km.extract_kmers_plain(ka_c, ka_r, k, False, False),
-                 B * L + 4 * B + B * NKW * 9 + 5 * B,
+                 kbd.ka_bytes(B, L, k),
                  f"shape=({B},{L}) launch={km.kmers_launch(B, L)} "
                  f"launches/step=1")
     compare("KA extract_kmers[all-planes]",
             lambda: km.extract_kmers(ka_c, ka_r, k),
             lambda: km.extract_kmers_plain(ka_c, ka_r, k),
-            B * L + 4 * B + B * NKW * 17 + B * (NKW - 1) * 9 + 5 * B,
+            kbd.ka_bytes(B, L, k, all_planes=True),
             f"shape=({B},{L}) launches/step=1 with -bu and threading")
     kb = {}
     mtab = tabs["member"]
     for tname, (tab, q, loc) in (
             ("dbi", cap["KB_dbi"] + (None,)), ("member", (mtab, q_mem, None)),
             ("trfl", cap["KB_trfl"])):
-        nbytes, rows, reads = kb_bytes(tab, q, loc)
+        nbytes, rows, reads = kbd.probe_bytes(tab, q, loc)
         kb[tname] = compare(
             f"KB bucket_lookup[{tname}]",
             lambda tab=tab, q=q, loc=loc: dt.lookup_bucket(tab, q, loc),
@@ -594,7 +584,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     kc_args = cap["KC"]
     kc = compare("KC pair_vote", lambda: da.pair_vote(*kc_args),
                  lambda: da.pair_vote_plain(*kc_args),
-                 B * NKW * 17 + P * (1 + 10),
+                 kbd.kc_bytes(P, NKW),
                  f"P={P} W={2 * NKW} E={E} mode="
                  f"{da.check_vote_shape(2 * NKW, E)} smem_bytes="
                  f"{da.kc_smem_bytes(2 * NKW, E)} launches/step=1")
@@ -622,16 +612,12 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
         fail(f"KM's tail in KD disagrees with the plain version (max |err| "
              f"{km_err})")
     n_counted = int((st_k["counts"][:-1].long() & 0xFFFFFFFF).sum())
-    n_slots = touched(st_k["counts"])
+    n_slots = kbd.touched_slots(st_k["counts"])
     kd_blocks, kd_warps = da.assign_count_grid(P)
-    # KM's bytes beyond KD's own: 7 B of u8 planes and 8 B of bf in, 8 B
-    # of hf, 1 of counted and 8 of dest out a pair, the counters' 72 B
-    # read and written
     kd = compare("KD assign_count (with KM's tail)",
                  lambda: da.assign_count(st_k, *kd_args),
                  lambda: da.assign_count_plain(st_p, *kd_args),
-                 B * NKW * 27 + B * (9 * 4 + 8) + P * 9 + n_slots * 8
-                 + 32 * P + 144,
+                 kbd.kd_bytes(P, NKW, n_slots),
                  f"reads={B} counted_kmers={n_counted} slots={n_slots} "
                  f"stats={st_k['stats'].tolist()} grid: blocks={kd_blocks} "
                  f"warps={kd_warps} launches/step=1")
@@ -642,7 +628,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     kl_blocks, kl_g = da.pair_filter_grid(P, NKW)
     kl = compare("KL pair_filter", lambda: da.pair_filter(*kl_args),
                  lambda: da.pair_filter_plain(*kl_args),
-                 4 * B * NKW + 22 * P,
+                 kbd.kl_bytes(P, NKW),
                  f"P={P} NKW={NKW} nf=4 nmf=1 cth=20 blocks={kl_blocks} of "
                  f"{kl_g} pairs (256 threads, a 16-byte chunk each) "
                  f"launches/step=1")
@@ -671,7 +657,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     km_plain_ms = cuda_ms(lambda: da.step_tail_plain(s9, *km_args))
     km_ = dict(match=True, max_abs_err=km_err, ms=kd["ms"],
                graph_ms=kd["graph_ms"], plain_ms=km_plain_ms,
-               bound_ms=(57 * P + 144) / HBM_BYTES_PER_MS, bound_by="bytes",
+               bound_ms=kbd.bound_ms(kbd.km_bytes(P)), bound_by="bytes",
                library_ms=None, fused_in="KD (counting, okam), KE "
                "(threading)", tail_graph_ms=gms["KD"] - gms["KD alone"])
     log(f"[3] KM step tail fused in KD: match=True max_abs_err={km_err} "
@@ -710,7 +696,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     kks = compare("KK[sample] prefilter_sample",
                   lambda: km.prefilter_sample(pb_d, pr_d, k, 4),
                   lambda: km.prefilter_sample_plain(pb_d, pr_d, k, 4),
-                  Bp * L + 4 * Bp + Bp * 4 * 9 + 4 * Bp,
+                  kbd.kk_sample_bytes(Bp, L, 4),
                   f"shape=({Bp},{L}) nf=4 threads={Bp * 4} queries = the "
                   f"host sampler's; launches/dispatch=1 (the sharded "
                   f"prefilter under a collective probe, shard_index)")
@@ -949,7 +935,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     # itself), but KB is still held on the 8.86 GB table
     tab, q, tdst0 = tcap["KE"][:3]
     loc = tdst0.repeat_interleave(2)[:, None].expand(-1, q.shape[1])
-    nbytes, rows, reads = kb_bytes(tab, q, loc)
+    nbytes, rows, reads = kbd.probe_bytes(tab, q, loc)
     kb["graph"] = compare(
         "KB bucket_lookup[graph]", lambda: dt.lookup_bucket(tab, q, loc),
         lambda: dt.lookup_bucket_plain(tab, q, loc), nbytes,
@@ -978,7 +964,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     if max_abs_err(ke_tail, want[2]) != 0 or not bool(st_k["stats"].any()):
         fail("KM's tail in KE disagrees with the plain version")
     n_thr_counted = int((st_k["counts"][:-1].long() & 0xFFFFFFFF).sum())
-    n_thr_slots = touched(st_k["counts"])
+    n_thr_slots = kbd.touched_slots(st_k["counts"])
     ke_b, ke_walked, ke_counted, ke_rows = ke_bytes(*ke_args[:8], ke_pair,
                                                     n_thr_slots)
     ke = compare("KE thread_walk (with KM's tail)",
@@ -1059,7 +1045,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
 
     # ---- 6c. the error-correction site scorer (KJ) ----
     results["KJ"], jlaunches = site_scorer_phase(
-        drp, dev, tbatches, src_loci, view, k, RL, kb_bytes)
+        drp, dev, tbatches, src_loci, view, k, RL)
 
     # ---- 7. okam, bait, QC and bubbles ----
     # (a) the golden CLI on cuda
@@ -1140,7 +1126,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     new[:, 1:] &= srt[:, 1:] != srt[:, :-1]
     bq = srt[new]
     bloc = dst0_.repeat_interleave(2)[devr][:, None].expand_as(srt)[new]
-    _, brows, _ = kb_bytes(bait_, bq, bloc)
+    _, brows, _ = kbd.probe_bytes(bait_, bq, bloc)
     n_dev_reads = int(devr.sum())
     kf = compare("KF read_filter", lambda: da.read_filter(*kf_args),
                  lambda: da.read_filter_plain(*kf_args),
@@ -1164,7 +1150,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
             & ((rm_ == 0) & counted_.repeat_interleave(2))[:, None])
     tq = edge_[need]
     tloc = dst0g.repeat_interleave(2)[:, None].expand_as(edge_)[need]
-    _, trows, _ = kb_bytes(tre_, tq, tloc, stop=True)
+    _, trows, _ = kbd.probe_bytes(tre_, tq, tloc, stop=True)
     n_novel = int(da.unpack_bits(da.novel_edges_plain(*kg_args), NE).sum())
     kg = compare("KG novel_edges", lambda: da.novel_edges(*kg_args),
                  lambda: da.novel_edges_plain(*kg_args),
@@ -1183,7 +1169,7 @@ def align_phases(args, dev, smi: str, bq: dict) -> dict:
     for key in ("counts", "nmapread", "kmc", "stats"):
         if not torch.equal(st_k[key], st_p[key]):
             fail(f"KD[annot] state {key} disagrees with the plain version")
-    n_slots_a = touched(st_k["counts"])
+    n_slots_a = kbd.touched_slots(st_k["counts"])
     kda = compare("KD assign_count[annot]",
                   lambda: da.assign_count(st_k, *kda_args),
                   lambda: da.assign_count_plain(st_p, *kda_args),
@@ -2006,6 +1992,101 @@ def bench_phase(bd: dict, smi: str) -> dict:
     return launches
 
 
+def geometry_phase(dev, smi: str, scale: dict) -> dict:
+    """Phase 8f: the genome-wide geometry (tools/full_index_probe.py) on a
+    world-1 NCCL group.  Builds the full index's dbi level 0 with planted
+    keys, uploads it in pinned chunks, drives its probes, prefilters and
+    counting step once (their launches, the counts set to 0 just before,
+    are returned: the ``full_geometry`` path), holds them against the
+    host lookup, the host's decisions and the compact index's state, then
+    replays each kernel against its plain version and times it beside
+    its bound and its scale-index time (``scale``: phase 3's and 5s's
+    results, which gain a ``full_geometry`` entry)."""
+    import torch
+    import torch.distributed as dist
+
+    from danbing_tk_tpu_torch.kernels import build
+    from danbing_tk_tpu_torch.parallel.mesh import make_mesh
+    from danbing_tk_tpu_torch.tools import full_index_probe as fip
+
+    t_phase = t0 = time.time()
+    log(f"[8f] device memory held before the phase: "
+        f"{torch.cuda.memory_allocated()} B")
+    geo = fip.build_geometry()
+    drp = geo["drp"]
+    lv0 = drp.dbi_tab.levels[0][0]
+    log(f"[8f] geometry: dbi level 0 {lv0.shape[0]} buckets x "
+        f"{lv0.shape[1]} u32 = {lv0.nbytes} B, {geo['nkeys']} keys of "
+        f"{len(geo['loci'])} planted loci (first {geo['loci'][:3].tolist()},"
+        f" last {geo['loci'][-3:].tolist()}), {len(drp.vv)} vv entries, "
+        f"trfl {drp.trfl_tab.nbytes} B, count state {drp.nslots} slots; "
+        f"host build {time.time() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    up = drp.tables(dev)["dbi"].uploads
+    torch.cuda.synchronize()
+    if not up or up[0]["nbytes"] != lv0.nbytes:
+        fail(f"phase 8f: the {lv0.nbytes}-B level did not go through the "
+             f"chunked upload: {up}")
+    log(f"[8f] upload: level 0 {up[0]['nbytes']} B in "
+        f"{up[0]['seconds']:.2f}s = {up[0]['gbps']:.2f} GB/s (pinned "
+        f"chunks; the rows are made on the host as they are read), all "
+        f"tables {time.time() - t0:.2f}s; device memory "
+        f"{torch.cuda.memory_allocated()} B")
+    mesh = make_mesh(device=dev)
+    try:
+        build.reset_launch_counts()
+        t0 = time.time()
+        ctx = fip.drive(drp, geo["seqs"], dev, mesh, B=65_536, pairs=16_384,
+                        geo=geo, P=4096)
+        torch.cuda.synchronize()
+        launches = build.launch_counts()
+        t_drive = time.time() - t0
+        try:
+            res = fip.verify(ctx, geo)
+        except AssertionError as e:
+            fail(f"phase 8f: {e}")
+        if res["slots_above_2_30"] <= 0:
+            fail(f"phase 8f: no count landed past slot 2^30: {res}")
+        log(f"[8f] checks = the host and the compact index: {res}; drive "
+            f"{t_drive:.1f}s, launches {launches}")
+        for t in ("KA", "KB", "KL", "KC", "KD", "KM", "KI", "KI[count]",
+                  "KK", "KK[q]", "KK[sample]", "KL[decide]"):
+            if launches[t] <= 0:
+                fail(f"phase 8f: the geometry run skipped {t}: {launches}")
+        try:
+            kres = fip.compare_kernels(ctx, timer=cuda_ms)
+        except AssertionError as e:
+            fail(f"phase 8f: {e}")
+    finally:
+        dist.destroy_process_group()
+    # each kernel beside its scale-index time (phase 3, 5s)
+    at_scale = {"KB": ("KB", "ms"), "KI[D=4]": ("KI", "ms"),
+                "KI[D=1]": ("KI", "d1_ms"),
+                "KI[count] D=1 block 0": ("KI[count]", "ms"),
+                "KL[decide]": ("KL[decide]", "ms"), "KK[q]": ("KK[q]", "ms"),
+                "KK": ("KK", "ms"), "KK[sample]": ("KK[sample]", "ms"),
+                "KA": ("KA", "ms"), "KL": ("KL", "ms"), "KC": ("KC", "ms"),
+                "KD": ("KD", "ms")}
+    for name, r in kres.items():
+        ref = at_scale.get(name)
+        sms = scale[ref[0]].get(ref[1]) if ref else None
+        log(f"[8f] {name} match=True max_abs_err=0 ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"rows={r.get('rows', '-')} bytes={r['bytes']} scale_index_ms="
+            f"{'-' if sms is None else f'{sms:.4f}'}; card {smi}")
+        if ref:
+            scale[ref[0]].setdefault("full_geometry", {})[name] = dict(
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                rows=r.get("rows"))
+    peak = torch.cuda.max_memory_allocated()
+    del ctx, geo, drp
+    log(f"[8f] genome-wide geometry: every kernel = its plain version and "
+        f"the host; max_memory_allocated={peak} B; "
+        f"phase_s={time.time() - t_phase:.1f}; card {smi}")
+    return launches
+
+
 def start_table_builds(nloci: int, seed: int) -> dict:
     """Phase 6's graph table and phase 7's tre table (host numpy, pure
     functions of the index's sequences), built one after the other in a
@@ -2251,7 +2332,7 @@ def referee_gate(flat, cfg, flagged) -> None:
         f"native_s={t_nat:.2f}")
 
 
-def site_scorer_phase(drp, dev, tbatches, src_loci, view, k, RL, kb_bytes):
+def site_scorer_phase(drp, dev, tbatches, src_loci, view, k, RL):
     """Phase 6c: B = 8192 failure sites (the mates of one P = 4096 step)
     from phase 6's TR pairs, scored on the scale graph table through
     make_site_scorer (the launches counted), KJ held exactly against its
@@ -2262,6 +2343,7 @@ def site_scorer_phase(drp, dev, tbatches, src_loci, view, k, RL, kb_bytes):
 
     from danbing_tk_tpu_torch.kernels import build
     from danbing_tk_tpu_torch.ops import correct as cr
+    from danbing_tk_tpu_torch.tools import kernel_bounds as kbd
     from danbing_tk_tpu_torch.tools.scale_index import failure_sites
 
     B, mes = 8192, 2
@@ -2325,9 +2407,9 @@ def site_scorer_phase(drp, dev, tbatches, src_loci, view, k, RL, kb_bytes):
     kjc = cr.site_scorer_config()
     site, q = cr.site_probes(gtab, *args, k, mes)
     made = len(cr.site_probes(gtab, *args, k, mes, ahead=kjc["ahead"])[1])
-    _, rows, reads = kb_bytes(gtab, q, args[2][site], stop=True)
+    _, rows, reads = kbd.probe_bytes(gtab, q, args[2][site], stop=True)
     nbytes = rows * 8 * gtab.W * 4 + B * ((k + 3) * 8 + 8 + cr.NCHAINS * 4)
-    bound = nbytes / HBM_BYTES_PER_MS
+    bound = kbd.bound_ms(nbytes)
     log(f"[6c] KJ site_scorer match=True max_abs_err={err} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
         f"us_per_site={1e3 * ms / B:.4f} (host engine ~1.1 ms per corrected "
@@ -2378,6 +2460,7 @@ def sharded_phase(args, dev, ctx) -> dict:
     from danbing_tk_tpu_torch.parallel import mesh as pm
     from danbing_tk_tpu_torch.parallel import sharded_index as si
     from danbing_tk_tpu_torch.parallel.runner import ShardedAlignRunner
+    from danbing_tk_tpu_torch.tools import kernel_bounds as kbd
     from danbing_tk_tpu_torch.tools.ab_kmers_filter import GRAPH, graph_of
     from danbing_tk_tpu_torch.tools.scale_index import sample_read_batch
 
@@ -2453,26 +2536,6 @@ def sharded_phase(args, dev, ctx) -> dict:
     tabs = drp.tables(dev)
     D = 4
 
-    def ki_bytes(meta, blk, q, loc):
-        """Bytes one rank's KI moves on this data: each gathered query
-        (and locus) read once, each distinct owned row that a query
-        probes up to its first owned hit read once, three int32 planes
-        written."""
-        qf = q.reshape(-1)
-        lf = None if loc is None else loc.reshape(-1).long() & 0xFFFFFFFF
-        lo, hi = qf & 0xFFFFFFFF, (qf >> 32) & 0xFFFFFFFF
-        rows = 0
-        done = torch.zeros(qf.shape, dtype=torch.bool, device=qf.device)
-        for t, m in zip(blk.levels, meta):
-            salt, nb, off, nrow = m
-            b = dt.bucket_index(lo, hi, lf, salt, nb)
-            probe = (b >= off) & (b < off + nrow) & ~done
-            rows += int(torch.unique(b[probe]).numel())
-            one = dt.DevTable([t], [salt], blk.composite, blk.nval)
-            done |= dt.lookup_bucket_owned_plain(one, [m], qf, lf)[0] != 0
-        return (rows * 8 * blk.W * 4
-                + qf.numel() * (8 + 8 * (loc is not None) + 12)), rows
-
     ki_res = {}
     for tname, (tab, q, loc) in (("dbi", cap["KB_dbi"] + (None,)),
                                  ("trfl", cap["KB_trfl"]),
@@ -2503,8 +2566,8 @@ def sharded_phase(args, dev, ctx) -> dict:
         ms, d_, blk, meta = worst
         plain_ms = cuda_ms(lambda: dt.lookup_bucket_owned_plain(
             blk, meta, q, loc), n=3, reps=3, warm=1)
-        nbytes, rows = ki_bytes(meta, blk, q, loc)
-        bound = nbytes / HBM_BYTES_PER_MS
+        nbytes, rows = kbd.owned_bytes(blk, meta, q, loc)
+        bound = kbd.bound_ms(nbytes)
         log(f"[5s-b] KI sharded_lookup[{tname}] D={D} match=True "
             f"max_abs_err=0 sum_vs_KB_max_abs_err=0 (on "
             f"{int(real.sum())} non-EMPTY of {q.numel()} queries) "
@@ -2532,16 +2595,16 @@ def sharded_phase(args, dev, ctx) -> dict:
             ki1.append(cuda_ms(lambda: dt.lookup_bucket_owned(
                 blk1, meta1, q, loc)))
         ms1, kb_ms1 = float(np.median(ki1)), float(np.median(kb1))
-        nbytes1, rows1 = ki_bytes(meta1, blk1, q, loc)
+        nbytes1, rows1 = kbd.owned_bytes(blk1, meta1, q, loc)
         log(f"[5s-b] KI sharded_lookup[{tname}] D=1 match=True "
             f"max_abs_err=0 vs_KB_max_abs_err=0 ms={ms1:.4f} KB_ms="
             f"{kb_ms1:.4f} (same queries, alternating) bound_ms="
-            f"{nbytes1 / HBM_BYTES_PER_MS:.4f} owned_rows={rows1}")
+            f"{kbd.bound_ms(nbytes1):.4f} owned_rows={rows1}")
         ki_res[tname] = dict(match=True, max_abs_err=0, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound,
                              bound_by="bytes", library_ms=None,
                              d1_ms=ms1, d1_kb_ms=kb_ms1,
-                             d1_bound_ms=nbytes1 / HBM_BYTES_PER_MS)
+                             d1_bound_ms=kbd.bound_ms(nbytes1))
 
     # ---- (c) KC large-E on overflow pairs of the TR pool ----
     E4 = 4096
@@ -2581,7 +2644,7 @@ def sharded_phase(args, dev, ctx) -> dict:
     kcl_plain = cuda_ms(lambda: da.pair_vote_plain(*kc_args), n=3, reps=1,
                         warm=1)
     NKW = L - k + 1
-    kcl_bound = (2 * Pt * NKW * 17 + Pt * 11) / HBM_BYTES_PER_MS
+    kcl_bound = kbd.bound_ms(kbd.kc_bytes(Pt, NKW))
     log(f"[5s-c] KC pair_vote[large-E] P={Pt} W={2 * NKW} E={E4} "
         f"match=True max_abs_err=0 ms={kcl_ms:.4f} plain_ms={kcl_plain:.4f} "
         f"bound_ms={kcl_bound:.4f} mode={mode} (512 threads a pair) "
@@ -2633,7 +2696,7 @@ def sharded_phase(args, dev, ctx) -> dict:
     nslots = srunner.state["counts"].numel()
     k15_ms = cuda_ms(lambda: pm.merged_tensor(srunner.state, "counts", mesh),
                      n=5, reps=3, warm=1)
-    k15_bound = 12 * nslots / HBM_BYTES_PER_MS
+    k15_bound = kbd.bound_ms(12 * nslots)
     ref_share = srunner.n_referee / max(srunner.n_step_pairs, 1)
     if srunner.n_resolved != srunner.n_referee:
         fail(f"phase 5s-d resolved {srunner.n_resolved} of "
@@ -2695,29 +2758,13 @@ def sharded_phase(args, dev, ctx) -> dict:
              f"{err}), or its D = 4 blocks' sum or the collective's count "
              f"with D = 1")
 
-    def kic_bytes(tab, q):
-        """Bytes KI[count] moves at D = 1 on this data: each gathered
-        query read once, each distinct row a non-EMPTY query probes up to
-        its first hit read once, 4 B a read written."""
-        qf = q.reshape(-1)
-        qf = qf[qf != -1]
-        lo, hi = qf & 0xFFFFFFFF, (qf >> 32) & 0xFFFFFFFF
-        rows = 0
-        need = torch.ones(qf.numel(), dtype=torch.bool, device=qf.device)
-        for t, salt in zip(tab.levels, tab.salts):
-            b = dt.bucket_index(lo[need], hi[need], None, salt, t.shape[0])
-            rows += int(torch.unique(b).numel())
-            sub = dt.DevTable([t], [salt], False, tab.nval)
-            need &= ~dt.lookup_bucket_plain(sub, qf)[0]
-        return 8 * q.numel() + 4 * q.shape[0] + rows * 8 * tab.W * 4, rows
-
-    kic_b, kic_rows = kic_bytes(mtab, sq)
+    kic_b, kic_rows = kbd.owned_count_bytes(blk1, meta1, sq)
     kic = dict(match=True, max_abs_err=err,
                ms=cuda_ms(lambda: dt.lookup_bucket_owned_count(
                    blk1, meta1, sq)),
                plain_ms=cuda_ms(lambda: dt.lookup_bucket_owned_count_plain(
                    blk1, meta1, sq), n=3, reps=3, warm=1),
-               bound_ms=kic_b / HBM_BYTES_PER_MS, bound_by="bytes",
+               bound_ms=kbd.bound_ms(kic_b), bound_by="bytes",
                library_ms=None, sharded_launches=sl["KI[count]"])
     kic["graph_ms"] = cuda_ms(graph_of(
         lambda: dt.lookup_bucket_owned_count(blk1, meta1, sq)).replay,
@@ -2740,7 +2787,7 @@ def sharded_phase(args, dev, ctx) -> dict:
     kld = dict(match=True, max_abs_err=err,
                ms=cuda_ms(lambda: da.prefilter_decision(*kld_args)),
                plain_ms=cuda_ms(lambda: da.prefilter_decide(*kld_args)),
-               bound_ms=18 * Pq / HBM_BYTES_PER_MS,
+               bound_ms=kbd.bound_ms(kbd.kl_decide_bytes(Pq)),
                bound_by="bytes", library_ms=None)
     kld["graph_ms"] = cuda_ms(graph_of(
         lambda: da.prefilter_decision(*kld_args)).replay, reps=5) / GRAPH
@@ -2824,6 +2871,7 @@ def pred_phase(seed: int, dev):
     from danbing_tk_tpu_torch.analysis import pred
     from danbing_tk_tpu_torch.apps import cli
     from danbing_tk_tpu_torch.kernels import build
+    from danbing_tk_tpu_torch.tools import kernel_bounds as kbd
     from danbing_tk_tpu_torch.tools import scale_pred
 
     def outs_of(d):
@@ -2900,7 +2948,7 @@ def pred_phase(seed: int, dev):
     ik_skipped = int(nik[~active].sum())
     kh_bytes = (4 * ns * (2 * act_cols + ik_skipped) + 5 * int(nik.sum())
                 + 8 * n_tr + 4 * ns * n_tr)
-    bound = kh_bytes / HBM_BYTES_PER_MS
+    bound = kbd.bound_ms(kh_bytes)
     n_dead = int(((nik > 0) & ~active).sum())
     log(f"[8b] KH bias_correct ns={ns} nk={nk} (ns*nk={ns * nk}) match=True "
         f"max_abs_err=0 ms={kh_ms:.4f} plain_ms={plain_ms:.4f} "
@@ -2977,7 +3025,8 @@ def finish(res, kh, kh_launches, kind, smi, t_start) -> int:
              "analysis": res["alaunches"],
              "build_prune": res["bq_launches"]["build_prune"],
              "qc": res["bq_launches"]["qc"],
-             "bench": res["bench_launches"]}
+             "bench": res["bench_launches"],
+             "full_geometry": res["geo_launches"]}
     # a step launches KA and KL once each and runs KM's tail once, in KD's
     # launch (counting, okam) or in KE's (threading); no standalone KM
     for path, c in paths.items():

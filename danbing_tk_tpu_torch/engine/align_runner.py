@@ -170,7 +170,7 @@ class DeviceAlignRunner:
     def __init__(self, rpgg: RPGG, cfg: AlignConfig, batch_pairs: int = 4096,
                  max_read_len: int = 256, expand_cap: int = 512,
                  retry_expand: int | list = 0, drp=None, device=None,
-                 thread_view=None):
+                 thread_view=None, prefilter_mult: int | None = None):
         """``rpgg`` is the host view of the index that referee'd pairs
         are resolved against: a host_align.RPGG (dict-backed, built from
         the text formats) or, at production scale, a flat_rpgg.FlatRPGG
@@ -188,7 +188,9 @@ class DeviceAlignRunner:
         ``graphs[d]`` (a dict or a (nodes, masks) array pair) and
         ``tr_counts[d]`` (a dict) for the batched fallback.  Its
         referee'd pairs are counted, not resolved.  ``rpgg=None`` without
-        a ``thread_view`` raises ValueError."""
+        a ``thread_view`` raises ValueError.  ``prefilter_mult``: a
+        prefilter dispatch's pairs over the step's (default
+        DTK_PREFILTER_MULT, else PREFILTER_MULT)."""
         da.check_ported_config(cfg)
         if rpgg is None and (thread_view is None or not cfg.threading):
             raise ValueError("a runner needs an rpgg (a FlatRPGG view of "
@@ -198,6 +200,7 @@ class DeviceAlignRunner:
         self.device = resolve_device(device)
         self.rpgg = rpgg
         self.cfg = cfg
+        self.prefilter_mult = prefilter_mult
         self.P = batch_pairs
         self.L = max_read_len
         self.expand_cap = expand_cap
@@ -442,6 +445,8 @@ class DeviceAlignRunner:
         """Pairs per input batch."""
         if not prefilter:
             return self.P
+        if self.prefilter_mult is not None:
+            return self.P * int(self.prefilter_mult)
         return self.P * int(os.environ.get("DTK_PREFILTER_MULT",
                                            PREFILTER_MULT))
 

@@ -711,10 +711,21 @@ def _add_u32(acc: torch.Tensor, idx: torch.Tensor, inc: torch.Tensor):
     out-of-range indices are dropped (JAX's mode="drop")."""
     n = acc.shape[0]
     keep = (idx >= 0) & (idx < n)
-    add = torch.zeros(n, dtype=torch.int64, device=acc.device)
-    add.index_add_(0, idx[keep], inc[keep].long())
-    s = ((acc.long() & _M32) + add) & _M32
-    acc.copy_(torch.where(s >= (1 << 31), s - (1 << 32), s).int())
+    idx, inc = idx[keep], inc[keep].long()
+    if n <= 4 * idx.numel():
+        add = torch.zeros(n, dtype=torch.int64, device=acc.device)
+        add.index_add_(0, idx, inc)
+        s = ((acc.long() & _M32) + add) & _M32
+        acc.copy_(torch.where(s >= (1 << 31), s - (1 << 32), s).int())
+        return
+    # a state much larger than the batch: only the slots it touches (a
+    # genome-wide count state holds 1.2e9 slots, and int64 temporaries of
+    # its size would take ~40 GB)
+    at, inv = torch.unique(idx, return_inverse=True)
+    add = torch.zeros(at.numel(), dtype=torch.int64, device=acc.device)
+    add.index_add_(0, inv, inc)
+    s = ((acc[at].long() & _M32) + add) & _M32
+    acc[at] = torch.where(s >= (1 << 31), s - (1 << 32), s).int()
 
 
 class StepTail(NamedTuple):

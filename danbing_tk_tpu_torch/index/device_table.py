@@ -5,7 +5,8 @@ danbing_tk_tpu/index/device_table.py, so both packages build the same
 bytes: per level a (nb, BUCKET * W) u32 row array, slot planes lo, hi,
 [locus if composite], val, [val2 if nval == 2] (W = 2 + composite + nval),
 empty slots EMPTY in every plane.  The port uploads each level as an
-int32 view of the same rows (``DevTable``) and probes it with kernel KB
+int32 view of the same rows (``DevTable``; a level past 1 GiB goes a chunk
+at a time through one pinned buffer) and probes it with kernel KB
 (``csrc/bucket_lookup.cu``): one 8-slot row per level, the first level
 that hits wins.  ``lookup_bucket_owned`` (kernel KI,
 ``csrc/sharded_lookup.cu``) probes only the row blocks one rank of a
@@ -15,7 +16,9 @@ sharded index owns (parallel/sharded_index.py).
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+import sys
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -234,11 +237,13 @@ def bucket_index(lo, hi, loc, salt: int, nb: int) -> torch.Tensor:
 @dataclass
 class DevTable:
     """A BucketTable's levels on one device, as int32 views of the u32
-    rows (same bytes)."""
+    rows (same bytes).  ``uploads``: for each level that upload() copied
+    in chunks, its bytes, seconds and GB/s."""
     levels: list
     salts: list
     composite: bool
     nval: int
+    uploads: list = field(default_factory=list)
 
     @property
     def W(self) -> int:
@@ -249,14 +254,87 @@ class DevTable:
         return sum(t.numel() * 4 for t in self.levels)
 
     @classmethod
-    def upload(cls, tab, device) -> "DevTable":
+    def upload(cls, tab, device, chunk_bytes: int | None = None
+               ) -> "DevTable":
         """``tab``: a BucketTable built by either package (anything with
-        ``levels`` [(u32 rows, salt)], ``composite`` and ``nval``)."""
-        levels = [torch.from_numpy(
-            np.ascontiguousarray(t, dtype=np.uint32).view(np.int32)).to(
-                device) for t, _ in tab.levels]
+        ``levels`` [(u32 rows, salt)], ``composite`` and ``nval``).  A
+        level of more than ``chunk_bytes`` (default UPLOAD_CHUNK, 1 GiB)
+        goes through upload_level_chunked; smaller levels in one copy."""
+        chunk = UPLOAD_CHUNK if chunk_bytes is None else int(chunk_bytes)
+
+        def one_shot(t):
+            a = np.ascontiguousarray(t, dtype=np.uint32)
+            if not a.flags.writeable:          # a read-only memmap
+                a = a.copy()
+            return torch.from_numpy(a.view(np.int32)).to(device)
+
+        levels, uploads = [], []
+        for t, _ in tab.levels:
+            if t.nbytes > chunk:
+                lv, rec = upload_level_chunked(t, device, chunk)
+                uploads.append(rec)
+            else:
+                lv = one_shot(t)
+            levels.append(lv)
         return cls(levels, [int(s) for _, s in tab.levels],
-                   bool(tab.composite), int(getattr(tab, "nval", 1)))
+                   bool(tab.composite), int(getattr(tab, "nval", 1)),
+                   uploads)
+
+
+UPLOAD_CHUNK = 1 << 30
+
+
+def upload_level_chunked(t, device, chunk_bytes: int = UPLOAD_CHUNK
+                         ) -> tuple:
+    """A level's (nb, row) u32 rows as an int32 tensor on ``device``,
+    copied into the preallocated tensor a chunk of rows at a time through
+    one staging buffer (pinned on a card; its two halves alternate, so
+    the host fills one while the other crosses).  ``t`` is read a slice of
+    rows at a time and never copied whole: an mmapped level pages in once,
+    straight into the staging buffer.  Any object with ``shape``,
+    ``nbytes`` and row slices that give u32 arrays will do; one with
+    ``read_rows(s, e, out)`` writes rows [s, e) into the staging buffer
+    itself (a level made as it is read: tools/full_index_probe's
+    planted 34.4 GB level went up at 5.5-6.6 GB/s so on an H100's host,
+    at 3.5 GB/s through slices that each made their chunk).  Returns
+    (the tensor, dict(nbytes, seconds, gbps)), and logs the level's
+    seconds and GB/s to stderr."""
+    dev = torch.device(device)
+    nb, row = int(t.shape[0]), int(np.prod(t.shape[1:]))
+    t0 = time.time()
+    out = torch.empty((nb,) + tuple(t.shape[1:]), dtype=torch.int32,
+                      device=dev)
+    flat = out.view(nb, row)
+    step = max(1, chunk_bytes // 2 // (4 * row))
+    cuda = dev.type == "cuda"
+    stage = torch.empty((2, step, row), dtype=torch.int32, pin_memory=cuda)
+    stage_np = stage.numpy()
+    done = [None, None]
+    for i, s in enumerate(range(0, nb, step)):
+        e = min(s + step, nb)
+        h = i % 2
+        if done[h] is not None:
+            done[h].synchronize()
+        if hasattr(t, "read_rows"):
+            t.read_rows(s, e, stage_np[h, :e - s])
+        else:
+            np.copyto(stage_np[h, :e - s], np.asarray(
+                t[s:e], dtype=np.uint32).reshape(e - s, row).view(np.int32))
+        flat[s:e].copy_(stage[h, :e - s], non_blocking=cuda)
+        if cuda:
+            done[h] = torch.cuda.Event()
+            done[h].record()
+    if cuda:
+        torch.cuda.synchronize(dev)
+    secs = time.time() - t0
+    nbytes = nb * row * 4
+    print(f"[upload] level of {nbytes / 1e9:.3f} GB ({nb} rows) in "
+          f"{secs:.2f}s = {nbytes / 1e9 / max(secs, 1e-9):.2f} GB/s "
+          f"through {2 * step * row * 4 / 2**20:.0f} MiB of "
+          f"{'pinned ' if cuda else ''}staging", file=sys.stderr,
+          flush=True)
+    return out, dict(nbytes=nbytes, seconds=secs,
+                     gbps=nbytes / 1e9 / secs if secs else None)
 
 
 def level_args(tab: DevTable) -> tuple:

@@ -56,9 +56,9 @@ from ..kernels import build
 from ..ops import kmers as km
 from .ab_assign_count import ab_pairs, card_name
 from .ab_kmers_filter import GRAPH, graph_of, timers
+from .kernel_bounds import bound_ms
 from .scale_index import build_scale_rpgg, sample_read_batch
 
-HBM_BYTES_PER_MS = 3.35e12 / 1e3        # H100 SXM HBM3, published peak
 KK_SIG = "ppiiiipppp"
 KB_SIG = "ppipppiiipppp"
 
@@ -160,7 +160,7 @@ def main(argv=None):
         if not torch.equal(work["survive"], want):
             raise RuntimeError(f"{case}: prefilter_fused_work's decision "
                                f"differs from the plain version's")
-        bound = work["nbytes"] / HBM_BYTES_PER_MS
+        bound = bound_ms(work["nbytes"])
         print(f"{case}: P={Pp} L={L} k={k} nf={nf} nmf={nmf} W={tab.W} "
               f"levels={len(tab.levels)} survivors={int(want.sum())} "
               f"pairs_probing={work['pairs_probing']} probed_queries="

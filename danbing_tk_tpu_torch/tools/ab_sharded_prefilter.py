@@ -63,6 +63,7 @@ from ..parallel import mesh as pm
 from ..parallel import sharded_index as si
 from .ab_assign_count import ab_pairs, card_name
 from .ab_kmers_filter import GRAPH, timers
+from .kernel_bounds import bound_ms, kk_sample_bytes
 from .scale_index import build_scale_rpgg, sample_read_batch
 
 KK_SIG = "ppiiiipppp"                   # dtk_prefilter_sample
@@ -211,8 +212,8 @@ def main(argv=None):
     ab_pairs("KK[sample] bare", lambda s: bare[s](), args.pairs, smi)
     ab_pairs("KK[sample] graph", lambda s: replay[s](), args.pairs, smi,
              reps=5, per=GRAPH)
-    kk_bytes = B * L + 4 * B + 9 * B * nf + 4 * B
-    print(f"KK[sample] bound_ms={kk_bytes / 3.35e9:.4f} (bytes={kk_bytes})",
+    kk_bytes = kk_sample_bytes(B, L, nf)
+    print(f"KK[sample] bound_ms={bound_ms(kk_bytes):.4f} (bytes={kk_bytes})",
           flush=True)
     if args.sample_only:
         return

@@ -62,6 +62,38 @@ def steady_stat(walls: list) -> tuple:
     return med, (max(stat) - min(stat)) / med
 
 
+def read_pool(seqs, n: int = 20_000) -> list:
+    """The first ``n`` loci's sequences as ACGT strings: the pool the
+    bench's reads are drawn from."""
+    dec = np.frombuffer(b"ACGT", dtype=np.uint8)[np.asarray(seqs[:n])]
+    return [dec[i].tobytes().decode() for i in range(len(dec))]
+
+
+def reads_file(root, seqs, nloci, kpl, npairs, frac, err, bg="random",
+               L: int = 150, seed: int = 3, tag: str = "sf") -> str:
+    """The WGS-shaped reads file (tools/bench_e2e.synth_reads, uniform
+    random background), cached under ``root`` by its shape; returns its
+    path."""
+    from .bench_e2e import synth_reads
+
+    sfx = "" if seed == 3 else f"_s{seed}"
+    reads = os.path.join(
+        root, f"{tag}_{nloci}_{kpl}_{npairs}_{frac}_{err}_{bg}{sfx}.fa")
+    if not os.path.exists(reads):
+        t0 = time.time()
+        pool = read_pool(seqs)
+        flen = min(500, len(pool[0]))
+        assert flen >= L, (
+            f"panel sequences ({len(pool[0])}bp) shorter than the read "
+            f"length {L} — raise DTK_SF_KPL")
+        synth_reads(reads, npairs, frac, pool, L=L, err=err, flen=flen,
+                    seed=seed)
+        print(f"# reads synthesized: {npairs} pairs "
+              f"({os.path.getsize(reads)/1e9:.1f} GB, "
+              f"{time.time()-t0:.0f}s)", file=sys.stderr)
+    return reads
+
+
 def main():
     """Runs the worker; returns the last pass's runner."""
     bg = os.environ.get("DTK_SF_BG", "random")
@@ -79,7 +111,6 @@ def main():
     from ..engine.flat_rpgg import FlatRPGG
     from ..engine.host_align import AlignConfig
     from ..kernels import build
-    from .bench_e2e import synth_reads
     from .scale_index import build_scale_rpgg_cached
 
     nloci = int(os.environ.get("DTK_SF_NLOCI", 80_000))
@@ -105,23 +136,7 @@ def main():
           f"{len(flat.dbi)/1e6:.1f}M keys in {time.time()-t0:.0f}s",
           file=sys.stderr, flush=True)
 
-    # WGS-shaped reads file (cached by shape)
-    reads = os.path.join(
-        root, f"sf_{nloci}_{kpl}_{npairs}_{frac}_{err}_{bg}.fa")
-    if not os.path.exists(reads):
-        t0 = time.time()
-        bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-        dec = bases[seqs]
-        pool = [dec[i].tobytes().decode()
-                for i in range(min(len(dec), 20_000))]
-        flen = min(500, len(pool[0]))
-        assert flen >= L, (
-            f"panel sequences ({len(pool[0])}bp) shorter than the read "
-            f"length {L} — raise DTK_SF_KPL")
-        synth_reads(reads, npairs, frac, pool, L=L, err=err, flen=flen)
-        print(f"# reads synthesized: {npairs} pairs "
-              f"({os.path.getsize(reads)/1e9:.1f} GB, "
-              f"{time.time()-t0:.0f}s)", file=sys.stderr)
+    reads = reads_file(root, seqs, nloci, kpl, npairs, frac, err, bg, L)
     del seqs
 
     cfg = AlignConfig(ksize=21, cth=20, n_filter=4, nm_filter=1,

@@ -1,7 +1,9 @@
 """Synthetic production-scale RPGG built directly into device tables.
 
-Port of tools/make_scale_index.py (build_scale_rpgg, its npz cache and
-sample_read_batch) on the port's own numpy table construction.  The reference's
+Port of tools/make_scale_index.py (build_scale_rpgg, its npz cache,
+sample_read_batch, and the genome-wide index's memory-lean builder
+build_full_tables and its loader load_full_tables) on the port's own
+numpy table construction.  The reference's
 production index is ~80k loci; building one through the text formats and
 Python dicts is build-pipeline territory, so this constructs a DeviceRPGG
 straight from numpy with the same table shapes and hit statistics:
@@ -43,9 +45,11 @@ from ..ops import kmers_np as K
 
 def scale_seqs(nloci: int = 80_000, kmers_per_locus: int = 1500,
                family_frac: float = 0.2, k: int = 21,
-               seed: int = 9) -> np.ndarray:
+               seed: int = 9, runs: list | None = None) -> np.ndarray:
     """The loci's sequences, (nloci, kmers_per_locus + k - 1) u8 codes, as
-    build_scale_rpgg makes them (its tables are built from these)."""
+    build_scale_rpgg and build_full_tables make them (their tables are
+    built from these).  ``runs``, a list, receives each family as (first
+    locus, size)."""
     rng = np.random.default_rng(seed)
     Ltr = kmers_per_locus + k - 1
     seqs = rng.integers(0, 4, size=(nloci, Ltr), dtype=np.uint8)
@@ -61,6 +65,8 @@ def scale_seqs(nloci: int = 80_000, kmers_per_locus: int = 1500,
         size = int(rng.integers(2, 9))
         beg = int(rng.integers(0, Ltr - seg))
         seqs[li + 1 : li + size, beg : beg + seg] = seqs[li, beg : beg + seg]
+        if runs is not None:
+            runs.append((li, size))
         famed += size
         li += size + int(rng.integers(1, 20))
     return seqs
@@ -76,22 +82,11 @@ def build_scale_rpgg(nloci: int = 80_000, kmers_per_locus: int = 1500,
 
     t0 = time.time()
     seqs = scale_seqs(nloci, kmers_per_locus, family_frac, k, seed)
-    Ltr = seqs.shape[1]
     log(f"sequences {seqs.nbytes/1e6:.0f} MB in {time.time()-t0:.1f}s")
 
     # canonical k-mers, all loci in one shot (interior windows only)
     t0 = time.time()
-    kms = np.empty((nloci, kmers_per_locus), dtype=np.uint64)
-    chunk = max(1, int(2e8 // Ltr))
-    for s in range(0, nloci, chunk):
-        e = min(s + chunk, nloci)
-        block = seqs[s:e]
-        pad = np.full((e - s, k - 1), 255, dtype=np.uint8)
-        flat = np.concatenate([block, pad], axis=1).reshape(-1)
-        flat = np.concatenate([flat, np.full(k - 1, 255, np.uint8)])
-        allk = K.seq_to_kmers(flat, k, canonical=True)
-        allk = allk.reshape(e - s, Ltr + k - 1)[:, :kmers_per_locus]
-        kms[s:e] = allk
+    kms = full_locus_kmers(seqs, kmers_per_locus, k)
     log(f"kmers extracted in {time.time()-t0:.1f}s")
 
     # per-locus dedupe: sort within row, drop repeats (ragged flat form)
@@ -484,3 +479,266 @@ def sample_read_batch(seqs, P: int, L: int, rng, frac_tr: float = 1.0,
         loci[t] = li
         return codes, rlen, loci
     return codes, rlen
+
+
+# ---------------------------------------------------------------------------
+# The genome-wide index (~1.2e9 slots): the memory-lean chunked builder
+# ---------------------------------------------------------------------------
+
+LOCUS_BITS = 17                 # entries ride as (kmer << 17) | locus
+_LOCUS_MASK = np.uint64((1 << LOCUS_BITS) - 1)
+
+
+def full_locus_kmers(seqs: np.ndarray, kmers_per_locus: int,
+                     k: int = 21) -> np.ndarray:
+    """(n, kmers_per_locus) u64: each row's canonical k-mers (its interior
+    windows), extracted in blocks of ~2e8 bases."""
+    n, Ltr = seqs.shape
+    kms = np.empty((n, kmers_per_locus), dtype=np.uint64)
+    chunk = max(1, int(2e8 // Ltr))
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        pad = np.full((e - s, k - 1), 255, dtype=np.uint8)
+        flat = np.concatenate([seqs[s:e], pad], axis=1).reshape(-1)
+        flat = np.concatenate([flat, np.full(k - 1, 255, np.uint8)])
+        allk = K.seq_to_kmers(flat, k, canonical=True)
+        kms[s:e] = allk.reshape(e - s, Ltr + k - 1)[:, :kmers_per_locus]
+    return kms
+
+
+def full_entries(kms: np.ndarray, loci: np.ndarray, chunk: int):
+    """Per-locus dedupe of ``kms`` (each row sorted in place), row i being
+    locus loci[i]: -> (packed (kmer << 17) | locus u64, rank16 the entry's
+    rank within its locus, offsets (n + 1) int64), entries in row order."""
+    n = len(kms)
+    kms.sort(axis=1)
+    per_locus = np.empty(n, dtype=np.int64)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        kb = kms[s:e]
+        keep = np.ones(kb.shape, dtype=bool)
+        keep[:, 1:] = kb[:, 1:] != kb[:, :-1]
+        per_locus[s:e] = keep.sum(axis=1)
+    np.cumsum(per_locus, out=offsets[1:])
+    nslots = int(offsets[-1])
+    packed = np.empty(nslots, dtype=np.uint64)
+    rank16 = np.empty(nslots, dtype=np.uint16)
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        kb = kms[s:e]
+        keep = np.ones(kb.shape, dtype=bool)
+        keep[:, 1:] = kb[:, 1:] != kb[:, :-1]
+        loc = np.broadcast_to(
+            np.asarray(loci[s:e], dtype=np.uint64)[:, None], kb.shape)
+        dst = slice(int(offsets[s]), int(offsets[e]))
+        packed[dst] = (kb[keep] << np.uint64(LOCUS_BITS)) | loc[keep]
+        rk = (keep.cumsum(axis=1) - 1).astype(np.uint16)
+        rank16[dst] = rk[keep]
+    return packed, rank16, offsets
+
+
+def sort_entries(packed: np.ndarray, rank16: np.ndarray):
+    """The entries sorted by (kmer, locus), rank16 following."""
+    order = np.argsort(packed, kind="stable")
+    return packed[order], rank16[order]
+
+
+def group_entries(packed: np.ndarray):
+    """Sorted entries -> (first (an entry opens its k-mer's group), gstart
+    the groups' first entries, counts int32 their sizes, shared: size >
+    1); the compares run in chunks so transients stay ~100 MB."""
+    nslots = len(packed)
+    first = np.empty(nslots, dtype=bool)
+    first[0] = True
+    CH = 100_000_000
+    for s in range(1, nslots, CH):
+        e = min(s + CH, nslots)
+        first[s:e] = (packed[s:e] >> np.uint64(LOCUS_BITS)) != \
+            (packed[s - 1:e - 1] >> np.uint64(LOCUS_BITS))
+    gstart = np.flatnonzero(first)
+    counts = np.diff(gstart, append=nslots).astype(np.int32)
+    return first, gstart, counts, counts > 1
+
+
+def vv_plane(packed, first, counts, shared):
+    """The vv plane: [n, loci...] a shared group.  Entries of a group are
+    contiguous and locus-ascending after the sort, so loci fill
+    sequentially; destinations skip one size slot a group.  -> (vv u32,
+    each shared group's vv offset, ent_shared: the entry's group is
+    shared)."""
+    ent_shared = np.repeat(shared, counts)
+    loci_sh = (packed[ent_shared] & _LOCUS_MASK).astype(np.uint32)
+    nse = len(loci_sh)
+    nsg = int(shared.sum())
+    g_of = (np.cumsum(first[ent_shared], dtype=np.int64) - 1)
+    vv = np.empty(nse + nsg, dtype=np.uint32)
+    dst = np.arange(nse, dtype=np.int64) + g_of + 1
+    vv[dst] = loci_sh
+    size_pos = dst[first[ent_shared]] - 1
+    vv[size_pos] = counts[shared].astype(np.uint32)
+    assert len(vv) < (1 << 31), "vv exceeds the u32 odd-val encoding"
+    return vv, size_pos, ent_shared
+
+
+def dbi_planes(packed, rank16, gstart, shared, vv_off_shared):
+    """The dbi table's keys, vals (locus << 1, or (vv offset << 1) | 1
+    for a shared k-mer) and second plane (a single-locus k-mer's
+    annotation: (rank << 3) | ANN_TR)."""
+    keys = (packed[gstart] >> np.uint64(LOCUS_BITS))
+    loc_first = (packed[gstart] & _LOCUS_MASK).astype(np.uint32)
+    vals = np.empty(len(gstart), dtype=np.uint32)
+    vals[~shared] = loc_first[~shared] << 1
+    vals[shared] = (vv_off_shared.astype(np.uint32) << 1) | 1
+    ann = np.zeros(len(gstart), dtype=np.uint32)
+    ann[~shared] = (rank16[gstart[~shared]].astype(np.uint32) << 3) \
+        | ANN_TR
+    return keys, vals, ann
+
+
+def trfl_entries(packed, rank16, ent_shared):
+    """The composite trfl table's entries (shared k-mers only): keys,
+    values ((rank << 3) | ANN_TR) and loci."""
+    tk = (packed[ent_shared] >> np.uint64(LOCUS_BITS))
+    tl = (packed[ent_shared] & _LOCUS_MASK).astype(np.uint32)
+    tv = (rank16[ent_shared].astype(np.uint32) << 3) | ANN_TR
+    return tk, tv, tl
+
+
+def build_full_tables(outdir: str, nloci: int = 80_000,
+                      kmers_per_locus: int = 15_000, k: int = 21,
+                      seed: int = 9, family_frac: float = 0.2,
+                      verbose: bool = True) -> dict:
+    """Builds the genome-wide index (~1.2e9 (kmer, locus) slots at the
+    defaults, the reference's production RPGG size) into ``outdir``, as
+    tools/make_scale_index.py build_full_tables does (same files, same
+    bytes):
+
+      * entries ride as ONE packed u64 plane ((kmer << 17) | locus: k = 21
+        k-mers are 42 bits, loci 17), sorted once
+      * per-locus ranks ride as u16 (the rank-encoded annotation values
+        need no global-slot array)
+      * group statistics stream in bounded chunks; every finished table
+        level spills to <outdir>/*.npy at once and is freed
+
+    Writes seqs.npy, dbi_t{i}.npy, trfl_t{i}.npy, vv.npy, offsets.npy and
+    manifest.json; returns the manifest.  load_full_tables() mmaps it back
+    as a DeviceRPGG."""
+    import gc
+    import json
+
+    os.makedirs(outdir, exist_ok=True)
+
+    def log(msg):
+        if verbose:
+            print(f"[full-index] {msg}", file=sys.stderr)
+
+    assert nloci <= (1 << LOCUS_BITS), nloci
+    Ltr = kmers_per_locus + k - 1
+    t_all = t0 = time.time()
+    seqs = scale_seqs(nloci, kmers_per_locus, family_frac, k, seed)
+    np.save(os.path.join(outdir, "seqs.npy"), seqs)
+    log(f"sequences {seqs.nbytes/1e9:.1f} GB in {time.time()-t0:.0f}s")
+
+    t0 = time.time()
+    kms = full_locus_kmers(seqs, kmers_per_locus, k)
+    del seqs
+    gc.collect()
+    log(f"kmers extracted in {time.time()-t0:.0f}s")
+
+    t0 = time.time()
+    packed, rank16, offsets = full_entries(
+        kms, np.arange(nloci), max(1, int(2e8 // Ltr)))
+    nslots = int(offsets[-1])
+    del kms
+    gc.collect()
+    log(f"{nslots/1e9:.3f}e9 slots packed in {time.time()-t0:.0f}s")
+
+    t0 = time.time()
+    packed, rank16 = sort_entries(packed, rank16)
+    gc.collect()
+    log(f"entry sort in {time.time()-t0:.0f}s")
+
+    t0 = time.time()
+    first, gstart, counts, shared = group_entries(packed)
+    nkeys = len(gstart)
+    log(f"{nkeys/1e6:.1f}M keys ({int(shared.sum())/1e6:.1f}M shared "
+        f"groups) in {time.time()-t0:.0f}s")
+
+    t0 = time.time()
+    vv, vv_off_shared, ent_shared = vv_plane(packed, first, counts, shared)
+    gc.collect()
+    log(f"vv {len(vv)/1e6:.0f}M in {time.time()-t0:.0f}s")
+
+    t0 = time.time()
+    keys, vals, ann = dbi_planes(packed, rank16, gstart, shared,
+                                 vv_off_shared)
+    log(f"dbi planes in {time.time()-t0:.0f}s")
+
+    manifest = dict(nloci=nloci, nslots=nslots, nkeys=nkeys,
+                    kmers_per_locus=kmers_per_locus)
+
+    def spill(prefix, tab):
+        meta = []
+        for i, (t, s) in enumerate(tab.levels):
+            np.save(os.path.join(outdir, f"{prefix}_t{i}.npy"), t)
+            meta.append((list(t.shape), int(s)))
+        manifest[prefix] = dict(levels=meta, composite=tab.composite,
+                                nval=tab.nval, nbytes=int(tab.nbytes))
+        log(f"{prefix} table {tab.nbytes/1e9:.2f} GB "
+            f"({len(tab.levels)} levels) spilled")
+
+    t0 = time.time()
+    dbi_tab = dt.build_bucket_table(keys, vals, vals2=ann)
+    log(f"dbi table build in {time.time()-t0:.0f}s")
+    spill("dbi", dbi_tab)
+    del dbi_tab, keys, vals, ann, gstart, counts, first
+    gc.collect()
+
+    t0 = time.time()
+    tk, tv, tl = trfl_entries(packed, rank16, ent_shared)
+    del packed, rank16, ent_shared
+    gc.collect()
+    trfl_tab = dt.build_bucket_table(tk, tv, tl)
+    log(f"trfl table build in {time.time()-t0:.0f}s")
+    spill("trfl", trfl_tab)
+    del trfl_tab, tk, tl, tv
+    gc.collect()
+
+    np.save(os.path.join(outdir, "vv.npy"), vv)
+    np.save(os.path.join(outdir, "offsets.npy"), offsets)
+    manifest["wall_s"] = int(time.time() - t_all)
+    with open(os.path.join(outdir, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    log(f"TOTAL build wall {manifest['wall_s']}s")
+    return manifest
+
+
+def load_full_tables(outdir: str, mmap: bool = True):
+    """build_full_tables() output as (DeviceRPGG, seqs, manifest).  With
+    ``mmap`` (the default) the multi-GB levels stay disk-backed until read
+    (DevTable.upload copies a large level through a pinned buffer chunk by
+    chunk).  The index has no member table: the prefilter probes dbi."""
+    import json
+
+    with open(os.path.join(outdir, "manifest.json")) as f:
+        manifest = json.load(f)
+    mode = "r" if mmap else None
+
+    def tab(prefix):
+        m = manifest[prefix]
+        levels = [
+            (np.load(os.path.join(outdir, f"{prefix}_t{i}.npy"),
+                     mmap_mode=mode), salt)
+            for i, (_, salt) in enumerate(m["levels"])]
+        return dt.BucketTable(levels, composite=m["composite"],
+                              nval=m["nval"])
+
+    drp = DeviceRPGG(
+        int(manifest["nloci"]), tab("dbi"),
+        np.load(os.path.join(outdir, "vv.npy"), mmap_mode=mode),
+        tab("trfl"), None,
+        np.load(os.path.join(outdir, "offsets.npy")),
+        int(manifest["nslots"]), member_tab=None)
+    seqs = np.load(os.path.join(outdir, "seqs.npy"), mmap_mode=mode)
+    return drp, seqs, manifest

@@ -1223,3 +1223,76 @@ def test_golden_svms_on_cuda_match_cpu(cuda, name):
     dc = mc.decision_function(X)
     terms = (mc._kernel(X) * mc.dual_coef_[0]).abs().sum(1)
     assert bool(((dg - dc).abs() <= 1e-9 * dc.abs() + 1e-13 * terms).all())
+
+
+# ---------------------------------------------------------------------------
+# the genome-wide geometry past 4 GiB (tools/full_index_probe.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def big_geo():
+    """A geometry index whose one dbi level is 2^26 rows of 128 B (8.6 GB:
+    row offsets past 2^32 bytes) and whose count state holds the uncut
+    build's 1,199,999,646 slots (80,000 loci, the planted ones at 300
+    k-mers), driven once through full_index_probe.drive on a world-1
+    group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python -m pytest --noconftest "
+                    "-m gpu tests/test_torch_gpu.py on the card)")
+    import torch.distributed as dist
+
+    from danbing_tk_tpu_torch.parallel.mesh import make_mesh
+    from danbing_tk_tpu_torch.tools import full_index_probe as fip
+
+    dev = torch.device("cuda")
+    geo = fip.build_geometry(fip.FULL_NLOCI, 300, 1 << 26, 64,
+                             fip.FULL_NSLOTS)
+    mesh = make_mesh(device=dev)
+    try:
+        ctx = fip.drive(geo["drp"], geo["seqs"], dev, mesh, B=65_536,
+                        pairs=4096, geo=geo, P=4096)
+        yield fip, geo, ctx
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        geo["drp"].__dict__.pop("_dev_cache", None)
+        torch.cuda.empty_cache()
+
+
+def test_geometry_level_past_4gib(big_geo):
+    fip, geo, ctx = big_geo
+    lv = ctx["tabs"]["dbi"].levels[0]
+    assert lv.numel() * 4 == 1 << 33 and lv.shape == (1 << 26, 32)
+    # planted rows beyond 4 GiB of the level, read back from the card
+    b = geo["drp"].dbi_tab.levels[0][0].buckets
+    far = b[b * 128 >= (1 << 32)]
+    assert len(far) > 1000
+    rows = torch.from_numpy(far[-64:]).to(lv.device)
+    want = torch.from_numpy(geo["drp"].dbi_tab.levels[0][0][far[-64:]].view(
+        np.int32))
+    assert torch.equal(lv[rows].cpu(), want)
+
+
+def test_geometry_checks_past_4gib(big_geo):
+    """KB, KI over 1 and 4 blocks, the collective probe = the host lookup;
+    the three prefilters = the host's decisions; the counting step's
+    state = the compact index's, with counts in slots past 2^30."""
+    fip, geo, ctx = big_geo
+    res = fip.verify(ctx, geo)
+    assert res["hits"] == 32_768 and res["count_state_slots"] == \
+        fip.FULL_NSLOTS
+    assert res["slots_above_2_30"] > 0 and res["max_slot"] >= 1 << 30
+
+
+def test_geometry_kernels_match_plain_past_4gib(big_geo):
+    """KB, KI (D = 1, 4), KI[count] (D = 1, 4), KL[decide], KK[q], KK,
+    KK[sample] and the counting step's KA, KB[trfl], KL, KC and KD (with
+    KM's tail) replayed on the card = their plain versions."""
+    fip, geo, ctx = big_geo
+    n0 = dict(build.launch_counts())
+    res = fip.compare_kernels(ctx)
+    assert all(r["max_abs_err"] == 0 for r in res.values())
+    got = build.launch_counts()
+    for k in ("KA", "KB", "KC", "KD", "KI", "KI[count]", "KK", "KK[q]",
+              "KK[sample]", "KL", "KL[decide]"):
+        assert got[k] > n0[k], k

@@ -32,7 +32,10 @@ for m in ("engine.threading", "engine.native_thread", "tools.scale_index",
           "pipeline.leave_one_out", "utils.config", "utils.observability",
           "tools.analysis_scenario", "utils.compile_cache", "tools.bench",
           "tools.bench_panel_funnel", "tools.bench_scale_funnel",
-          "tools.bench_e2e", "tools.make_bench_rpgg"):
+          "tools.bench_e2e", "tools.make_bench_rpgg",
+          "tools.full_index_probe", "tools.build_full_index",
+          "tools.warm_relaunch", "tools.bench_sustained",
+          "tools.soak_resume", "tools.kernel_bounds"):
     assert pkg.__name__ + "." + m in sys.modules, m
 # every command of the JAX CLI, warmup among them
 import contextlib, io
